@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (deepcgp_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py [--seed 0]
+
+Builds every CUDA kernel of the serving path from deepcgp_tpu_torch/csrc,
+holds each against its plain PyTorch version on the card, then serves the
+flagship CIFAR-shaped 2-layer conv-GP (M=384,384, 10 feature maps, filters
+5,5, strides 3,1, ConvKernel last layer; random weights from the seed)
+through ``Predictor.from_run_dir`` and checks that the requests went through
+the kernels and agree with the same model on the CPU.  The last layer's
+lengthscale is 25, not the initial 5: its 250-element input patches carry
+the hidden layer's O(1) sampling noise, so at 5 every cross-covariance
+underflows to ~1e-4, a random-weight model answers 0.1 for every class, and
+the comparison with the CPU would check nothing.  Each phase prints one
+JSON line; any failed check raises, so the script exits non-zero and prints
+no final line.  The last line is the device summary.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the tensor
+# cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+FLAGSHIP = dict(M='384,384', feature_maps='10', filter_sizes='5,5',
+                strides='3,1', base_kernel='rbf', last_kernel='conv',
+                white=False, identity_mean=False)
+IMAGE = (32, 32, 3)
+BATCH, SAMPLES = 128, 5
+LENGTHSCALES = (5.0, 25.0)
+# Serving: warm-up requests, then batch-sized requests for this many seconds.
+WARMUP_REQUESTS = 30
+WINDOW_SECONDS = 10.0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f'chip_smoke check failed: {what}')
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds of fn() over ``iters`` back-to-back calls,
+    by CUDA events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, kernel: str, iters: int = 50) -> float:
+    """Mean device milliseconds of the CUDA kernel whose name contains
+    ``kernel``, per launch, from the profiler over ``iters`` calls of fn()
+    -- the kernel alone, without the host time of its wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(hits) == 1 and hits[0].count == iters,
+          f'profiler saw {[(e.key, e.count) for e in hits]} for {kernel}')
+    return hits[0].self_device_time_total / 1e3 / iters
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def patches_of(rng, images: np.ndarray, count: int, f: int) -> np.ndarray:
+    """``count`` distinct random f x f patches of ``images`` [N, H, W, C],
+    TF order."""
+    N, H, W, C = images.shape
+    ny, nx = H - f + 1, W - f + 1
+    pick = rng.choice(N * ny * nx, count, replace=False)
+    n, y, x = pick // (ny * nx), pick // nx % ny, pick % nx
+    return np.stack([images[a, b:b + f, c:c + f, :].reshape(-1)
+                     for a, b, c in zip(n, y, x)])
+
+
+def flagship_snapshot(seed: int) -> dict:
+    """Reference-format parameters of the flagship geometry from ``seed``:
+    inducing patches from seeded images, small q_mu, lower-triangular
+    q_sqrt, variance 5, LENGTHSCALES, unit patch weights."""
+    rng = np.random.RandomState(seed)
+    images0 = rng.randn(64, *IMAGE)
+    images1 = rng.randn(64, 10, 10, 10)
+    params = {'global_step': 0}
+    for i, (images, P) in enumerate(((images0, None), (images1, 36))):
+        pre = f'DGP/layers/{i}/'
+        M, R = 384, 10
+        q_sqrt = 0.05 * np.tril(rng.randn(R, M, M), -1) + 0.3 * np.eye(M)
+        params[pre + 'feature/Z'] = patches_of(rng, images, M, 5)
+        params[pre + 'q_mu'] = 0.5 * rng.randn(M, R)
+        params[pre + 'q_sqrt'] = q_sqrt
+        params[pre + 'kern/base_kernel/variance'] = np.float64(5.0)
+        params[pre + 'kern/base_kernel/lengthscales'] = np.float64(
+            LENGTHSCALES[i])
+        if P:
+            params[pre + 'kern/patch_weights'] = np.ones(P)
+    return params
+
+
+def write_run(root: str, params: dict) -> str:
+    """A run directory as the Experiment CLI leaves it: <root>/<name>.npy
+    beside <root>/<name>/options.toml."""
+    name = 'flagship'
+    np.save(os.path.join(root, name + '.npy'), np.asarray(params, dtype=object))
+    run = os.path.join(root, name)
+    os.makedirs(run)
+    lines = [f'name = "{name}"']
+    for k, v in FLAGSHIP.items():
+        lines.append(f'{k} = {str(v).lower()}' if isinstance(v, bool)
+                     else f'{k} = "{v}"')
+    with open(os.path.join(run, 'options.toml'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return run
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--seed', type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; this script runs only on the card',
+              file=sys.stderr)
+        return 2
+    from deepcgp_tpu_torch.models.base_kernels import RBF
+    from deepcgp_tpu_torch.ops import cuda_build, cuda_cross, cuda_linalg
+    from deepcgp_tpu_torch.ops.linalg import add_jitter
+    from deepcgp_tpu_torch.serving import Predictor
+
+    dev = torch.device('cuda')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = {'card': smi}
+    emit({'phase': 'device', 'nvidia_smi': smi,
+          'name': torch.cuda.get_device_name(0),
+          'count': torch.cuda.device_count(), 'torch': torch.__version__,
+          'cuda': torch.version.cuda, 'python': sys.version.split()[0]})
+
+    # -- build: one nvcc per source, all started together ------------------
+    t0 = time.perf_counter()
+    report = cuda_build.build()
+    emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
+          'arch': 'sm_90a', 'libraries': report})
+
+    rng = np.random.RandomState(args.seed)
+    rbfs = [RBF.create(5.0, ls, device=dev) for ls in LENGTHSCALES]
+    snapshot = flagship_snapshot(args.seed)
+    Zs = [torch.as_tensor(snapshot[f'DGP/layers/{i}/feature/Z'],
+                          dtype=torch.float32, device=dev) for i in (0, 1)]
+    # The flagship's three Kuu grams: layer 0 (Z and its KL anchor), layer 1.
+    Kuu = torch.stack([add_jitter(rbfs[0].K(Zs[0])),
+                       add_jitter(rbfs[0].K(Zs[0])),
+                       add_jitter(rbfs[1].K(Zs[1]))])
+    kernels = []
+
+    # -- K1: batched Cholesky + inverse base case ----------------------------
+    D = Kuu[:, :64, :64].contiguous()
+    L, Li = cuda_linalg.chol_inv_base(D)
+    torch.cuda.synchronize()
+    Lp, Lip = cuda_linalg.chol_inv_base_plain(D)
+    eL, eLi = rel(L, Lp), rel(Li, Lip)
+    recon = float(torch.linalg.matrix_norm(L @ L.transpose(1, 2) - D).max()
+                  / torch.linalg.matrix_norm(D).min())
+    check(eL <= 1e-5 and eLi <= 1e-5 and recon <= 5e-6,
+          f'K1 [3,64,64]: dL {eL}, dLinv {eLi}, recon {recon}')
+    bad = D.clone()
+    bad[1] = -torch.eye(64, device=dev)
+    Lb, Lib = cuda_linalg.chol_inv_base(bad)
+    nan_ok = (not bool(torch.isfinite(Lb[1]).all())
+              and not bool(torch.isfinite(Lib[1]).all())
+              and bool(torch.isfinite(Lb[[0, 2]]).all()))
+    check(nan_ok, 'K1: a non-PD input must give NaN in its own factor only')
+    LB, LiB = cuda_linalg.chol_inv_batched(Kuu)
+    torch.cuda.synchronize()
+    Lref = torch.linalg.cholesky(Kuu)
+    Liref = torch.linalg.solve_triangular(
+        Lref, torch.eye(384, device=dev).expand(3, 384, 384), upper=False)
+    dB, dBi = rel(LB, Lref), rel(LiB, Liref)
+    reconB = float(torch.linalg.matrix_norm(LB @ LB.transpose(1, 2) - Kuu).max()
+                   / torch.linalg.matrix_norm(Kuu).min())
+    check(dB <= 2e-5 and dBi <= 6e-5 and reconB <= 1e-5,
+          f'K1 driver [3,384,384]: dL {dB}, dLinv {dBi}, recon {reconB}')
+    eye64 = torch.eye(64, device=dev).expand(3, 64, 64)
+    eye384 = torch.eye(384, device=dev).expand(3, 384, 384)
+
+    def lib64():
+        Lc = torch.linalg.cholesky(D)
+        return torch.linalg.solve_triangular(Lc, eye64, upper=False)
+
+    def lib384():
+        Lc = torch.linalg.cholesky(Kuu)
+        return torch.linalg.solve_triangular(Lc, eye384, upper=False)
+
+    k1_ms = kernel_ms(torch, lambda: cuda_linalg.chol_inv_base(D),
+                      'chol_inv_kernel')
+    k1_call = cuda_ms(torch, lambda: cuda_linalg.chol_inv_base(D), 200)
+    k1_plain = cuda_ms(torch, lambda: cuda_linalg.chol_inv_base_plain(D), 10)
+    k1_lib = cuda_ms(torch, lib64, 50)
+    drv_ms = cuda_ms(torch, lambda: cuda_linalg.chol_inv_batched(Kuu), 20)
+    drv_lib = cuda_ms(torch, lib384, 20)
+    b, P = D.shape[0], D.shape[1]
+    # Cholesky P^3/3 plus the triangular inverse P^3/3 per matrix.
+    k1_bound, k1_by = bound_ms(3 * 4 * b * P * P, b * 2 * P ** 3 / 3)
+    emit({'phase': 'K1 chol_inv_base', **card,
+          'shape': [b, P, P], 'max_rel_err_L': eL, 'max_rel_err_Linv': eLi,
+          'recon_rel_err': recon,
+          'tolerance': 'relative to max|.|: dL<=1e-5 dLinv<=1e-5 recon<=5e-6;'
+                       ' driver vs library dL<=2e-5 dLinv<=6e-5 recon<=1e-5',
+          'non_pd_gives_nan': nan_ok, 'ms': k1_ms, 'call_ms': k1_call,
+          'plain_ms': k1_plain,
+          'library_ms': k1_lib,
+          'library_call': 'torch.linalg.cholesky + solve_triangular',
+          'driver_shape': [3, 384, 384], 'driver_rel_err_L': dB,
+          'driver_rel_err_Linv': dBi, 'driver_recon_rel_err': reconB,
+          'driver_ms': drv_ms, 'driver_library_ms': drv_lib})
+    kernels.append({'name': 'chol_inv_base', 'route': 'cuda',
+                    'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
+                    'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:80',
+                    'max_abs_err': float(max((L - Lp).abs().max(),
+                                             (Li - Lip).abs().max())),
+                    'ms': k1_ms, 'plain_ms': k1_plain, 'bound_ms': k1_bound,
+                    'bound_by': k1_by, 'library_ms': k1_lib})
+
+    # -- K4: fused extraction -> RBF cross-covariance ------------------------
+    var = rbfs[1].variance
+    gamma = -0.5 / rbfs[1].lengthscales.square()
+    geoms = [  # (N, H, W, C, f, s, M, with_kdiag)
+        (BATCH * SAMPLES, 10, 10, 10, 5, 1, 384, True),   # flagship last layer
+        (256, 15, 13, 10, 3, 2, 200, True),
+        (256, 15, 13, 10, 3, 2, 200, False),
+    ]
+    k4 = None
+    for N, H, W, C, f, s, M, kd_on in geoms:
+        img = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
+                              device=dev)
+        Z = torch.as_tensor(patches_of(rng, rng.randn(32, H, W, C), M, f),
+                            dtype=torch.float32, device=dev)
+        Pn = ((H - f) // s + 1) * ((W - f) // s + 1)
+        w = torch.as_tensor(rng.rand(Pn) + 0.5, dtype=torch.float32, device=dev)
+        a = (img, Z, var, gamma, w / Pn, w, f, s, 1, kd_on)
+        kzx, kd = cuda_cross.conv_rbf_cross(*a)
+        torch.cuda.synchronize()
+        kzx_p, kd_p = cuda_cross.conv_rbf_cross_plain(*a)
+        atol = 1e-6 * float(var)
+        ok = (bool(torch.allclose(kzx, kzx_p, rtol=1e-5, atol=atol))
+              and bool(torch.allclose(kd, kd_p, rtol=1e-5, atol=atol)))
+        err = float(max((kzx - kzx_p).abs().max(), (kd - kd_p).abs().max()))
+        line = {'phase': 'K4 conv_rbf_cross', **card,
+                'geometry': dict(N=N, H=H, W=W, C=C, f=f, stride=s, M=M,
+                                 with_kdiag=kd_on),
+                'max_abs_err': err, 'kzx_max': float(kzx_p.abs().max()),
+                'tolerance': f'rtol 1e-5, atol {atol}'}
+        check(ok, f'K4 {line["geometry"]}: max abs err {err}')
+        if k4 is None:
+            L4 = f * f * C
+            # Cross products 2NPML; the symmetric Kdiag gram NP(P+1)L.
+            ops = 2 * N * Pn * M * L4 + (N * Pn * (Pn + 1) * L4 if kd_on else 0)
+            nbytes = 4 * (N * H * W * C + M * L4 + 2 * Pn + 2 + N * M + N)
+            k4_bound, k4_by = bound_ms(nbytes, ops)
+            ms = kernel_ms(torch, lambda: cuda_cross.conv_rbf_cross(*a),
+                           'conv_rbf_cross_kernel')
+            call = cuda_ms(torch, lambda: cuda_cross.conv_rbf_cross(*a), 50)
+            plain = cuda_ms(torch, lambda: cuda_cross.conv_rbf_cross_plain(*a), 10)
+            line.update(ms=ms, call_ms=call, plain_ms=plain, library_ms=None,
+                        library_note='no single PyTorch call computes the '
+                        'weighted patch-sum RBF cross-covariance',
+                        bound_ms=k4_bound, bound_by=k4_by,
+                        gflop=ops / 1e9, achieved_tflops=ops / ms / 1e9)
+            k4 = {'name': 'conv_rbf_cross', 'route': 'cuda',
+                  'source': 'deepcgp_tpu_torch/csrc/conv_rbf_cross.cu',
+                  'replaces': 'deepcgp_tpu/ops/pallas_cross.py:165',
+                  'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
+                  'bound_ms': k4_bound, 'bound_by': k4_by, 'library_ms': None}
+        emit(line)
+    kernels.append(k4)
+
+    # -- serving: the flagship through Predictor.from_run_dir ---------------
+    with tempfile.TemporaryDirectory() as root:
+        run = write_run(root, snapshot)
+        pred = Predictor.from_run_dir(run, IMAGE, batch_size=BATCH,
+                                      num_samples=SAMPLES)
+        X = rng.randn(4096, *IMAGE).astype(np.float32)
+        Y = rng.randint(0, 10, size=(4096, 1))
+        chunks = len(X) // BATCH
+        for r in range(WARMUP_REQUESTS):
+            pred.predict_proba(X[BATCH * (r % chunks):][:BATCH])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        cuda_linalg.chol_inv_base.launches = 0
+        cuda_cross.conv_rbf_cross.launches = 0
+        calls0 = pred._calls
+        probs_small = pred.predict_proba(X[:300])       # 300 = 2 x 128 + 44
+        # The window: one batch-sized request after another, each ending in
+        # the Predictor's synchronize(); its rate is all images over all
+        # wall time, its tail from every request's latency.
+        latency = []
+        t_window = time.perf_counter()
+        while time.perf_counter() - t_window < WINDOW_SECONDS:
+            rows = X[BATCH * (len(latency) % chunks):][:BATCH]
+            t = time.perf_counter()
+            probs = pred.predict_proba(rows)
+            latency.append(time.perf_counter() - t)
+        window = time.perf_counter() - t_window
+        labels = pred.predict(X[:200])
+        dens = pred.log_density(X[:200], Y[:200])
+        batches = pred._calls - calls0
+        launches = {'chol_inv_base': cuda_linalg.chol_inv_base.launches,
+                    'conv_rbf_cross': cuda_cross.conv_rbf_cross.launches}
+        peak = torch.cuda.max_memory_allocated()
+
+        check(probs_small.shape == (300, 10) and probs.shape == (BATCH, 10),
+              'probability shapes')
+        check(bool(np.isfinite(probs_small).all() and np.isfinite(probs).all()),
+              'probabilities finite')
+        check(float(np.abs(probs.sum(1) - 1).max()) < 5e-3,
+              'probabilities sum to 1')
+        check(labels.shape == (200,) and bool(np.isfinite(dens).all())
+              and bool((dens <= 1e-6).all()), 'labels and log-densities')
+        check(launches['chol_inv_base'] == 6 * batches
+              and launches['conv_rbf_cross'] == batches,
+              f'launches {launches} for {batches} predict_y calls')
+
+        # The same model on the CPU (plain versions), fed the same noise.
+        cpu_model = Predictor.from_run_dir(run, IMAGE, device='cpu').model
+        n = BATCH
+        noise = [rng.randn(SAMPLES, n, 1000), rng.randn(SAMPLES, n, 10)]
+        xb = torch.as_tensor(X[:n].reshape(n, -1))
+        p_gpu = pred.model.predict_y(xb.to(dev), SAMPLES, noise=noise)[0]
+        p_cpu = cpu_model.predict_y(xb, SAMPLES, noise=noise)[0]
+        check(float(p_cpu.std()) > 1e-3,
+              'the flagship snapshot answers the same everywhere: the card vs'
+              ' CPU comparison would check nothing')
+        yb = torch.as_tensor(Y[:n])
+        d_gpu = pred.model.predict_density(xb.to(dev), yb.to(dev), SAMPLES,
+                                           noise=noise)
+        d_cpu = cpu_model.predict_density(xb, yb, SAMPLES, noise=noise)
+        dp = float((p_gpu.cpu() - p_cpu).abs().max())
+        dd = float((d_gpu.cpu() - d_cpu).abs().max())
+        check(dp <= 1e-4, f'card vs CPU probabilities differ by {dp}')
+        check(dd <= 1e-3, f'card vs CPU log-densities differ by {dd}')
+
+        lat_ms = np.sort(np.asarray(latency)) * 1e3
+        emit({'phase': 'serving', **card, 'config': FLAGSHIP, 'image': IMAGE,
+              'batch_size': BATCH, 'num_samples': SAMPLES,
+              'warmup_requests': WARMUP_REQUESTS,
+              'requests': {'predict_proba_rows': 300, 'window_requests':
+                           len(latency), 'window_request_rows': BATCH,
+                           'predict_rows': 200, 'log_density_rows': 200},
+              'predict_y_calls': batches, 'launches': launches,
+              'window_seconds': window,
+              'requests_per_s': len(latency) / window,
+              'images_per_s': BATCH * len(latency) / window,
+              'latency_ms': {q: float(np.percentile(lat_ms, v)) for q, v in
+                             (('p50', 50), ('p90', 90), ('p99', 99))}
+              | {'min': float(lat_ms[0]), 'max': float(lat_ms[-1])},
+              'max_memory_allocated_bytes': peak,
+              'card_vs_cpu_max_abs_prob': dp,
+              'card_vs_cpu_max_abs_log_density': dd,
+              'tolerance': 'probabilities atol 1e-4, log-densities atol 1e-3'})
+
+        # Where a request's time goes: 16 batch-sized requests under the
+        # profiler, device time by kernel and the device's busy share.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for r in range(16):
+                pred.predict_proba(X[BATCH * r:][:BATCH])
+            wall_ms = (time.perf_counter() - t) * 1e3
+        # Device-side entries only (kernels, copies): an operator's entry
+        # repeats the time of the kernels it launched.
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+        emit({'phase': 'profile', **card, 'requests': 16,
+              'request_rows': BATCH,
+              'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+              'device_busy_share': busy_ms / wall_ms,
+              'top_device_ms': [[e.key[:90], e.count,
+                                 e.self_device_time_total / 1e3]
+                                for e in top]})
+
+    for k in kernels:
+        k['launches'] = launches[k['name']]
+    order = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    emit({'kernels': [{key: k[key] for key in order} for k in kernels]})
+    print(smi, flush=True)
+    emit({'ok': True, 'device': {'platform': 'gpu',
+                                 'kind': torch.cuda.get_device_name(0),
+                                 'count': torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Doubly-stochastic deep GP, prediction side (counterpart of
+``deepcgp_tpu/models/dgp.py``).
+
+The Kuu factorizations are computed once per call and shared by the S
+Monte-Carlo samples; the first layer's conditional depends only on X, so it
+is evaluated once and sampled S times; later layers fold the S sample paths
+into the batch.  Sampling noise comes from an explicit ``torch.Generator``,
+or is handed in whole (the parity tests replay the JAX package's draws).
+"""
+
+from __future__ import annotations
+
+import math
+import typing
+
+import torch
+
+from deepcgp_tpu_torch.config import JITTER
+from deepcgp_tpu_torch.ops import linalg
+
+
+class PropagateResult(typing.NamedTuple):
+    samples: list    # per layer: [S, N, O_l]
+    means: list
+    variances: list
+
+
+class DGP:
+    """A stack of layers and a likelihood."""
+
+    def __init__(self, layers, likelihood):
+        self.layers = tuple(layers)
+        self.likelihood = likelihood
+
+    def precompute(self) -> tuple:
+        """Per-layer caches; all same-shape Kuu grams of the stack (the
+        conditionals' and the frozen KL priors') are factorized, with their
+        inverses, in one batched call per distinct shape."""
+        grams = [layer.kuu_grams() for layer in self.layers]
+        flat = [g for gs in grams for g in gs]
+        pairs: list = [None] * len(flat)
+        by_shape: dict = {}
+        for i, g in enumerate(flat):
+            by_shape.setdefault(tuple(g.shape), []).append(i)
+        for idxs in by_shape.values():
+            Lb, Lib = linalg.chol_with_inv(torch.stack([flat[i] for i in idxs]))
+            for k, i in enumerate(idxs):
+                pairs[i] = (Lb[k], Lib[k])
+        caches, pos = [], 0
+        for layer, gs in zip(self.layers, grams):
+            caches.append(layer.make_cache(tuple(pairs[pos:pos + len(gs)])))
+            pos += len(gs)
+        return tuple(caches)
+
+    def propagate(self, X: torch.Tensor, S: int, *,
+                  generator: torch.Generator | None = None,
+                  noise: list | None = None, caches=None) -> PropagateResult:
+        """Draw S sample paths through the stack; X [N, D].  The standard
+        normals come from ``noise`` (one [S, N, O_l] tensor per layer) when
+        given, else from ``generator``."""
+        if (noise is None) == (generator is None):
+            raise ValueError('propagate: pass exactly one of generator, noise')
+        if caches is None:
+            caches = self.precompute()
+        samples, means, variances = [], [], []
+        F = None
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            if F is None:
+                mean, var = layer.conditional_mean_var(cache, X)
+                mean = mean.expand(S, *mean.shape)
+                var = var.expand(S, *var.shape)
+            else:
+                S_, N_, O_ = F.shape
+                mean, var = layer.conditional_mean_var(
+                    cache, F.reshape(S_ * N_, O_))
+                mean = mean.reshape(S_, N_, -1)
+                var = var.reshape(S_, N_, -1)
+            if noise is not None:
+                z = torch.as_tensor(noise[i], dtype=mean.dtype, device=mean.device)
+                if z.shape != mean.shape:
+                    raise ValueError(f'noise[{i}] is {tuple(z.shape)}, '
+                                     f'layer {i} draws {tuple(mean.shape)}')
+            else:
+                z = torch.randn(mean.shape, generator=generator,
+                                dtype=mean.dtype, device=mean.device)
+            F = mean + z * torch.sqrt(var + JITTER)
+            samples.append(F)
+            means.append(mean)
+            variances.append(var)
+        return PropagateResult(samples, means, variances)
+
+    def predict_y(self, X: torch.Tensor, S: int, **draw):
+        """Per-sample predictive class probabilities and their variances,
+        ([S, N, K], [S, N, K]).  ``draw``: ``generator=`` or ``noise=``."""
+        res = self.propagate(X, S, **draw)
+        return self.likelihood.predict_mean_and_var(res.means[-1],
+                                                    res.variances[-1])
+
+    def predict_density(self, X: torch.Tensor, Y: torch.Tensor, S: int,
+                        **draw) -> torch.Tensor:
+        """Per-point log E_S[p(y | f_L)], [N, 1]."""
+        res = self.propagate(X, S, **draw)
+        Yb = Y.expand(S, *Y.shape)
+        logp = self.likelihood.predict_density(res.means[-1],
+                                               res.variances[-1], Yb)
+        return torch.logsumexp(logp, dim=0) - math.log(S)

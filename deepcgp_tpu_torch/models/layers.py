@@ -1,0 +1,112 @@
+"""GP layers: the hidden convolutional layer and the final SVGP layer
+(counterpart of ``deepcgp_tpu/models/layers.py``, forward and diagonal
+covariance only).
+
+Each layer exposes ``kuu_grams()`` (the [M, M] grams to factorize),
+``make_cache(pairs)`` (a LayerCache from their (L, L^-1) pairs) and
+``conditional_mean_var(cache, ND_X)`` -> (mean [N, O], var [N, O]).
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from deepcgp_tpu_torch.config import JITTER
+from deepcgp_tpu_torch.models.conv_kernels import MultiOutputConvKernel
+from deepcgp_tpu_torch.ops.conditional import multi_output_conditional
+from deepcgp_tpu_torch.ops.linalg import add_jitter
+
+
+class LayerCache(typing.NamedTuple):
+    Lm: torch.Tensor                  # chol(Kuu(Z)), [M, M]
+    Lp: typing.Any = None             # ConvLayer, non-white: chol(Kuu(Z0))
+    Lm_inv: typing.Any = None
+    Lp_inv: typing.Any = None
+
+
+class ConvLayer:
+    """Hidden layer: ``gp_count`` independent GPs shared across the P patch
+    positions; ``num_outputs = P * gp_count``, laid out (P, R) so that the
+    next layer reads it as an [Hout, Wout, gp_count] image."""
+
+    def __init__(self, base_kernel, Z, q_mu, q_sqrt, Z0, mean_function,
+                 view, white: bool = False, gp_count: int = 1):
+        self.base_kernel = base_kernel
+        self.Z = Z              # [M, L] inducing patches
+        self.q_mu = q_mu        # [M, R]
+        self.q_sqrt = q_sqrt    # [R, M, M], lower triangle used
+        self.Z0 = Z0            # frozen Z of the non-white KL prior
+        self.mean_function = mean_function
+        self.view = view
+        self.white = white
+        self.gp_count = gp_count
+
+    @property
+    def num_outputs(self) -> int:
+        return self.view.patch_count * self.gp_count
+
+    @property
+    def conv_kernel(self) -> MultiOutputConvKernel:
+        return MultiOutputConvKernel(self.base_kernel, self.view.patch_count)
+
+    def kuu_grams(self) -> tuple:
+        """Kuu(Z) for the conditional, plus Kuu(Z0) of the KL prior when
+        non-white: the grams the model factorizes in one batched call."""
+        if self.white:
+            return (self.conv_kernel.Kuu(self.Z),)
+        return (self.conv_kernel.Kuu(self.Z), self.conv_kernel.Kuu(self.Z0))
+
+    def make_cache(self, pairs: tuple) -> LayerCache:
+        Lm, Lm_inv = pairs[0]
+        if self.white:
+            return LayerCache(Lm=Lm, Lm_inv=Lm_inv)
+        Lp, Lp_inv = pairs[1]
+        return LayerCache(Lm=Lm, Lp=Lp, Lm_inv=Lm_inv, Lp_inv=Lp_inv)
+
+    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor):
+        """(mean [N, P*R], var [N, P*R])."""
+        N = ND_X.shape[0]
+        H, W = self.view.input_size
+        NHWC_X = ND_X.reshape(N, H, W, self.view.feature_maps)
+        NPL = self.view.extract_patches_NPL(NHWC_X)
+        PNL = NPL.transpose(0, 1)
+        Kuf = self.conv_kernel.Kuf_PNM(self.Z, PNL)           # [P, N, M]
+        Knn = self.conv_kernel.Kdiag(PNL)                     # [P, N]
+        mean, var = multi_output_conditional(
+            Kuf, Knn, self.q_mu, Lm_inv=cache.Lm_inv, q_sqrt=self.q_sqrt,
+            white=self.white)
+        var = var.permute(2, 1, 0).reshape(N, self.num_outputs)
+        mean = mean.reshape(N, self.num_outputs)
+        return mean + self.mean_function(self.view.mean_view(NHWC_X, NPL)), var
+
+
+class SVGPLayer:
+    """Final SVGP layer over the whole flattened image, one patch-sum
+    kernel shared by ``num_outputs`` latent GPs."""
+
+    def __init__(self, kernel, Z, q_mu, q_sqrt, mean_function,
+                 white: bool = False, num_outputs: int = 10):
+        self.kernel = kernel
+        self.Z = Z              # [M, L]
+        self.q_mu = q_mu        # [M, R]
+        self.q_sqrt = q_sqrt    # [R, M, M]
+        self.mean_function = mean_function
+        self.white = white
+        self.num_outputs = num_outputs
+
+    def kuu_grams(self) -> tuple:
+        return (add_jitter(self.kernel.Kzz(self.Z), JITTER),)
+
+    def make_cache(self, pairs: tuple) -> LayerCache:
+        Lm, Lm_inv = pairs[0]
+        return LayerCache(Lm=Lm, Lm_inv=Lm_inv)
+
+    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor):
+        """(mean [N, R], var [N, R])."""
+        Kuf, Knn = self.kernel.Kzx_NM_and_Kdiag(self.Z, ND_X)
+        mean, var = multi_output_conditional(
+            Kuf[None], Knn[None], self.q_mu, Lm_inv=cache.Lm_inv,
+            q_sqrt=self.q_sqrt, white=self.white)
+        return mean[:, 0, :] + self.mean_function(ND_X), var[:, 0].T

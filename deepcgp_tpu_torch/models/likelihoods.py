@@ -1,0 +1,83 @@
+"""Robust-max multiclass likelihood (counterpart of
+``deepcgp_tpu/models/likelihoods.py``, the prediction side).
+
+p(y = c | f) = 1 - eps if c = argmax(f), else eps / (K - 1).  The
+probability that a latent is the largest under a factorised Gaussian q(f)
+is a 1-D Gauss-Hermite quadrature, as gpflow's ``RobustMax`` computes it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from deepcgp_tpu_torch.config import NUM_GAUSS_HERMITE_POINTS
+
+
+def _gh_points(n: int, like: torch.Tensor):
+    x, w = np.polynomial.hermite.hermgauss(n)
+    return (torch.as_tensor(x, dtype=like.dtype, device=like.device),
+            torch.as_tensor(w, dtype=like.dtype, device=like.device))
+
+
+def _cdf(x: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF with gpflow's clip into [1e-4, 1 - 1e-4]."""
+    return (0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))) * (1.0 - 2e-4) + 1e-4
+
+
+class MultiClass:
+    """Robust-max likelihood over ``num_classes`` classes."""
+
+    def __init__(self, num_classes: int = 10, epsilon: float = 1e-3,
+                 num_gauss_hermite: int = NUM_GAUSS_HERMITE_POINTS):
+        self.num_classes = num_classes
+        self.epsilon = epsilon
+        self.num_gauss_hermite = num_gauss_hermite
+
+    @property
+    def _eps_k1(self) -> float:
+        return self.epsilon / (self.num_classes - 1.0)
+
+    def prob_is_largest(self, Y: torch.Tensor, mu: torch.Tensor,
+                        var: torch.Tensor) -> torch.Tensor:
+        """P(f_{y_n} >= f_j for all j): Y [..., 1] int labels, mu, var
+        [..., K] -> [..., 1]."""
+        gh_x, gh_w = _gh_points(self.num_gauss_hermite, mu)
+        oh = torch.nn.functional.one_hot(Y[..., 0].long(),
+                                         self.num_classes).to(mu.dtype)
+        mu_sel = (oh * mu).sum(-1)
+        var_sel = (oh * var).sum(-1)
+        X = mu_sel[..., None] + gh_x * torch.sqrt(
+            (2.0 * var_sel[..., None]).clamp_min(1e-10))      # [..., H]
+        dist = (X[..., None, :] - mu[..., :, None]) / torch.sqrt(
+            var[..., :, None].clamp_min(1e-10))                # [..., K, H]
+        cdfs = _cdf(dist)
+        cdfs = cdfs * (1.0 - oh[..., None]) + oh[..., None]
+        p = (cdfs.prod(-2) * gh_w).sum(-1) / math.sqrt(math.pi)
+        return p[..., None]
+
+    def _prob_each_is_largest(self, mu: torch.Tensor, var: torch.Tensor):
+        """P(f_c >= f_j for all j) for every class c at once: [..., K]."""
+        gh_x, gh_w = _gh_points(self.num_gauss_hermite, mu)
+        K = self.num_classes
+        X = mu[..., :, None] + gh_x * torch.sqrt(
+            (2.0 * var[..., :, None]).clamp_min(1e-10))       # [..., Kc, H]
+        dist = (X[..., :, None, :] - mu[..., None, :, None]) / torch.sqrt(
+            var[..., None, :, None].clamp_min(1e-10))          # [..., Kc, Kj, H]
+        cdfs = _cdf(dist)
+        eye = torch.eye(K, dtype=mu.dtype, device=mu.device)[..., None]
+        cdfs = cdfs * (1.0 - eye) + eye
+        return (cdfs.prod(-2) * gh_w).sum(-1) / math.sqrt(math.pi)
+
+    def predict_mean_and_var(self, Fmu: torch.Tensor, Fvar: torch.Tensor):
+        """Class probabilities p(y = c) and their Bernoulli variances."""
+        p = self._prob_each_is_largest(Fmu, Fvar)
+        mean = p * (1.0 - self.epsilon) + (1.0 - p) * self._eps_k1
+        return mean, mean - mean.square()
+
+    def predict_density(self, Fmu: torch.Tensor, Fvar: torch.Tensor,
+                        Y: torch.Tensor) -> torch.Tensor:
+        p = self.prob_is_largest(Y, Fmu, Fvar)
+        return torch.log(p * (1.0 - self.epsilon) + (1.0 - p) * self._eps_k1)

@@ -1,0 +1,28 @@
+"""Pairwise squared distances (counterpart of ``deepcgp_tpu/ops/distances.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def square_distance(X: torch.Tensor, X2: torch.Tensor | None = None) -> torch.Tensor:
+    """||x_i - x2_j||^2 for rows of X [..., N, D] and X2 [..., N2, D], in the
+    expanded form Xs - 2 X X2^T + X2s, clamped at zero against float32
+    cancellation.
+
+    A self-gram (X2 None) becomes a Kuu that is factorized, so its rows are
+    centred first: distances are translation-invariant, and centring
+    shrinks the magnitudes entering the cancellation from ||x||^2 to
+    ||x - mean||^2 -- the JAX package measured the uncentred float32 gram
+    of a 3-layer CIFAR configuration going indefinite past the jitter."""
+    if X2 is None:
+        Xc = X - X.mean(dim=-2, keepdim=True)
+        Xs = Xc.square().sum(-1)
+        cross = Xc @ Xc.transpose(-1, -2)
+        X2s = Xs
+    else:
+        Xs = X.square().sum(-1)
+        cross = X @ X2.transpose(-1, -2)
+        X2s = X2.square().sum(-1)
+    d2 = Xs[..., :, None] - 2.0 * cross + X2s[..., None, :]
+    return d2.clamp_min(0.0)

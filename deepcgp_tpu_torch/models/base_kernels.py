@@ -5,20 +5,29 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from deepcgp_tpu_torch.ops.distances import square_distance
 from deepcgp_tpu_torch.utils.transforms import positive_backward, positive_forward
 
 
-class RBF:
+def frozen_parameter(value: torch.Tensor) -> nn.Parameter:
+    """A trainable leaf, created without ``requires_grad``: prediction
+    builds no autograd graph, and ``training.trainer.init_state`` switches
+    gradients on for the parameters it trains."""
+    return nn.Parameter(torch.as_tensor(value).detach(), requires_grad=False)
+
+
+class RBF(nn.Module):
     """k(x, x') = variance * exp(-||x - x'||^2 / (2 lengthscales^2)).
 
     Holds raw (Log1pe-inverse) parameters; ``raw_lengthscales`` is a scalar
     for an isotropic kernel or [D] for ARD."""
 
     def __init__(self, raw_variance: torch.Tensor, raw_lengthscales: torch.Tensor):
-        self.raw_variance = raw_variance
-        self.raw_lengthscales = raw_lengthscales
+        super().__init__()
+        self.raw_variance = frozen_parameter(raw_variance)
+        self.raw_lengthscales = frozen_parameter(raw_lengthscales)
 
     @classmethod
     def create(cls, variance=5.0, lengthscales=5.0, *, ard_dim: int | None = None,

@@ -1,5 +1,5 @@
 """Convolutional (patch-space) kernels (counterpart of
-``deepcgp_tpu/models/conv_kernels.py``, the parts serving needs).
+``deepcgp_tpu/models/conv_kernels.py``, the parts the flagship needs).
 
 Patch weights are stored in TF patch order, as the snapshots hold them.
 """
@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from deepcgp_tpu_torch.config import JITTER
+from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
 from deepcgp_tpu_torch.ops.linalg import add_jitter
 
 
@@ -39,12 +41,13 @@ def _default_patch_weights(patch_count: int, patch_weights, dtype, device):
     return torch.as_tensor(np.asarray(patch_weights), dtype=dtype, device=device)
 
 
-class AdditivePatchKernel:
+class AdditivePatchKernel(nn.Module):
     """K(x, x') = mean_p w_p k(x[p], x'[p]) over flattened images."""
 
     def __init__(self, base_kernel, patch_weights: torch.Tensor, view):
+        super().__init__()
         self.base_kernel = base_kernel
-        self.patch_weights = patch_weights  # [P]
+        self.patch_weights = frozen_parameter(patch_weights)  # [P]
         self.view = view
 
     @classmethod
@@ -62,7 +65,8 @@ class AdditivePatchKernel:
         return v.expand(ND_X.shape[0]).to(ND_X.dtype)
 
     def Kzx_NM_and_Kdiag(self, Z: torch.Tensor, ND_X: torch.Tensor):
-        """(Kzx [N, M], Kdiag [N]) through the fused CUDA kernel."""
+        """(Kzx [N, M], Kdiag [N]) through the fused CUDA kernel (K4
+        forward, K5 backward)."""
         from deepcgp_tpu_torch.ops import cuda_cross
         return cuda_cross.kzx_and_kdiag(self, Z, ND_X)
 
@@ -72,9 +76,9 @@ class ConvKernel(AdditivePatchKernel):
     K(x, x') = sum_pq w_p w_q k(x[p], x'[q]) / P^2."""
 
     def Kdiag(self, ND_X: torch.Tensor) -> torch.Tensor:
-        """[N]: the weighted gram of each image's own patches.  The serving
-        path gets it from the fused kernel with Kzx; this is the plain
-        form for callers that need Kdiag alone."""
+        """[N]: the weighted gram of each image's own patches.  The model
+        gets it from the fused kernel with Kzx; this is the plain form for
+        callers that need Kdiag alone."""
         N = ND_X.shape[0]
         H, W = self.view.input_size
         patches = self.view.extract_patches_NPL(

@@ -1,11 +1,11 @@
-"""Doubly-stochastic deep GP, prediction side (counterpart of
-``deepcgp_tpu/models/dgp.py``).
+"""Doubly-stochastic deep GP (counterpart of ``deepcgp_tpu/models/dgp.py``).
 
 The Kuu factorizations are computed once per call and shared by the S
 Monte-Carlo samples; the first layer's conditional depends only on X, so it
 is evaluated once and sampled S times; later layers fold the S sample paths
 into the batch.  Sampling noise comes from an explicit ``torch.Generator``,
 or is handed in whole (the parity tests replay the JAX package's draws).
+Prediction runs without autograd; ``elbo`` is differentiable.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import math
 import typing
 
 import torch
+from torch import nn
 
 from deepcgp_tpu_torch.config import JITTER
 from deepcgp_tpu_torch.ops import linalg
@@ -25,12 +26,18 @@ class PropagateResult(typing.NamedTuple):
     variances: list
 
 
-class DGP:
-    """A stack of layers and a likelihood."""
+class DGP(nn.Module):
+    """A stack of layers and a likelihood.  ``num_data`` is the training
+    set's size (the minibatch ELBO's scale), ``num_samples`` the S of the
+    training ELBO."""
 
-    def __init__(self, layers, likelihood):
-        self.layers = tuple(layers)
+    def __init__(self, layers, likelihood, num_data: int = 0,
+                 num_samples: int = 10):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
         self.likelihood = likelihood
+        self.num_data = num_data
+        self.num_samples = num_samples
 
     def precompute(self) -> tuple:
         """Per-layer caches; all same-shape Kuu grams of the stack (the
@@ -89,6 +96,33 @@ class DGP:
             variances.append(var)
         return PropagateResult(samples, means, variances)
 
+    # -- training ------------------------------------------------------------
+    def expected_log_likelihood(self, X: torch.Tensor, Y: torch.Tensor,
+                                caches=None, **draw) -> torch.Tensor:
+        """Monte-Carlo E_q[log p(y | f_L)] over ``num_samples`` paths,
+        summed over the batch.  ``draw``: ``generator=`` or ``noise=``."""
+        S = self.num_samples
+        res = self.propagate(X, S, caches=caches, **draw)
+        Yb = Y.expand(S, *Y.shape)
+        ve = self.likelihood.variational_expectations(
+            res.means[-1], res.variances[-1], Yb)
+        return ve.mean(0).sum()
+
+    def prior_kl(self, caches=None) -> torch.Tensor:
+        if caches is None:
+            caches = (None,) * len(self.layers)
+        return sum(layer.KL(cache)
+                   for layer, cache in zip(self.layers, caches))
+
+    def elbo(self, X: torch.Tensor, Y: torch.Tensor, **draw) -> torch.Tensor:
+        """Minibatch ELBO: num_data / batch * E_q[log p(y | f)] - sum KL."""
+        caches = self.precompute()
+        scale = self.num_data / X.shape[0]
+        return scale * self.expected_log_likelihood(X, Y, caches, **draw) \
+            - self.prior_kl(caches)
+
+    # -- prediction ----------------------------------------------------------
+    @torch.no_grad()
     def predict_y(self, X: torch.Tensor, S: int, **draw):
         """Per-sample predictive class probabilities and their variances,
         ([S, N, K], [S, N, K]).  ``draw``: ``generator=`` or ``noise=``."""
@@ -96,6 +130,7 @@ class DGP:
         return self.likelihood.predict_mean_and_var(res.means[-1],
                                                     res.variances[-1])
 
+    @torch.no_grad()
     def predict_density(self, X: torch.Tensor, Y: torch.Tensor, S: int,
                         **draw) -> torch.Tensor:
         """Per-point log E_S[p(y | f_L)], [N, 1]."""

@@ -1,5 +1,5 @@
 """Robust-max multiclass likelihood (counterpart of
-``deepcgp_tpu/models/likelihoods.py``, the prediction side).
+``deepcgp_tpu/models/likelihoods.py``).
 
 p(y = c | f) = 1 - eps if c = argmax(f), else eps / (K - 1).  The
 probability that a latent is the largest under a factorised Gaussian q(f)
@@ -57,6 +57,13 @@ class MultiClass:
         cdfs = cdfs * (1.0 - oh[..., None]) + oh[..., None]
         p = (cdfs.prod(-2) * gh_w).sum(-1) / math.sqrt(math.pi)
         return p[..., None]
+
+    def variational_expectations(self, Fmu: torch.Tensor, Fvar: torch.Tensor,
+                                 Y: torch.Tensor) -> torch.Tensor:
+        """E_q[log p(y | f)]: [..., 1]."""
+        p = self.prob_is_largest(Y, Fmu, Fvar)
+        return p * math.log(1.0 - self.epsilon) + \
+            (1.0 - p) * math.log(self._eps_k1)
 
     def _prob_each_is_largest(self, mu: torch.Tensor, var: torch.Tensor):
         """P(f_c >= f_j for all j) for every class c at once: [..., K]."""

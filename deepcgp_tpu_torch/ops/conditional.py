@@ -34,4 +34,4 @@ def multi_output_conditional(Kmn: torch.Tensor, Knn: torch.Tensor,
         fvar = fvar + qterm.reshape(P, N, R).permute(2, 0, 1)
     # A marginal variance is >= 0; float32 cancellation in Knn - ||A||^2 on
     # an ill-conditioned Kmm can push it below, and sqrt(var) would NaN.
-    return fmean, fvar.clamp_min(0.0)
+    return fmean, torch.maximum(fvar, fvar.new_zeros(()))

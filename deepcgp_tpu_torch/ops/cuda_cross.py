@@ -1,10 +1,15 @@
-"""Fused patch extraction -> RBF cross-covariance of the last layer.
+"""Fused patch extraction -> RBF cross-covariance of the last layer, and
+its backward.
 
-Counterpart of the forward of ``deepcgp_tpu/ops/pallas_cross.py``:
-(Kzx [N, M], Kdiag [N]) of a patch-sum kernel with a scalar-lengthscale
-RBF base over a FullView, straight from the images, in one launch of
-``csrc/conv_rbf_cross.cu``.  The [N, P, L] patch tensor and the [N, P, M]
-kernel matrix never reach device memory.
+Counterpart of ``deepcgp_tpu/ops/pallas_cross.py``: (Kzx [N, M], Kdiag
+[N]) of a patch-sum kernel with a scalar-lengthscale RBF base over a
+FullView, straight from the images, in one launch of
+``csrc/conv_rbf_cross.cu`` (K4); its gradients in two launches of
+``csrc/conv_rbf_cross_bwd.cu`` (K5, image side and Z side).  The [N, P, L]
+patch tensor never reaches device memory; the backward keeps one [N, P, M]
+intermediate there (see the source).  :func:`fused_conv_rbf_cross` is the
+``torch.autograd.Function`` that ties the two together, as JAX's custom
+VJP does: its forward saves only (images, Z, variance, gamma, u, wkd).
 """
 
 from __future__ import annotations
@@ -18,12 +23,18 @@ from deepcgp_tpu_torch.ops.patches import extract_patches, out_size
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
-# Inducing columns per kernel tile (kMT in csrc/conv_rbf_cross.cu).
+# Inducing columns per kernel tile (kMT in the sources).
 _MT = 128
+# The backward's image-side block: one warp per 8 patch rows, at most 8
+# warps; its dpatches accumulators cover at most 4 column tiles.
+BWD_MAX_P = 64
+BWD_MAX_L = 4 * _MT
+# Blocks the backward's Z side aims to put on the card (132 SMs x 4).
+_Z_SIDE_BLOCKS = 528
 
 
 def smem_bytes(P: int, L: int) -> int:
-    """Shared memory of one kernel block: the transposed patch matrix
+    """Shared memory of one forward block: the transposed patch matrix
     [L, Ppad] plus norm and reduction buffers (mirror of
     ``conv_rbf_cross_smem_bytes`` in the source)."""
     Ppad = -(-P // 8) * 8
@@ -31,11 +42,28 @@ def smem_bytes(P: int, L: int) -> int:
     return 4 * (L * Ppad + Ppad + _MT + warps * _MT)
 
 
+def bwd_smem_bytes(P: int, L: int) -> int:
+    """Shared memory of one image-side backward block (mirror of
+    ``conv_rbf_cross_bwd_image_smem_bytes``): the patches in two layouts,
+    one column tile of T, the gram's S and small buffers."""
+    Ppad = -(-P // 8) * 8
+    Lpad = -(-L // _MT) * _MT
+    return 4 * (L * Ppad + Ppad * Lpad + _MT * Ppad + Ppad * (Ppad + 1)
+                + 3 * Ppad + _MT + 16)
+
+
+def _geometry(NHWC_X, filter_size, stride, dilation):
+    N, H, W, C = NHWC_X.shape
+    Hout = out_size(H, filter_size, stride, dilation)
+    Wout = out_size(W, filter_size, stride, dilation)
+    return Hout * Wout, filter_size * filter_size * C
+
+
 def conv_rbf_cross_plain(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
                          stride=1, dilation=1, with_kdiag=True):
-    """Plain PyTorch version of the kernel: im2col, distances, exp and the
-    patch sums, materialized.  ``u`` and ``wkd`` are [P] in TF patch
-    order; Kdiag is zeros unless ``with_kdiag``."""
+    """Plain PyTorch version of the forward kernel: im2col, distances, exp
+    and the patch sums, materialized.  ``u`` and ``wkd`` are [P] in TF
+    patch order; Kdiag is zeros unless ``with_kdiag``."""
     patches = extract_patches(NHWC_X, filter_size, stride, dilation)  # [N,P,L]
     P = patches.shape[1]
     pn = patches.square().sum(-1)                                     # [N, P]
@@ -52,23 +80,116 @@ def conv_rbf_cross_plain(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
     return kzx, (Kd * W2).sum((1, 2))
 
 
-# (Z, Z._version, Zt) of the last inducing matrix launched: a served model
-# passes the same Z on every call, so its transposed copy is built once.
-_zt_cache = None
+def col2im(dpatches, image_shape, filter_size, stride=1, dilation=1):
+    """Adjoint of :func:`extract_patches`: [N, P, L] -> [N, H, W, C], the
+    patch elements summed into the pixels they were read from."""
+    N = dpatches.shape[0]
+    H, W, C = image_shape
+    f = filter_size
+    Hout = out_size(H, f, stride, dilation)
+    Wout = out_size(W, f, stride, dilation)
+    dev = dpatches.device
+    oy = torch.arange(Hout, device=dev).repeat_interleave(Wout)
+    ox = torch.arange(Wout, device=dev).repeat(Hout)
+    l = torch.arange(f * f * C, device=dev)
+    fy, fx, c = l // (f * C), (l // C) % f, l % C
+    y = oy[:, None] * stride + fy[None, :] * dilation
+    x = ox[:, None] * stride + fx[None, :] * dilation
+    idx = ((y * W + x) * C + c[None, :]).reshape(-1)                  # [P*L]
+    out = dpatches.new_zeros(N, H * W * C)
+    out.index_add_(1, idx, dpatches.reshape(N, -1))
+    return out.reshape(N, H, W, C)
+
+
+def conv_rbf_cross_bwd_plain(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
+                             stride, dilation, with_kdiag, dkzx, dkd):
+    """Plain PyTorch version of the backward kernels: the formulas of the
+    TPU kernel's ``_bwd_kernel`` on materialized [N, P, M] and [N, P, P]
+    tensors, with the same strict masks D > 0 and E > 0 (not the gradient
+    of ``clamp_min``, which passes at D == 0).  Returns (d images, dZ,
+    d variance, d gamma, du, dwkd)."""
+    patches = extract_patches(NHWC_X, filter_size, stride, dilation)  # [N,P,L]
+    P = patches.shape[1]
+    pn = patches.square().sum(-1)
+    zn = Z.square().sum(-1)
+    D = pn[:, :, None] + zn - 2.0 * (patches @ Z.T)                   # [N,P,M]
+    Dhat = D.clamp_min(0.0)
+    K = variance * torch.exp(gamma * Dhat)
+    AUK = u[None, :, None] * dkzx[:, None, :] * K
+    dvar = AUK.sum() / variance
+    dgamma = (AUK * Dhat).sum()
+    T = AUK * gamma * (D > 0).to(K.dtype)
+    dpatches = -2.0 * (T @ Z) + 2.0 * patches * T.sum(-1, keepdim=True)
+    dZ = (-2.0 * torch.einsum('npm,npl->ml', T, patches)
+          + 2.0 * Z * T.sum((0, 1))[:, None])
+    du = torch.einsum('nm,npm->p', dkzx, K)
+    if with_kdiag:
+        G = patches @ patches.transpose(1, 2)
+        E = pn[:, :, None] + pn[:, None, :] - 2.0 * G                 # [N,P,P]
+        Ehat = E.clamp_min(0.0)
+        Kd = variance * torch.exp(gamma * Ehat)
+        W2 = wkd[:, None] * wkd[None, :] / (P * P)
+        base = dkd[:, None, None] * W2 * Kd
+        dvar = dvar + base.sum() / variance
+        dgamma = dgamma + (base * Ehat).sum()
+        S = base * gamma * (E > 0).to(K.dtype)
+        Ssym = S + S.transpose(1, 2)
+        dpatches = (dpatches - 2.0 * (Ssym @ patches)
+                    + 2.0 * patches * Ssym.sum(-1, keepdim=True))
+        KdS = Kd + Kd.transpose(1, 2)
+        dwkd = (dkd[:, None] * (KdS * wkd).sum(-1)).sum(0) / (P * P)
+    else:
+        dwkd = torch.zeros_like(wkd)
+    dimg = col2im(dpatches, NHWC_X.shape[1:], filter_size, stride, dilation)
+    return dimg, dZ, dvar, dgamma, du, dwkd
+
+
+# Per kind, (Z, Z._version, padded copy) of the last inducing matrix: a
+# served model passes the same Z on every call, and a training step reads
+# the same Z in its forward and backward, so each copy is built once.
+_pad_cache: dict = {}
+
+
+def _cached(kind, Z, build):
+    hit = _pad_cache.get(kind)
+    if hit is not None and hit[0] is Z and hit[1] == Z._version:
+        return hit[2]
+    out = build(Z)
+    _pad_cache[kind] = (Z, Z._version, out)
+    return out
 
 
 def _padded_zt(Z):
-    """Z^T [L, Mpad], zero-padded to whole column tiles, as the kernel
-    reads it; rebuilt when Z is another tensor or was written in place."""
-    global _zt_cache
-    hit = _zt_cache
-    if hit is not None and hit[0] is Z and hit[1] == Z._version:
-        return hit[2]
-    M, L = Z.shape
-    Zt = torch.zeros(L, -(-M // _MT) * _MT, dtype=Z.dtype, device=Z.device)
-    Zt[:, :M] = Z.T
-    _zt_cache = (Z, Z._version, Zt)
-    return Zt
+    """Z^T [L, Mpad], zero-padded to whole column tiles, as the kernels
+    read it; rebuilt when Z is another tensor or was written in place."""
+    def build(Z):
+        M, L = Z.shape
+        Zt = torch.zeros(L, -(-M // _MT) * _MT, dtype=Z.dtype, device=Z.device)
+        Zt[:, :M] = Z.detach().T
+        return Zt
+    return _cached('zt', Z, build)
+
+
+def _padded_z(Z):
+    """Z [Mpad, Lpad], zero-padded to whole tiles both ways (the backward's
+    image side reads its rows as float4s)."""
+    def build(Z):
+        M, L = Z.shape
+        Zp = torch.zeros(-(-M // _MT) * _MT, -(-L // _MT) * _MT,
+                         dtype=Z.dtype, device=Z.device)
+        Zp[:M, :L] = Z.detach()
+        return Zp
+    return _cached('zp', Z, build)
+
+
+def _check_cuda(name, tensors: dict, device):
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f'{name}: {key} on {t.device}')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name}: float32 only, {key} is {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {key} must be contiguous')
 
 
 def _launch(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
@@ -107,18 +228,9 @@ def conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
                                     filter_size, stride, dilation, with_kdiag)
     if NHWC_X.device.type != 'cuda':
         raise ValueError(f'conv_rbf_cross: unsupported device {NHWC_X.device}')
-    N, H, W, C = NHWC_X.shape
-    Hout = out_size(H, filter_size, stride, dilation)
-    Wout = out_size(W, filter_size, stride, dilation)
-    P, L = Hout * Wout, filter_size * filter_size * C
-    tensors = dict(NHWC_X=NHWC_X, Z=Z, u=u, wkd=wkd)
-    for name, t in tensors.items():
-        if t.device != NHWC_X.device:
-            raise ValueError(f'conv_rbf_cross: {name} on {t.device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'conv_rbf_cross: float32 only, {name} is {t.dtype}')
-        if not t.is_contiguous():
-            raise ValueError(f'conv_rbf_cross: {name} must be contiguous')
+    P, L = _geometry(NHWC_X, filter_size, stride, dilation)
+    _check_cuda('conv_rbf_cross', dict(NHWC_X=NHWC_X, Z=Z, u=u, wkd=wkd),
+                NHWC_X.device)
     if Z.ndim != 2 or Z.shape[1] != L or u.shape != (P,) or wkd.shape != (P,):
         raise ValueError(
             f'conv_rbf_cross: Z {tuple(Z.shape)}, u {tuple(u.shape)}, wkd '
@@ -133,11 +245,130 @@ def conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
 conv_rbf_cross.launches = 0
 
 
+def bwd_fits(P: int, L: int) -> bool:
+    """Whether the backward kernels take a geometry: P <= 64, L <= 512 and
+    the image-side block within shared memory."""
+    return (0 < P <= BWD_MAX_P and L <= BWD_MAX_L
+            and bwd_smem_bytes(P, L) <= SMEM_LIMIT)
+
+
+def _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
+                with_kdiag, dkzx, dkd):
+    N, H, W, C = NHWC_X.shape
+    M, L = Z.shape
+    P = u.shape[0]
+    Zt, Zp = _padded_zt(Z), _padded_z(Z)
+    Mpad = Zt.shape[1]
+    dev = Z.device
+    T = torch.empty(N, P, Mpad, dtype=Z.dtype, device=dev)
+    part = torch.empty(N, 2 * P + 2, dtype=Z.dtype, device=dev)
+    dimg = torch.empty_like(NHWC_X)
+    dZ = torch.empty_like(Z)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    image = cuda_build.function(
+        'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image',
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    cuda_build.check(image(NHWC_X.data_ptr(), Zt.data_ptr(), Zp.data_ptr(),
+                           scal.data_ptr(), u.data_ptr(), wkd.data_ptr(),
+                           dkzx.data_ptr(), dkd.data_ptr(), T.data_ptr(),
+                           part.data_ptr(), dimg.data_ptr(), N, H, W, C,
+                           filter_size, stride, dilation, M, Mpad,
+                           int(with_kdiag), stream),
+                     'conv_rbf_cross_bwd_image')
+    conv_rbf_cross_bwd.launches += 1
+    tiles = (Mpad // 64) * (-(-L // _MT))
+    chunk = -(-N // max(1, min(N, _Z_SIDE_BLOCKS // tiles)))
+    zside = cuda_build.function(
+        'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_z',
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    cuda_build.check(zside(NHWC_X.data_ptr(), Z.data_ptr(), T.data_ptr(),
+                           dZ.data_ptr(), N, H, W, C, filter_size, stride,
+                           dilation, M, Mpad, chunk, stream),
+                     'conv_rbf_cross_bwd_z')
+    conv_rbf_cross_bwd.launches += 1
+    sums = part.sum(0)
+    return dimg, dZ, sums[2 * P], sums[2 * P + 1], sums[:P], sums[P:2 * P]
+
+
+def conv_rbf_cross_bwd(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
+                       stride, dilation, with_kdiag, dkzx, dkd):
+    """Gradients of :func:`conv_rbf_cross` for the cotangents dkzx [N, M]
+    and dkd [N] (read only with Kdiag): (d images, dZ, d variance,
+    d gamma, du, dwkd).
+
+    CUDA tensors launch the two backward kernels (float32, contiguous,
+    :func:`bwd_fits` geometry) or raise; CPU tensors take
+    :func:`conv_rbf_cross_bwd_plain`."""
+    if NHWC_X.device.type == 'cpu':
+        return conv_rbf_cross_bwd_plain(NHWC_X, Z, variance, gamma, u, wkd,
+                                        filter_size, stride, dilation,
+                                        with_kdiag, dkzx, dkd)
+    if NHWC_X.device.type != 'cuda':
+        raise ValueError(f'conv_rbf_cross_bwd: unsupported device {NHWC_X.device}')
+    P, L = _geometry(NHWC_X, filter_size, stride, dilation)
+    N, M = NHWC_X.shape[0], Z.shape[0]
+    _check_cuda('conv_rbf_cross_bwd',
+                dict(NHWC_X=NHWC_X, Z=Z, u=u, wkd=wkd, dkzx=dkzx, dkd=dkd),
+                NHWC_X.device)
+    if (Z.shape[1] != L or u.shape != (P,) or wkd.shape != (P,)
+            or dkzx.shape != (N, M) or dkd.shape != (N,)):
+        raise ValueError('conv_rbf_cross_bwd: shapes do not fit the geometry')
+    if not bwd_fits(P, L):
+        raise NotImplementedError(
+            f'conv_rbf_cross_bwd: P={P}, L={L} is outside the backward '
+            f'kernel (P <= {BWD_MAX_P}, L <= {BWD_MAX_L}); the unfused '
+            'backward comes with K6/K7 (ROADMAP queue A5)')
+    scal = torch.stack([variance, gamma]).to(Z.device, torch.float32)
+    return _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
+                       with_kdiag, dkzx, dkd)
+
+
+conv_rbf_cross_bwd.launches = 0
+
+
+class _FusedConvRBFCross(torch.autograd.Function):
+    """K4 forward, K5 backward.  Saves only the inputs, as the JAX custom
+    VJP's ``_vjp_fwd`` does; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, NHWC_X, Z, variance, gamma, u, wkd, filter_size, stride,
+                dilation, with_kdiag):
+        ctx.save_for_backward(NHWC_X, Z, variance, gamma, u, wkd)
+        ctx.geometry = (filter_size, stride, dilation, with_kdiag)
+        return conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd,
+                              filter_size, stride, dilation, with_kdiag)
+
+    @staticmethod
+    def backward(ctx, dkzx, dkd):
+        NHWC_X, Z, variance, gamma, u, wkd = ctx.saved_tensors
+        filter_size, stride, dilation, with_kdiag = ctx.geometry
+        N, M = NHWC_X.shape[0], Z.shape[0]
+        dkzx = (Z.new_zeros(N, M) if dkzx is None
+                else dkzx.to(Z.dtype).contiguous())
+        dkd = (Z.new_zeros(N) if dkd is None or not with_kdiag
+               else dkd.to(Z.dtype).contiguous())
+        dimg, dZ, dvar, dgamma, du, dwkd = conv_rbf_cross_bwd(
+            NHWC_X, Z, variance, gamma, u, wkd, filter_size, stride,
+            dilation, with_kdiag, dkzx, dkd)
+        return (dimg, dZ, dvar.reshape(variance.shape).to(variance.dtype),
+                dgamma.reshape(gamma.shape).to(gamma.dtype), du, dwkd,
+                None, None, None, None)
+
+
+def fused_conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
+                         stride=1, dilation=1, with_kdiag=True):
+    """Differentiable :func:`conv_rbf_cross`: K4 forward, K5 backward (the
+    plain versions of both on CPU tensors)."""
+    return _FusedConvRBFCross.apply(NHWC_X, Z, variance, gamma, u, wkd,
+                                    filter_size, stride, dilation, with_kdiag)
+
+
 def supported(kernel) -> bool:
     """Whether ``kernel`` (a patch-sum kernel) evaluates through the fused
     path: scalar-lengthscale RBF base over a FullView whose patches fit one
-    block's shared memory.  Mirrors ``pallas_cross.kernel_supported``; the
-    CUDA kernel takes any batch size, so there is no block rule."""
+    forward block's shared memory.  Mirrors ``pallas_cross.kernel_supported``;
+    the CUDA kernel takes any batch size, so there is no block rule.  The
+    backward's narrower envelope is :func:`bwd_fits`."""
     from deepcgp_tpu_torch.models.base_kernels import RBF
     from deepcgp_tpu_torch.models.conv_kernels import AdditivePatchKernel
     from deepcgp_tpu_torch.models.views import FullView
@@ -151,7 +382,8 @@ def supported(kernel) -> bool:
 
 
 def kzx_and_kdiag(kernel, Z, ND_X):
-    """The fused evaluation of ``kernel.Kzx_NM_and_Kdiag(Z, ND_X)``.
+    """The fused evaluation of ``kernel.Kzx_NM_and_Kdiag(Z, ND_X)``,
+    differentiable in every input.
 
     ConvKernel: Kdiag is the weighted double patch sum from the kernel's
     in-block gram.  AdditivePatchKernel: the RBF Kdiag is the constant
@@ -166,13 +398,14 @@ def kzx_and_kdiag(kernel, Z, ND_X):
     base = kernel.base_kernel
     N = ND_X.shape[0]
     H, W = view.input_size
-    NHWC = ND_X.reshape(N, H, W, view.feature_maps)
+    NHWC = ND_X.reshape(N, H, W, view.feature_maps).contiguous()
     w = kernel.patch_weights
     with_kdiag = isinstance(kernel, ConvKernel)
     gamma = -0.5 / base.lengthscales.square()
-    kzx, kdiag = conv_rbf_cross(NHWC, Z, base.variance, gamma,
-                                w / view.patch_count, w, view.filter_size,
-                                view.stride, view.dilation, with_kdiag)
+    kzx, kdiag = fused_conv_rbf_cross(NHWC, Z, base.variance, gamma,
+                                      w / view.patch_count, w,
+                                      view.filter_size, view.stride,
+                                      view.dilation, with_kdiag)
     if not with_kdiag:
         kdiag = kernel.Kdiag(ND_X)
     return kzx, kdiag

@@ -132,6 +132,8 @@ def test_entry_points_need_a_device(monkeypatch):
 
 
 def test_fresh_init_is_refused():
-    """Serving builds only from saved inducing points."""
-    with pytest.raises(NotImplementedError, match='Z'):
+    """Without training images there is nothing to initialise a layer's
+    inducing points from: a build that lacks a saved Z and the images is
+    refused."""
+    with pytest.raises(ValueError, match='Z'):
         builder.build_model(FLAGS, IMAGE, {}, device='cpu')

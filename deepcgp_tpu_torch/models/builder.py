@@ -4,7 +4,8 @@
 A layer whose parameters were loaded keeps them; every other parameter is
 initialised as the reference does: inducing patches by k-means of sampled
 training patches, propagated to the next layer by the identity
-convolution; q_mu zero; q_sqrt = 1e-5 chol(Kuu) for a fresh hidden layer
+convolution (a plain-RBF last layer's inducing points by k-means++ of its
+flattened inputs); q_mu zero; q_sqrt = 1e-5 chol(Kuu) for a fresh hidden layer
 and chol(Kuu) for a fresh last layer (the identity, scaled alike, when
 whitened).  Fresh initialisation needs the training images; serving
 builds from a snapshot alone.
@@ -21,8 +22,10 @@ from deepcgp_tpu_torch.models.conv_kernels import (AdditivePatchKernel,
                                                    ConvKernel,
                                                    MultiOutputConvKernel)
 from deepcgp_tpu_torch.models.dgp import DGP
-from deepcgp_tpu_torch.models.inducing import patch_inducing_points
-from deepcgp_tpu_torch.models.layers import ConvLayer, SVGPLayer, fresh_q_sqrt
+from deepcgp_tpu_torch.models.inducing import (inducing_points_from_data,
+                                               patch_inducing_points)
+from deepcgp_tpu_torch.models.layers import (ConvLayer, SVGPLayer, fresh_q_sqrt,
+                                             kernel_gram)
 from deepcgp_tpu_torch.models.likelihoods import MultiClass
 from deepcgp_tpu_torch.models.mean_functions import Zero
 from deepcgp_tpu_torch.models.views import FullView
@@ -84,7 +87,9 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
                 images: np.ndarray | None = None,
                 generator: torch.Generator | None = None,
                 num_data: int | None = None, dtype=None, device=None) -> DGP:
-    """Hidden ConvLayers plus a final SVGP layer over images of
+    """Hidden ConvLayers (none for an empty ``feature_maps``) plus a final
+    SVGP layer -- a patch-sum kernel ('conv', 'add') or an ARD RBF over the
+    flattened input ('rbf') -- over images of
     ``image_shape`` = (H, W, C), from the per-layer dict of
     ``checkpoint.parse_layer_parameters``.  ``flags`` carries the training
     CLI's M, feature_maps, filter_sizes, strides, base_kernel,
@@ -98,7 +103,7 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
     if flags.base_kernel != 'rbf':
         raise NotImplementedError(f'base kernel {flags.base_kernel!r} is not '
                                   'ported yet (ROADMAP queue A)')
-    if flags.last_kernel not in ('conv', 'add'):
+    if flags.last_kernel not in ('conv', 'add', 'rbf'):
         raise NotImplementedError(f'last kernel {flags.last_kernel!r} is not '
                                   'ported yet (ROADMAP queue A)')
     if flags.identity_mean:
@@ -152,21 +157,13 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
 
     last = len(Ms) - 1
     params = dict(loaded_parameters.get(last, {}))
-    f = filter_sizes[-1]
-    if 'Z' in params and np.asarray(params['Z']).shape[1] != f * f * C:
-        # Reset on a filter-size mismatch, as the reference does.
-        for key in ('Z', 'q_mu', 'q_sqrt'):
-            params.pop(key, None)
-    view = FullView(input_size=(H, W), filter_size=f, feature_maps=C,
-                    stride=strides[-1])
-    base = RBF.create(params.get('base_kernel/variance', 5.0),
-                      params.get('base_kernel/lengthscales', 5.0), **kw)
-    cls = ConvKernel if flags.last_kernel == 'conv' else AdditivePatchKernel
-    kernel = cls.create(base, view, params.get('patch_weights'), **kw)
-    if 'Z' in params:
-        Z = _tensor(params['Z'], **kw)
+    if flags.last_kernel == 'rbf':
+        kernel, Z = _rbf_last_layer(params, H_X, Ms[-1], H * W * C, generator,
+                                    **kw)
     else:
-        Z = _fresh_Z(H_X, last, Ms[-1], f, generator, **kw)
+        kernel, Z = _patch_last_layer(flags, params, H_X, last, Ms[-1], H, W,
+                                      C, filter_sizes[-1], strides[-1],
+                                      generator, **kw)
     M, R = Z.shape[0], 10
     q_mu = (_tensor(params['q_mu'], **kw) if 'q_mu' in params
             else torch.zeros(M, R, **kw))
@@ -175,8 +172,49 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
     elif flags.white:
         q_sqrt = _white_q_sqrt(M, R, 1.0, **kw)
     else:
-        q_sqrt = fresh_q_sqrt(add_jitter(kernel.Kzz(Z), config.JITTER), R)
+        q_sqrt = fresh_q_sqrt(add_jitter(kernel_gram(kernel, Z), config.JITTER), R)
     layers.append(SVGPLayer(kernel, Z, q_mu, q_sqrt, Zero(R),
                             white=flags.white, num_outputs=R))
     return DGP(layers, MultiClass(10), num_data=num_data or 0,
                num_samples=int(getattr(flags, 'num_samples', 10)))
+
+
+def _patch_last_layer(flags, params, H_X, i, M, H, W, C, f, stride,
+                      generator, dtype, device):
+    """(ConvKernel or AdditivePatchKernel over the layer's input image,
+    Z): loaded inducing patches, reset on a filter-size mismatch as the
+    reference does, else k-means of sampled patches."""
+    if 'Z' in params and np.asarray(params['Z']).shape[1] != f * f * C:
+        for key in ('Z', 'q_mu', 'q_sqrt'):
+            params.pop(key, None)
+    kw = dict(dtype=dtype, device=device)
+    view = FullView(input_size=(H, W), filter_size=f, feature_maps=C,
+                    stride=stride)
+    base = RBF.create(params.get('base_kernel/variance', 5.0),
+                      params.get('base_kernel/lengthscales', 5.0), **kw)
+    cls = ConvKernel if flags.last_kernel == 'conv' else AdditivePatchKernel
+    kernel = cls.create(base, view, params.get('patch_weights'), **kw)
+    if 'Z' in params:
+        return kernel, _tensor(params['Z'], **kw)
+    return kernel, _fresh_Z(H_X, i, M, f, generator, **kw)
+
+
+def _rbf_last_layer(params, H_X, M, D, generator, dtype, device):
+    """(ARD RBF over the D flattened inputs, Z).  A plain kernel's
+    hyperparameters are stored under the un-prefixed 'variance' and
+    'lengthscales' (gpflow's pathnames of a bare RBF, which the reference
+    reads back); the prefixed names are the fallback.  Fresh inducing
+    points are k-means++ of the flattened training inputs."""
+    kw = dict(dtype=dtype, device=device)
+    kernel = RBF.create(
+        params.get('variance', params.get('base_kernel/variance', 5.0)),
+        params.get('lengthscales',
+                   params.get('base_kernel/lengthscales', 5.0)),
+        ard_dim=D, **kw)
+    if 'Z' in params:
+        return kernel, _tensor(params['Z'], **kw)
+    if H_X is None:
+        raise ValueError('the last layer has no saved Z: pass the training '
+                         'images to initialise it')
+    return kernel, inducing_points_from_data(
+        H_X.reshape(H_X.shape[0], -1), M, generator=generator, **kw)

@@ -1,6 +1,8 @@
-"""Inducing-patch initialisation (counterpart of
-``deepcgp_tpu/models/inducing.py``): 100 M random patches, one from a
-random training image each, then k-means with M clusters."""
+"""Inducing-feature initialisation (counterpart of
+``deepcgp_tpu/models/inducing.py``): for patch features 100 M random
+patches, one from a random training image each, then k-means with M
+clusters; for the inducing points of a plain-RBF last layer k-means with
+k-means++ seeding over the data rows."""
 
 from __future__ import annotations
 
@@ -49,3 +51,13 @@ def patch_inducing_points(NHWC: np.ndarray, M: int, patch_size: int, *,
                              patch_size, generator)
     X = torch.as_tensor(patches, dtype=dtype, device=device)
     return kmeans(X, M, kmeans_iters, generator=generator)
+
+
+def inducing_points_from_data(X: np.ndarray, M: int, *,
+                              generator: torch.Generator, dtype=torch.float32,
+                              device=None, kmeans_iters: int = 50) -> torch.Tensor:
+    """[M, D] initial inducing points of a plain-RBF last layer: k-means
+    with k-means++ seeding over the (flattened) data rows X [N, D],
+    clustered on ``device``."""
+    X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
+    return kmeans(X, M, kmeans_iters, generator=generator, init='k-means++')

@@ -114,10 +114,18 @@ class ConvLayer(nn.Module):
         return linalg.gauss_kl(self.q_mu, self.q_sqrt, Kp)
 
 
+def kernel_gram(kernel, Z: torch.Tensor) -> torch.Tensor:
+    """K(Z, Z) of a last-layer kernel: a patch-sum kernel's Kzz, or a plain
+    base kernel's K (the JAX package's ``SVGPLayer._Kuu`` dispatch)."""
+    return kernel.Kzz(Z) if hasattr(kernel, 'Kzz') else kernel.K(Z)
+
+
 class SVGPLayer(nn.Module):
-    """Final SVGP layer over the whole flattened image, one patch-sum
-    kernel shared by ``num_outputs`` latent GPs.  Its KL prior is Kuu of
-    the current Z, so the conditional's factor doubles as the prior's."""
+    """Final SVGP layer over the whole flattened image, one kernel shared
+    by ``num_outputs`` latent GPs: a patch-sum kernel over patch inducing
+    features, or a plain base kernel (the ARD RBF of ``last_kernel='rbf'``)
+    over inducing points.  Its KL prior is Kuu of the current Z, so the
+    conditional's factor doubles as the prior's."""
 
     def __init__(self, kernel, Z, q_mu, q_sqrt, mean_function,
                  white: bool = False, num_outputs: int = 10):
@@ -131,7 +139,7 @@ class SVGPLayer(nn.Module):
         self.num_outputs = num_outputs
 
     def Kuu(self, Z: torch.Tensor) -> torch.Tensor:
-        return linalg.add_jitter(self.kernel.Kzz(Z), JITTER)
+        return linalg.add_jitter(kernel_gram(self.kernel, Z), JITTER)
 
     def kuu_grams(self) -> tuple:
         return (self.Kuu(self.Z),)
@@ -141,8 +149,13 @@ class SVGPLayer(nn.Module):
         return LayerCache(Lm=Lm, Lm_inv=Lm_inv)
 
     def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor):
-        """(mean [N, R], var [N, R])."""
-        Kuf, Knn = self.kernel.Kzx_NM_and_Kdiag(self.Z, ND_X)
+        """(mean [N, R], var [N, R]).  A patch-sum kernel gives Kuf and
+        Kdiag from one fused call; a plain kernel K(X, Z) and its constant
+        Kdiag."""
+        if hasattr(self.kernel, 'Kzx_NM_and_Kdiag'):
+            Kuf, Knn = self.kernel.Kzx_NM_and_Kdiag(self.Z, ND_X)
+        else:
+            Kuf, Knn = self.kernel.K(ND_X, self.Z), self.kernel.Kdiag(ND_X)
         mean, var = multi_output_conditional(
             Kuf[None], Knn[None], self.q_mu, Lm_inv=cache.Lm_inv,
             q_sqrt=self.q_sqrt, white=self.white)

@@ -44,20 +44,20 @@ def _chol_inv_impl(K: torch.Tensor):
     """(chol(K), chol(K)^-1) for K [..., M, M] SPD (0 or 1 batch dims).
 
     float32 with M a multiple of 64 and M <= 512 goes to the blocked
-    driver around the CUDA base kernel (its plain version for a CPU
-    tensor).  The M > 512 shapes the JAX package gives to its other
-    kernels are not ported yet and raise on the card.  Every other shape or
-    dtype takes ``torch.linalg.cholesky`` plus one triangular solve, as the
-    JAX package takes XLA's."""
+    driver around K1.  float32 at M > 512 (M/128 a power of two) goes to
+    the factor-only driver around K1 at panel 128 and the block-doubling
+    triangular inverse around K3.  (A CPU tensor takes the kernels' plain
+    versions.)  Every other shape or dtype takes ``torch.linalg.cholesky``
+    plus one triangular solve, as the JAX package takes XLA's."""
     M = K.shape[-1]
     if K.dtype == torch.float32 and M % 64 == 0 and M <= 512 and K.ndim in (2, 3):
         KB = K[None] if K.ndim == 2 else K
         L, Linv = cuda_linalg.chol_inv_batched(KB.contiguous())
         return (L[0], Linv[0]) if K.ndim == 2 else (L, Linv)
-    if _bigchol_slice(K) and K.device.type == 'cuda':
-        raise NotImplementedError(
-            f'chol_with_inv at M={M}: the M=1024 kernels (K3, ROADMAP queue '
-            'B) are not ported yet')
+    if _bigchol_slice(K):
+        KB = K.reshape(-1, M, M)
+        L = cuda_linalg.chol_factor_batched(KB).reshape(K.shape)
+        return L, cuda_linalg.tri_inv_doubling(L)
     L = cholesky(K)
     eye = torch.eye(M, dtype=K.dtype, device=K.device).expand(K.shape)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)

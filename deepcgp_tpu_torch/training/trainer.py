@@ -1,13 +1,26 @@
-"""Training loop, Adam path (counterpart of
-``deepcgp_tpu/training/trainer.py``).
+"""Training loop (counterpart of ``deepcgp_tpu/training/trainer.py``).
 
 ``run_chunk`` runs a number of optimizer steps with no host sync: each
 step draws its minibatch on the device (uniform, with replacement, from
 the state's generator) and its Monte-Carlo noise from the same generator,
 and the commit guard is a ``torch.where`` on a device boolean.  A step
-whose loss or any gradient is non-finite leaves parameters and Adam
-moments as they were (the reference's Cholesky-failure retry); the
-failure stays visible as a NaN in the returned ELBO trace.
+whose loss, any gradient or the NatGrad proposal is non-finite leaves
+parameters and Adam moments as they were (the reference's
+Cholesky-failure retry); the failure stays visible as a NaN in the
+returned ELBO trace.
+
+Optimizers, as the reference wires them:
+
+* Adam -- Adam on everything trainable;
+* SGD -- plain gradient descent;
+* NatGrad -- a natural-gradient step on every layer's (q_mu, q_sqrt) and
+  an Adam step on the rest, both from one backward pass.  A finite NatGrad
+  proposal can still make the next ELBO non-finite, so each step's loss
+  verifies the previous commit: ``TrainState.prev`` holds the last
+  parameters whose ELBO was seen finite, a non-finite loss rolls the model
+  back to them, and ``steps_back`` grows so the gamma schedule retries
+  smaller.  ``run_chunk`` ends with one more ELBO that verifies the last
+  commit.
 
 The trainable set is ``model.parameters()``: the layers' raw kernel
 parameters, Z, q_mu, q_sqrt and the patch weights.  The KL anchors Z0 are
@@ -24,12 +37,15 @@ import torch
 
 from deepcgp_tpu_torch.training import optim
 
+_VARIATIONAL = ('q_mu', 'q_sqrt')
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     optimizer: str = 'Adam'
     lr: float = 0.01
     lr_decay_steps: int = 100000
+    gamma: float = 0.001     # NatGrad's initial step size
     batch_size: int = 32
     # True = the reference's current source; False = the continuous decay
     # its committed result artifacts were trained with.
@@ -40,32 +56,52 @@ class TrainConfig:
 class TrainState:
     model: torch.nn.Module
     params: dict             # {name: parameter}, the trainable set
-    opt_state: dict          # Adam: count, mu, nu; SGD: {}
+    opt_state: dict          # Adam (also NatGrad's): count, mu, nu; SGD: {}
     step: torch.Tensor       # global optimizer step, int64 on the device
     generator: torch.Generator
+    # NatGrad only: the gamma backoff counter (in the model's dtype) and
+    # the last parameters whose ELBO was seen finite, {name: tensor}.
+    steps_back: torch.Tensor | None = None
+    prev: dict | None = None
+
+
+def _natgrad_names(model) -> list:
+    """[(q_mu name, q_sqrt name)] per layer."""
+    return [(f'layers.{i}.q_mu', f'layers.{i}.q_sqrt')
+            for i in range(len(model.layers))]
 
 
 def init_state(model, config: TrainConfig, seed: int = 0,
                global_step: int = 0) -> TrainState:
     """Switch gradients on for the trainable set and start the optimizer.
     Minibatches and Monte-Carlo noise come from a generator on the model's
-    device seeded with ``seed``."""
-    if config.optimizer == 'NatGrad':
-        raise NotImplementedError('NatGrad comes with its own slice '
-                                  '(ROADMAP queue A3)')
-    if config.optimizer not in ('Adam', 'SGD'):
-        raise ValueError('Not a supported optimizer. Try Adam or SGD.')
+    device seeded with ``seed``.  Under NatGrad the Adam set leaves out
+    every q_mu and q_sqrt (the JAX package keeps zero moments for them
+    under a mask, which moves nothing)."""
+    if config.optimizer not in ('Adam', 'SGD', 'NatGrad'):
+        raise ValueError('Not a supported optimizer. Try Adam, SGD or NatGrad.')
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
     device = next(iter(params.values())).device
-    opt_state = optim.adam_init(params) if config.optimizer == 'Adam' else {}
+    natgrad = config.optimizer == 'NatGrad'
+    if config.optimizer == 'SGD':
+        opt_state = {}
+    else:
+        adam_set = {k: p for k, p in params.items()
+                    if not (natgrad and k.rsplit('.', 1)[-1] in _VARIATIONAL)}
+        opt_state = optim.adam_init(adam_set, optim.bf16_leaf_order(model))
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    return TrainState(model=model, params=params, opt_state=opt_state,
-                      step=torch.full((), global_step, dtype=torch.int64,
-                                      device=device),
-                      generator=generator)
+    dtype = model.layers[0].q_mu.dtype
+    return TrainState(
+        model=model, params=params, opt_state=opt_state,
+        step=torch.full((), global_step, dtype=torch.int64, device=device),
+        generator=generator,
+        steps_back=(torch.zeros((), dtype=dtype, device=device)
+                    if natgrad else None),
+        prev=({k: p.detach().clone() for k, p in params.items()}
+              if natgrad else None))
 
 
 def loss_and_grads(state: TrainState, xb, yb, noise=None):
@@ -87,26 +123,57 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
     """One optimizer iteration on the batch (xb [B, D], yb [B, 1]); updates
     ``state`` in place and returns the ELBO (a device scalar)."""
     loss, grads = loss_and_grads(state, xb, yb, noise)
-    ok = torch.isfinite(loss)
-    for g in grads.values():
+    loss_ok = torch.isfinite(loss)
+    natgrad = config.optimizer == 'NatGrad'
+    new = {}
+    ok = loss_ok
+    if natgrad:
+        # Both halves from the one gradient evaluation above.
+        names = _natgrad_names(state.model)
+        gamma = optim.gamma_schedule(state.step, state.steps_back,
+                                     config.gamma).to(xb.dtype)
+        with torch.no_grad():
+            proposals, _, ng_ok = optim.natgrad_step_with_backoff(
+                [(state.params[a], state.params[b]) for a, b in names],
+                [(grads[a], grads[b]) for a, b in names], gamma,
+                state.steps_back)
+        for (a, b), (mu_new, W_new) in zip(names, proposals):
+            new[a], new[b] = mu_new, W_new
+        ok = ok & ng_ok
+    adam_grads = {k: g for k, g in grads.items() if k not in new}
+    for g in adam_grads.values():
         ok = ok & torch.isfinite(g).all()
-    dtype = loss.dtype
     lr = optim.learning_rate_schedule(config.lr, config.lr_decay_steps,
-                                      config.lr_staircase)(state.step, dtype)
+                                      config.lr_staircase)(state.step,
+                                                           loss.dtype)
     with torch.no_grad():
         if config.optimizer == 'SGD':
-            updates = grads
+            updates = adam_grads
         else:
-            updates, mu, nu, count = optim.adam_updates(grads, state.opt_state)
-            for k in grads:
+            updates, mu, nu, count = optim.adam_updates(adam_grads,
+                                                        state.opt_state)
+            for k in adam_grads:
                 state.opt_state['mu'][k].copy_(
                     torch.where(ok, mu[k], state.opt_state['mu'][k]))
                 state.opt_state['nu'][k].copy_(
                     torch.where(ok, nu[k], state.opt_state['nu'][k]))
             state.opt_state['count'] = torch.where(ok, count,
                                                    state.opt_state['count'])
+        for k, u in updates.items():
+            p = state.params[k]
+            new[k] = p - lr.to(p.dtype) * u
         for k, p in state.params.items():
-            p.copy_(torch.where(ok, p - lr.to(p.dtype) * updates[k], p))
+            if natgrad:
+                # A non-finite loss means the current parameters (the last
+                # commit) are poisoned: fall back to the verified ones.
+                verified = torch.where(loss_ok, p, state.prev[k])
+                state.prev[k].copy_(verified)
+                p.copy_(torch.where(ok, new[k], verified))
+            else:
+                p.copy_(torch.where(ok, new[k], p))
+        if natgrad:
+            state.steps_back = torch.where(ok, state.steps_back,
+                                           state.steps_back + 1.0)
     state.step = state.step + 1
     return -loss
 
@@ -115,13 +182,24 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
               Y_train: torch.Tensor, num_steps: int) -> torch.Tensor:
     """``num_steps`` optimizer iterations on minibatches drawn uniformly,
     with replacement, from X_train [N, D] and Y_train [N, 1] (both on the
-    model's device).  Returns the ELBO trace [num_steps] on the device."""
+    model's device).  Returns the ELBO trace [num_steps] on the device.
+    Under NatGrad one more ELBO, on a fresh minibatch, verifies the last
+    commit and rolls back to ``state.prev`` when it is non-finite."""
     N = X_train.shape[0]
-    elbos = []
-    for _ in range(num_steps):
+
+    def batch():
         idx = torch.randint(0, N, (config.batch_size,),
                             generator=state.generator, device=X_train.device)
-        elbos.append(train_step(state, config, X_train[idx], Y_train[idx]))
+        return X_train[idx], Y_train[idx]
+
+    elbos = [train_step(state, config, *batch()) for _ in range(num_steps)]
+    if config.optimizer == 'NatGrad':
+        xb, yb = batch()
+        with torch.no_grad():
+            ok = torch.isfinite(state.model.elbo(xb, yb,
+                                                 generator=state.generator))
+            for k, p in state.params.items():
+                p.copy_(torch.where(ok, p, state.prev[k]))
     return torch.stack(elbos)
 
 

@@ -31,12 +31,17 @@ def model_parameters(model, global_step: int) -> dict:
         params[prefix + 'q_mu'] = _np(layer.q_mu)
         params[prefix + 'q_sqrt'] = np.tril(_np(layer.q_sqrt))
         params[prefix + 'feature/Z'] = _np(layer.Z)
+        kern_prefix = prefix + 'kern/base_kernel/'
         if isinstance(layer, ConvLayer):
             base = layer.base_kernel
-        else:
+        elif hasattr(layer.kernel, 'base_kernel'):
             base = layer.kernel.base_kernel
             params[prefix + 'kern/patch_weights'] = _np(layer.kernel.patch_weights)
-        kern_prefix = prefix + 'kern/base_kernel/'
+        else:
+            # A plain last-layer kernel: gpflow's pathnames of a bare RBF
+            # have no 'base_kernel/' segment.
+            base = layer.kernel
+            kern_prefix = prefix + 'kern/'
         params[kern_prefix + 'variance'] = _np(base.variance)
         params[kern_prefix + 'lengthscales'] = _np(base.lengthscales)
     params['global_step'] = int(global_step)

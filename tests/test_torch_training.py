@@ -304,16 +304,6 @@ def test_adam_matches_optax():
                                        rtol=1e-12)
 
 
-def test_auto_moment_storage_refuses_large_float32_leaves():
-    """The JAX default stores moments of >= 2^22-element float32 leaves in
-    bf16 with stochastic rounding; the port refuses them rather than
-    storing float32 quietly."""
-    big = {'q_sqrt': torch.empty(1 << 22, dtype=torch.float32)}
-    with pytest.raises(NotImplementedError, match='M=1024'):
-        optim.adam_init(big)
-    optim.adam_init({'q_sqrt': torch.empty((1 << 22) - 1, dtype=torch.float32)})
-
-
 def test_train_save_serve_round_trip(tmp_path):
     """A trained model saves as a reference snapshot that
     ``Predictor.from_run_dir`` serves: the same parameters, and

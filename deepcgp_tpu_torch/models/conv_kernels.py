@@ -1,7 +1,13 @@
 """Convolutional (patch-space) kernels (counterpart of
-``deepcgp_tpu/models/conv_kernels.py``, the parts the flagship needs).
+``deepcgp_tpu/models/conv_kernels.py``).
 
 Patch weights are stored in TF patch order, as the snapshots hold them.
+The patch-sum kernels extract patches in transposed patch order
+(``ops.cuda_patches``, K6) and read their weights through the same
+permutation (:meth:`AdditivePatchKernel._weights`): every consumer reduces
+over P, and the order within a patch is TF's, so Z needs none.  The
+last layer's (Kzx, Kdiag) pair takes the fused kernels (K4/K5) where their
+geometry fits (``cuda_cross.fused_fits``) and this unfused route elsewhere.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from torch import nn
 
 from deepcgp_tpu_torch.config import JITTER
 from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
+from deepcgp_tpu_torch.ops import cuda_cross, cuda_patches
 from deepcgp_tpu_torch.ops.linalg import add_jitter
 
 
@@ -47,8 +54,12 @@ class AdditivePatchKernel(nn.Module):
     def __init__(self, base_kernel, patch_weights: torch.Tensor, view):
         super().__init__()
         self.base_kernel = base_kernel
-        self.patch_weights = frozen_parameter(patch_weights)  # [P]
+        self.patch_weights = frozen_parameter(patch_weights)  # [P], TF order
         self.view = view
+        # The TF position of each transposed-order patch (not saved).
+        self.register_buffer('patch_perm', cuda_patches.transposed_patch_perm(
+            view.out_image_height, view.out_image_width,
+            patch_weights.device), persistent=False)
 
     @classmethod
     def create(cls, base_kernel, view, patch_weights=None,
@@ -56,34 +67,87 @@ class AdditivePatchKernel(nn.Module):
         return cls(base_kernel, _default_patch_weights(
             view.patch_count, patch_weights, dtype, device), view)
 
+    def _weights(self) -> torch.Tensor:
+        """patch_weights [P] in the order :meth:`_patches` produces."""
+        return self.patch_weights[self.patch_perm]
+
+    def _patches(self, ND_X: torch.Tensor) -> torch.Tensor:
+        """[N, P, L] in transposed patch order: one K6 launch, K7 in the
+        backward when ``ND_X`` needs a gradient."""
+        N = ND_X.shape[0]
+        H, W = self.view.input_size
+        NHWC = ND_X.reshape(N, H, W, self.view.feature_maps).contiguous()
+        return cuda_patches.transposed_patches(
+            NHWC, self.view.filter_size, self.view.stride, self.view.dilation)
+
     def Kzz(self, Z: torch.Tensor) -> torch.Tensor:
         return self.base_kernel.K(Z)
 
-    def Kdiag(self, ND_X: torch.Tensor) -> torch.Tensor:
-        """RBF Kdiag is the constant variance * mean(w)."""
+    def K(self, ND_X: torch.Tensor, ND_X2: torch.Tensor | None = None):
+        """[N, N2]: the weighted mean of same-position patch grams."""
+        P1 = self._patches(ND_X).transpose(0, 1)                # [P, N, L]
+        if ND_X2 is None:
+            PNN = self.base_kernel.K(P1)                        # [P, N, N]
+        else:
+            PNN = self.base_kernel.K(P1, self._patches(ND_X2).transpose(0, 1))
+        return (PNN * self._weights()[:, None, None]).mean(0)
+
+    def Kdiag(self, ND_X: torch.Tensor, patches=None) -> torch.Tensor:
+        """RBF Kdiag is the constant variance * mean(w): the patch values
+        never enter, so ``patches`` is not read."""
         v = self.base_kernel.variance * self.patch_weights.mean()
         return v.expand(ND_X.shape[0]).to(ND_X.dtype)
 
+    def _cross(self, Z: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+        """[N, M] = sum_p w_p / P k(x[p], Z): the [N, P, M] base-kernel
+        block, contracted with the weights by one batched product."""
+        NPM = self.base_kernel.K(patches, Z[None])
+        return torch.matmul(self._weights() / self.view.patch_count, NPM)
+
     def Kzx_NM_and_Kdiag(self, Z: torch.Tensor, ND_X: torch.Tensor):
-        """(Kzx [N, M], Kdiag [N]) through the fused CUDA kernel (K4
-        forward, K5 backward)."""
-        from deepcgp_tpu_torch.ops import cuda_cross
-        return cuda_cross.kzx_and_kdiag(self, Z, ND_X)
+        """(Kzx [N, M], Kdiag [N]): fused where the geometry fits (K4
+        forward, K5 backward), else off one shared extraction (K6, and K7
+        in the backward)."""
+        if cuda_cross.fused_fits(self):
+            return cuda_cross.kzx_and_kdiag(self, Z, ND_X)
+        patches = self._patches(ND_X)
+        return self._cross(Z, patches), self.Kdiag(ND_X, patches)
+
+    def Kzx_NM(self, Z: torch.Tensor, ND_X: torch.Tensor) -> torch.Tensor:
+        """[N, M] = mean_p w_p k(x[p], Z)."""
+        return self._cross(Z, self._patches(ND_X))
+
+    def Kzx(self, Z: torch.Tensor, ND_X: torch.Tensor) -> torch.Tensor:
+        return self.Kzx_NM(Z, ND_X).T
 
 
 class ConvKernel(AdditivePatchKernel):
     """Weighted double patch sum:
     K(x, x') = sum_pq w_p w_q k(x[p], x'[q]) / P^2."""
 
-    def Kdiag(self, ND_X: torch.Tensor) -> torch.Tensor:
-        """[N]: the weighted gram of each image's own patches.  The model
-        gets it from the fused kernel with Kzx; this is the plain form for
-        callers that need Kdiag alone."""
-        N = ND_X.shape[0]
-        H, W = self.view.input_size
-        patches = self.view.extract_patches_NPL(
-            ND_X.reshape(N, H, W, self.view.feature_maps))
-        NPP = self.base_kernel.K(patches, patches)             # [N, P, P]
-        w = self.patch_weights
-        P = self.view.patch_count
-        return (NPP * (w[:, None] * w[None, :])).sum((1, 2)) / (P * P)
+    def K(self, ND_X: torch.Tensor, ND_X2: torch.Tensor | None = None):
+        pc = self.view.patch_count
+        L = self.view.patch_length
+        p1 = self._patches(ND_X).reshape(-1, L)                 # [N*P, L]
+        if ND_X2 is None:
+            Kfull = self.base_kernel.K(p1)
+        else:
+            Kfull = self.base_kernel.K(p1, self._patches(ND_X2).reshape(-1, L))
+        N1 = ND_X.shape[0]
+        N2 = N1 if ND_X2 is None else ND_X2.shape[0]
+        Kfull = Kfull.reshape(N1, pc, N2, pc)
+        w = self._weights()
+        Kfull = Kfull * (w[None, :, None, None] * w[None, None, None, :])
+        return Kfull.sum((1, 3)) / (pc * pc)
+
+    def Kdiag(self, ND_X: torch.Tensor, patches=None) -> torch.Tensor:
+        """[N]: w^T k(x[p], x[q]) w / P^2 over each image's own patches,
+        from ``patches`` (this kernel's extraction of ``ND_X``) when given.
+        The gram takes explicit X2, as the JAX package's does: it is only
+        summed, never factorized, so it needs no centring."""
+        if patches is None:
+            patches = self._patches(ND_X)
+        NPP = self.base_kernel.K(patches, patches)              # [N, P, P]
+        w = self._weights()
+        pc = self.view.patch_count
+        return torch.matmul(torch.matmul(NPP, w), w) / (pc * pc)

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from deepcgp_tpu_torch.ops import cuda_build
-from deepcgp_tpu_torch.ops.patches import extract_patches, out_size
+from deepcgp_tpu_torch.ops.patches import extract_patches, out_size, pixel_index
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
@@ -85,17 +85,8 @@ def col2im(dpatches, image_shape, filter_size, stride=1, dilation=1):
     patch elements summed into the pixels they were read from."""
     N = dpatches.shape[0]
     H, W, C = image_shape
-    f = filter_size
-    Hout = out_size(H, f, stride, dilation)
-    Wout = out_size(W, f, stride, dilation)
-    dev = dpatches.device
-    oy = torch.arange(Hout, device=dev).repeat_interleave(Wout)
-    ox = torch.arange(Wout, device=dev).repeat(Hout)
-    l = torch.arange(f * f * C, device=dev)
-    fy, fx, c = l // (f * C), (l // C) % f, l % C
-    y = oy[:, None] * stride + fy[None, :] * dilation
-    x = ox[:, None] * stride + fx[None, :] * dilation
-    idx = ((y * W + x) * C + c[None, :]).reshape(-1)                  # [P*L]
+    idx = pixel_index(image_shape, filter_size, stride, dilation,
+                      device=dpatches.device)                         # [P*L]
     out = dpatches.new_zeros(N, H * W * C)
     out.index_add_(1, idx, dpatches.reshape(N, -1))
     return out.reshape(N, H, W, C)
@@ -316,8 +307,8 @@ def conv_rbf_cross_bwd(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
     if not bwd_fits(P, L):
         raise NotImplementedError(
             f'conv_rbf_cross_bwd: P={P}, L={L} is outside the backward '
-            f'kernel (P <= {BWD_MAX_P}, L <= {BWD_MAX_L}); the unfused '
-            'backward comes with K6/K7 (ROADMAP queue A5)')
+            f'kernel (P <= {BWD_MAX_P}, L <= {BWD_MAX_L}); models route such '
+            'a geometry unfused (see fused_fits)')
     scal = torch.stack([variance, gamma]).to(Z.device, torch.float32)
     return _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
                        with_kdiag, dkzx, dkd)
@@ -381,6 +372,18 @@ def supported(kernel) -> bool:
             and smem_bytes(view.patch_count, view.patch_length) <= SMEM_LIMIT)
 
 
+def fused_fits(kernel) -> bool:
+    """Whether ``kernel.Kzx_NM_and_Kdiag`` takes the fused route (K4
+    forward, K5 backward): :func:`supported` and the backward's
+    :func:`bwd_fits`.  Geometry alone decides, the same on the CPU and the
+    card and with or without autograd, so a model serves through the route
+    it trains on (the counterpart of ``pallas_cross.supported_for``).
+    Everything else goes unfused: extraction (K6), plain products, and
+    col2im (K7) in the backward."""
+    return (supported(kernel)
+            and bwd_fits(kernel.view.patch_count, kernel.view.patch_length))
+
+
 def kzx_and_kdiag(kernel, Z, ND_X):
     """The fused evaluation of ``kernel.Kzx_NM_and_Kdiag(Z, ND_X)``,
     differentiable in every input.
@@ -392,8 +395,8 @@ def kzx_and_kdiag(kernel, Z, ND_X):
     if not supported(kernel):
         raise NotImplementedError(
             'the fused cross-covariance takes a scalar-lengthscale RBF over a '
-            'FullView that fits shared memory; the unfused path (K6, ROADMAP '
-            'queue B) is not ported yet')
+            'FullView that fits shared memory; evaluate other kernels through '
+            'kernel.Kzx_NM_and_Kdiag, which routes them unfused')
     view = kernel.view
     base = kernel.base_kernel
     N = ND_X.shape[0]

@@ -171,7 +171,24 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
     unless ``Lp`` is given).
 
     KL = 0.5 * sum_r [tr(K^-1 S_r) + m_r^T K^-1 m_r - M - logdet(S_r)
-                      + logdet(K)]."""
+                      + logdet(K)].
+
+    float32 arguments are evaluated in float64 and the KL rounded back.
+    With Kuu ill-conditioned (M = 1024, jitter 1e-3) the trace term is a
+    sum of ~1e4-sized products that nearly cancel, and in float32 its
+    rounding reaches the hyperparameters' gradients: cuBLAS's float32
+    products left the card's loss 20x and those gradients 5x farther from
+    float64 than the CPU's, and float64 here brings both to the CPU's
+    level (``tools/torch_grad_witness.py``).  The H100's data-sheet FP64
+    tensor-core peak equals its float32 SIMT peak (67 TFLOP/s)."""
+    if q_mu.dtype == torch.float32:
+        up = (lambda x: None if x is None else x.double())
+        return _gauss_kl(up(q_mu), up(q_sqrt), up(K), Lp=up(Lp),
+                         Lp_inv=up(Lp_inv)).float()
+    return _gauss_kl(q_mu, q_sqrt, K, Lp=Lp, Lp_inv=Lp_inv)
+
+
+def _gauss_kl(q_mu, q_sqrt, K, *, Lp, Lp_inv):
     M, R = q_mu.shape
     Lq = torch.tril(q_sqrt)
     if K is None and Lp is None and Lp_inv is None:

@@ -201,7 +201,9 @@ def test_padded_zt_built_once_per_inducing_matrix():
 
 def test_cross_gate():
     """ARD lengthscales are refused; a geometry whose patch matrix outgrows
-    one block's shared memory is refused (the JAX gate's VMEM check)."""
+    one block's shared memory is refused (the JAX gate's VMEM check), and
+    a direct call of the fused evaluation there raises (models route such
+    kernels unfused)."""
     view = FullView(input_size=(10, 10), filter_size=5, feature_maps=10)
     ard = RBF.create(1.0, 1.0, ard_dim=250, dtype=torch.float64)
     assert not cuda_cross.supported(ConvKernel.create(ard, view, dtype=torch.float64))

@@ -144,8 +144,9 @@ def test_k5_plain_backward_masks_strictly():
 def test_k5_gate():
     """The backward kernel takes one warp per 8 patch rows (P <= 64) and at
     most 4 column tiles (L <= 512) within one block's shared memory: the
-    flagship's last layer fits, a 28 x 28 MNIST layer (P = 576) does not,
-    and a CUDA call outside the gate would raise, not fall back."""
+    flagship's last layer fits; a 28 x 28 MNIST layer (P = 576) does not,
+    so it trains on the unfused route (K6/K7, cuda_cross.fused_fits), and
+    a direct CUDA call of K5 outside the gate raises, never falls back."""
     assert cuda_cross.bwd_fits(36, 250)
     assert cuda_cross.bwd_fits(64, 256) and cuda_cross.bwd_fits(8, 512)
     assert not cuda_cross.bwd_fits(64, 512)   # shared memory
@@ -255,6 +256,36 @@ def test_gauss_kl_value_and_grads(form):
         _close(val, val2.detach(), 1e-10)
         for g, g2 in zip(grads, grads2):
             _close(g, g2, 1e-8)
+
+
+@pytest.mark.parametrize('form', ['white', 'factor', 'K'])
+def test_gauss_kl_float32_evaluates_in_float64(form):
+    """A float32 KL is the float64 KL of the same float32 arguments rounded
+    to float32, and its gradients are the float64 ones rounded: at M = 1024
+    the trace term's cancellation is beyond float32."""
+    rng = np.random.RandomState(8)
+    M, R = 12, 3
+    q_mu = rng.randn(M, R).astype(np.float32)
+    q_sqrt = (np.tril(rng.randn(R, M, M)) * 0.4 + np.eye(M)).astype(np.float32)
+    K = _spd(rng, 1, M)[0]
+    Lp = np.linalg.cholesky(K)
+    prior = {'white': {}, 'K': {'K': K},
+             'factor': {'Lp': Lp, 'Lp_inv': np.linalg.inv(Lp)}}[form]
+
+    def kl(dtype):
+        args = [torch.tensor(a, dtype=dtype, requires_grad=True)
+                for a in (q_mu, q_sqrt)]
+        kw = {k: torch.tensor(v.astype(np.float32), dtype=dtype)
+              for k, v in prior.items()}
+        val = linalg.gauss_kl(*args, **kw)
+        return val, torch.autograd.grad(val, args)
+
+    v32, g32 = kl(torch.float32)
+    v64, g64 = kl(torch.float64)
+    assert v32.dtype == torch.float32
+    assert v32.item() == np.float32(v64.item())
+    for a, b in zip(g32, g64):
+        assert a.dtype == torch.float32 and torch.equal(a, b.float())
 
 
 # ------------------------------------------------------------ initialisation

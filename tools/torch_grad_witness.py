@@ -1,0 +1,303 @@
+#!/usr/bin/env python3
+"""Where a float32 gradient of the PyTorch port on the card parts from the
+CPU's: witnesses of one Adam step's gradients on the unfused last-layer
+configurations that chip_smoke.py trains.
+
+    python3 tools/torch_grad_witness.py [--seed 0] [--out chiprun_out/grad_witness.jsonl]
+
+For the MNIST single-layer ConvKernel (M=1024) and CIFAR fm32 at the
+builder's default initialisation, at a fresh build and after a run of Adam
+steps, one batch's gradients are taken
+
+* on the card in float32 through the kernels, and again with one part of
+  the computation swapped: every kernel for its plain version (``plain``),
+  the Kuu factorization in float64 (``chol64``), the squared distances in
+  float64 (``dist64``), the conditional in float64 (``cond64``), the
+  ConvKernel's Kdiag gram by the centred self-gram (``selfgram_kdiag``),
+  the KL in float64 (``kl64``; ``ops.linalg.gauss_kl`` now evaluates a
+  float32 KL in float64 itself), the likelihood's expectation in float64
+  (``lik64``), and every ATen matrix product (``mm64``), reduction
+  (``sum64``) or transcendental function (``transc64``), or all three
+  (``all64``), in float64 by a dispatch mode;
+* on the CPU in float32 with the same swaps, and at parameters one rounding
+  away (each times 1 + 2^-24 u, u standard normal);
+* on the CPU in float64, the reference.
+
+Each line gives, per gradient leaf, max |g - g64| over max |g64|, the
+largest |g64|, and how many of each layer's marginal variances the
+conditional clamped to zero.  Needs a CUDA card (``--device cpu`` runs the
+same at a small size as a rehearsal).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import json
+import os
+import sys
+import types
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+VARIANTS = ('kernels', 'plain', 'chol64', 'dist64', 'cond64',
+            'selfgram_kdiag', 'kl64', 'lik64', 'mm64', 'sum64', 'transc64',
+            'all64')
+# ATen operators that the *64 dispatch variants run in float64: matrix
+# products, reductions, transcendental functions.
+OPS64 = {'mm64': ('mm', 'bmm', 'addmm', 'baddbmm', 'addbmm', 'dot', 'mv',
+                  'addmv'),
+         'sum64': ('sum', 'mean', 'prod', 'cumsum', 'logsumexp',
+                   'linalg_vector_norm'),
+         'transc64': ('exp', 'log', 'erf', 'sqrt', 'rsqrt', 'pow', 'expm1',
+                      'log1p', 'reciprocal')}
+OPS64['all64'] = sum(OPS64.values(), ())
+
+
+def upcast_mode(names):
+    """A dispatch mode that runs the ATen operators ``names`` in float64 on
+    float32 inputs and rounds their results back, forward and backward."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+    packets = {getattr(torch.ops.aten, n) for n in names}
+
+    def cast(a, b):
+        return lambda x: (x.to(b) if isinstance(x, torch.Tensor)
+                          and x.dtype == a else x)
+
+    class Upcast(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func.overloadpacket not in packets:
+                return func(*args, **kwargs)
+            up = cast(torch.float32, torch.float64)
+            out = func(*tree_map(up, args), **tree_map(up, kwargs))
+            return tree_map(cast(torch.float64, torch.float32), out)
+    return Upcast()
+
+
+@contextlib.contextmanager
+def swapped(variant: str):
+    """The port with one part of the computation swapped (see module doc)."""
+    import torch
+    from deepcgp_tpu_torch.models import (base_kernels, conv_kernels, layers,
+                                          likelihoods)
+    from deepcgp_tpu_torch.ops import cuda_linalg, cuda_patches, linalg
+    saved = []
+
+    def put(obj, name, value):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    if variant in OPS64:
+        with upcast_mode(OPS64[variant]):
+            yield
+        return
+    if variant == 'kl64':
+        kl = linalg.gauss_kl
+
+        def gauss_kl(q_mu, q_sqrt, K=None, *, Lp=None, Lp_inv=None):
+            d = (lambda x: None if x is None else x.double())
+            return kl(d(q_mu), d(q_sqrt), d(K), Lp=d(Lp),
+                      Lp_inv=d(Lp_inv)).to(q_mu.dtype)
+        put(linalg, 'gauss_kl', gauss_kl)
+    elif variant == 'lik64':
+        ve = likelihoods.MultiClass.variational_expectations
+
+        def expectations(self, Fmu, Fvar, Y):
+            return ve(self, Fmu.double(), Fvar.double(), Y).to(Fmu.dtype)
+        put(likelihoods.MultiClass, 'variational_expectations', expectations)
+    elif variant == 'plain':
+        put(cuda_linalg, 'chol_inv_base', cuda_linalg.chol_inv_base_plain)
+        put(cuda_linalg, 'tri_inv_base', cuda_linalg.tri_inv_base_plain)
+        put(cuda_patches, 'extract_patches_transposed',
+            cuda_patches.extract_patches_transposed_plain)
+        put(cuda_patches, 'col2im_transposed',
+            cuda_patches.col2im_transposed_plain)
+    elif variant == 'chol64':
+        def impl(K):
+            L = torch.linalg.cholesky(K.double())
+            eye = torch.eye(K.shape[-1], dtype=L.dtype, device=L.device)
+            Linv = torch.linalg.solve_triangular(L, eye.expand(L.shape),
+                                                 upper=False)
+            return L.to(K.dtype), Linv.to(K.dtype)
+        put(linalg, '_chol_inv_impl', impl)
+    elif variant == 'dist64':
+        sd = base_kernels.square_distance
+
+        def dist(X, X2=None):
+            return sd(X.double(), None if X2 is None else X2.double()).to(X.dtype)
+        put(base_kernels, 'square_distance', dist)
+    elif variant == 'cond64':
+        cond = layers.multi_output_conditional
+
+        def conditional(Kmn, Knn, f, *, Lm_inv, q_sqrt=None, white=False):
+            mean, var = cond(Kmn.double(), Knn.double(), f.double(),
+                             Lm_inv=Lm_inv.double(),
+                             q_sqrt=None if q_sqrt is None else q_sqrt.double(),
+                             white=white)
+            return mean.to(Kmn.dtype), var.to(Kmn.dtype)
+        put(layers, 'multi_output_conditional', conditional)
+    elif variant == 'selfgram_kdiag':
+        def kdiag(self, ND_X, patches=None):
+            if patches is None:
+                patches = self._patches(ND_X)
+            w = self._weights()
+            pc = self.view.patch_count
+            return torch.matmul(torch.matmul(self.base_kernel.K(patches), w),
+                                w) / (pc * pc)
+        put(conv_kernels.ConvKernel, 'Kdiag', kdiag)
+    elif variant != 'kernels':
+        raise ValueError(variant)
+    try:
+        yield
+    finally:
+        for obj, name, value in reversed(saved):
+            setattr(obj, name, value)
+
+
+@contextlib.contextmanager
+def clamp_counts(record: list):
+    """Count each conditional's clamped (zero) marginal variances."""
+    from deepcgp_tpu_torch.models import layers
+    cond = layers.multi_output_conditional
+
+    def counted(*a, **k):
+        mean, var = cond(*a, **k)
+        record.append(int((var == 0).sum()))
+        return mean, var
+    layers.multi_output_conditional = counted
+    try:
+        yield
+    finally:
+        layers.multi_output_conditional = cond
+
+
+def gradients(torch, model, config, xb, yb, noise, variant, device, dtype):
+    """(loss, {leaf: gradient on the CPU in float64}, clamped variances per
+    conditional) of ``model`` moved to ``device`` / ``dtype``."""
+    from deepcgp_tpu_torch.training import trainer
+    m = copy.deepcopy(model).to(device, dtype)
+    counts = []
+    with swapped(variant), clamp_counts(counts):
+        loss, grads = trainer.loss_and_grads(
+            trainer.init_state(m, config), xb.to(device, dtype),
+            yb.to(device), noise)
+    return (float(loss), {k: g.detach().cpu().double() for k, g in grads.items()},
+            counts)
+
+
+def perturbed(torch, model, seed: int):
+    """A copy of ``model`` with each parameter times 1 + 2^-24 u."""
+    nearby = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in nearby.parameters():
+            p.mul_(1.0 + 2.0 ** -24 * torch.randn(p.shape, generator=gen,
+                                                  dtype=p.dtype))
+    return nearby
+
+
+def witness(torch, label, state, config, Xd, Yd, dev, rng, emit):
+    model = state.model
+    B = config.batch_size
+    noise = [rng.randn(model.num_samples, B, layer.num_outputs)
+             for layer in model.layers]
+    xb, yb = Xd[:B].cpu(), Yd[:B].cpu()
+    cpu = torch.device('cpu')
+    loss64, g64, counts64 = gradients(torch, model, config, xb, yb, noise,
+                                      'kernels', cpu, torch.float64)
+    line = {'state': label, 'step': int(state.step), 'loss_f64': loss64,
+            'clamped_f64': counts64,
+            'g64_max': {k: float(g.abs().max()) for k, g in g64.items()}}
+    runs = [(f'{where} {v}', v, d, None) for v in VARIANTS
+            for where, d in (('card', dev), ('cpu', cpu))]
+    runs += [(f'cpu perturbed {i}', 'kernels', cpu, i) for i in (1, 2)]
+    for name, variant, device, seed in runs:
+        src = model if seed is None else perturbed(torch, model, seed)
+        loss, g, counts = gradients(torch, src, config, xb, yb, noise,
+                                    variant, device, torch.float32)
+        line[name] = {'loss_rel_err': abs(loss - loss64) / abs(loss64),
+                      'clamped': counts,
+                      'grad_rel_err': {k: cs.rel(g[k], g64[k]) for k in g64}}
+    emit(line)
+
+
+def card_name(dev) -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    if dev.type == 'cpu':
+        return 'cpu rehearsal'
+    import subprocess
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--steps', type=int, default=135)
+    ap.add_argument('--device', default='cuda')
+    ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out',
+                                                  'grad_witness.jsonl'))
+    args = ap.parse_args()
+    import torch
+    from deepcgp_tpu_torch.models import builder as mbuilder
+    from deepcgp_tpu_torch.training import trainer
+    dev = torch.device(args.device)
+    small = dev.type == 'cpu'
+    if not small and not torch.cuda.is_available():
+        print('torch_grad_witness: no CUDA device', file=sys.stderr)
+        return 2
+    if not small:
+        from deepcgp_tpu_torch.ops import cuda_build
+        cuda_build.build()
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    out = open(args.out, 'w')
+
+    def emit(obj):
+        text = json.dumps(obj)
+        print(text, flush=True)
+        out.write(text + '\n')
+
+    emit({'card': card_name(dev),
+          'float32_matmul_precision': torch.get_float32_matmul_precision(),
+          'matmul_allow_tf32': torch.backends.cuda.matmul.allow_tf32})
+    rng = np.random.RandomState(args.seed)
+    configs = (('mnist_conv', cs.MNIST_CONV, cs.MNIST_IMAGE),
+               ('fm32', cs.FM32, cs.IMAGE))
+    images = cs.TRAIN_IMAGES
+    if small:
+        images = 64
+        configs = (('mnist_conv', dict(cs.MNIST_CONV, M='128'), (14, 14, 1)),
+                   ('fm32', dict(cs.FM32, M='64,64'), (20, 20, 3)))
+    for label, flags, image in configs:
+        cs.TRAIN_IMAGES = images
+        X, Y = cs.learnable_data(rng, image)
+        model = mbuilder.build_model(
+            types.SimpleNamespace(**flags, num_samples=3 if small else
+                                  cs.TRAIN_SAMPLES),
+            image, None, images=X,
+            generator=torch.Generator().manual_seed(args.seed), device=dev)
+        config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
+                                     batch_size=8 if small else cs.TRAIN_BATCH)
+        state = trainer.init_state(model, config, seed=args.seed)
+        Xd = torch.as_tensor(X.reshape(len(X), -1), device=dev)
+        Yd = torch.as_tensor(Y, device=dev)
+        witness(torch, f'{label} fresh', state, config, Xd, Yd, dev, rng, emit)
+        trainer.run_chunk(state, config, Xd, Yd, 3 if small else args.steps)
+        witness(torch, f'{label} trained', state, config, Xd, Yd, dev, rng,
+                emit)
+    out.close()
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

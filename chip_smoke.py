@@ -4,9 +4,12 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds every CUDA kernel of the port from deepcgp_tpu_torch/csrc and holds
-each against its plain PyTorch version on the card: K1 (batched Cholesky
-plus inverse, at P = 64 and 128), K2 (its upper mirror, the NatGrad base
-case), K3 (batched triangular inverse), K4 (fused extraction -> RBF
+each against its plain PyTorch version on the card: K1 (the whole blocked
+Cholesky factor of a batch, one thread-block cluster a matrix) and K3 (the
+whole triangular inverse, by column strips) -- together the port's
+factor-plus-inverse in two launches -- at the old base shapes and the two
+route shapes [3, 384, 384] and [1, 1024, 1024], K2 (the upper
+Cholesky-with-inverse base case of NatGrad), K4 (fused extraction -> RBF
 cross-covariance) and K5 (its backward).  Then it drives the main paths of
 the flagship CIFAR-shaped 2-layer conv-GP (M=384,384, 10 feature maps,
 filters 5,5, strides 3,1, ConvKernel last layer; random weights or data
@@ -25,9 +28,9 @@ from the seed):
 
 and of the M=1024 MNIST-shaped configuration (28x28x1, no hidden layer, an
 ARD-RBF last layer over the 784 pixels, M=1024, batch 128, S=10, k-means++
-inducing points): NatGrad training through K1 at P = 128, K3 and K2 at
-P = 128, and a short Adam run through the bf16 stochastic-rounding moment
-store.
+inducing points): NatGrad training through K1 and K3 at M = 1024 and K2
+at P = 128, and a short Adam run through the bf16 stochastic-rounding
+moment store.
 
 Then the unfused last-layer route, whose geometries the fused K4/K5 pair
 does not take: K6 (patch extraction in transposed order) and K7 (its
@@ -37,7 +40,8 @@ col2im) against their plain versions, and Adam training of
   M=1024, batch 32, S=10: P = 576), whose trained snapshot is then served;
 * the CIFAR fm32 configuration (M=384,384, 32 feature maps, filters 5,5,
   strides 3,1, batch 32, S=10: a last layer with L = 800), where K7
-  carries the hidden layer's gradient.
+  carries the hidden layer's gradient, and one step of it from the
+  builder's default init against the CPU.
 
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
@@ -85,14 +89,14 @@ M1024_IMAGE, M1024_BATCH = (28, 28, 1), 128
 # Launches per NatGrad step and per run_chunk call (the terminal ELBO that
 # verifies a chunk's last commit), by kernel counter.
 NATGRAD_PER_STEP = {
-    'flagship': {'chol_inv_base': 6, 'chol_inv_base_upper': 6,
-                 'tri_inv_base': 0, 'conv_rbf_cross': 1,
+    'flagship': {'chol_inv_base': 1, 'chol_inv_base_upper': 6,
+                 'tri_inv_base': 1, 'conv_rbf_cross': 1,
                  'conv_rbf_cross_bwd': 2},
-    'm1024': {'chol_inv_base': 8, 'chol_inv_base_upper': 8, 'tri_inv_base': 1,
+    'm1024': {'chol_inv_base': 1, 'chol_inv_base_upper': 8, 'tri_inv_base': 1,
               'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0}}
 NATGRAD_PER_CHUNK = {
-    'flagship': {'chol_inv_base': 6, 'conv_rbf_cross': 1},
-    'm1024': {'chol_inv_base': 8, 'tri_inv_base': 1}}
+    'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1},
+    'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
 # The unfused route's configurations (examples/mnist_parity.py --m1024, and
 # BASELINE.md's CIFAR fm32 sweep point), their launches per Adam step, and
 # the MNIST snapshot's launches per predict_y.
@@ -102,10 +106,10 @@ MNIST_CONV = dict(M='1024', feature_maps='', filter_sizes='5', strides='1',
 MNIST_IMAGE = (28, 28, 1)
 FM32 = dict(FLAGSHIP, feature_maps='32')
 UNFUSED_PER_STEP = {
-    'mnist_conv': {'chol_inv_base': 8, 'tri_inv_base': 1,
+    'mnist_conv': {'chol_inv_base': 1, 'tri_inv_base': 1,
                    'extract_patches_transposed': 1},
-    'fm32': {'chol_inv_base': 6, 'extract_patches_transposed': 1,
-             'col2im_transposed': 1}}
+    'fm32': {'chol_inv_base': 1, 'tri_inv_base': 1,
+             'extract_patches_transposed': 1, 'col2im_transposed': 1}}
 MNIST_SERVING_PER_CALL = UNFUSED_PER_STEP['mnist_conv']
 UNFUSED_WARMUP_STEPS, UNFUSED_CHUNK, UNFUSED_WINDOW_SECONDS = 5, 10, 5.0
 # Every launch counter, in the order of the kernels line.
@@ -278,11 +282,15 @@ ADAM_STEP_TOLERANCE = (
     'float32 itself is that far off')
 
 
-def adam_step_vs_cpu(torch, state, config, Xd, Yd, batch: int, rng):
+def adam_step_vs_cpu(torch, state, config, Xd, Yd, batch: int, rng,
+                     floor: float | None = None):
     """One step's loss and gradients, the card against the same model on
     the CPU (plain versions) with the same batch and noise, float64 on the
-    CPU as the reference (``f32_agrees``).  Returns (the phase line's
-    fields, None or what disagreed)."""
+    CPU as the reference (``f32_agrees``).  With ``floor``, layer 1's
+    leaves whose float64 gradient is below it in magnitude (too small for
+    float32 to resolve on either side) are left out of the rule and
+    reported with their readings.  Returns (the phase line's fields, None
+    or what disagreed)."""
     from deepcgp_tpu_torch.training import trainer
     model = state.model
     noise = [rng.randn(model.num_samples, batch, layer.num_outputs)
@@ -303,6 +311,11 @@ def adam_step_vs_cpu(torch, state, config, Xd, Yd, batch: int, rng):
     cpu_err_f64 = {k: rel(g.double(), grads_d[k]) for k, g in grads_c.items()}
     loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
     grads_ok = f32_agrees(grad_err, grad_err_f64, cpu_err_f64, 1e-2)
+    excluded = {}
+    if floor is not None:
+        excluded = {k: float(g.abs().max()) for k, g in grads_d.items()
+                    if k.startswith('layers.1.') and float(g.abs().max()) < floor}
+        grads_ok = {k: v for k, v in grads_ok.items() if k not in excluded}
     fields = {'card_vs_cpu': {'loss_rel_err': loss_err,
                               'grad_rel_err_of_leaf_max': grad_err},
               'card_vs_cpu_f64_grad_rel_err': grad_err_f64,
@@ -312,6 +325,13 @@ def adam_step_vs_cpu(torch, state, config, Xd, Yd, batch: int, rng):
                   'cpu_f32': abs(float(loss_c) - float(loss_d))
                   / abs(float(loss_d))},
               'tolerance': ADAM_STEP_TOLERANCE}
+    if floor is not None:
+        fields.update(
+            excluded_leaves_f64_grad_max_abs=excluded,
+            exclusion_rule=f'layer 1 leaves whose float64 gradient max |.| '
+                           f'< {floor} are read, not held to the tolerance',
+            f64_grad_max_abs={k: float(g.abs().max())
+                              for k, g in grads_d.items()})
     failure = None
     if not (loss_err <= 1e-4 and all(grads_ok.values())):
         failure = (f'card vs CPU step: loss {loss_err}, gradients {grad_err}, '
@@ -331,38 +351,136 @@ def finite(torch, x) -> bool:
     return bool(torch.isfinite(x).all())
 
 
+K1K3_TOLERANCE = ('relative to max|.|: K1 (factor, diagonal-block inverses) '
+                  'and K3 (inverse, with and without K1\'s inverses) <= 1e-5 '
+                  'of the plain version on the same inputs, reconstruction '
+                  '<= 5e-6; the route (K1 then K3) <= 1e-4 of float64')
+# K1's and K3's shapes: the old base cases' ([3, 64, 64] the flagship's Kuu
+# slice, [1, 128, 128], [8, 128, 128]) and the two route shapes
+# ([3, 384, 384] flagship, [1, 1024, 1024] M=1024 and MNIST ConvKernel).
+K1K3_SHAPES = ((3, 64), (1, 128), (8, 128), (3, 384), (1, 1024))
+
+
+def k1_k3_phases(torch, dev, card: dict, rng, Kuu) -> list:
+    """K1 (the whole blocked factor, one cluster a matrix) and K3 (the whole
+    inverse by column strips) at K1K3_SHAPES: each against its plain
+    version on the same inputs, the route against float64, a non-PD
+    element (K1) and a zero pivot (K3) non-finite in that element only;
+    each timed by the profiler beside its call, its plain version, one
+    library call and its bound, and the route beside the library's pair.
+    Returns the kernels-line entries of K1 and K3, at [1, 1024, 1024]."""
+    from deepcgp_tpu_torch.ops import cuda_linalg as cl
+    k1 = {'name': 'chol_inv_base', 'route': 'cuda',
+          'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
+          'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:80', 'max_abs_err': 0.0}
+    k3 = {'name': 'tri_inv_base', 'route': 'cuda',
+          'source': 'deepcgp_tpu_torch/csrc/tri_inv.cu',
+          'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:165', 'max_abs_err': 0.0}
+    for b, M in K1K3_SHAPES:
+        D = (Kuu[:, :M, :M].contiguous() if M == 64
+             else spd_batch(torch, rng, b, M, dev))
+        L, Dinv = cl.chol_factor_blocked(D)
+        X = cl.tri_inv_blocked(L, Dinv)
+        X0 = cl.tri_inv_blocked(L)
+        torch.cuda.synchronize()
+        Lp, Dinvp = cl.chol_factor_blocked_plain(D)
+        Xp, X0p = cl.tri_inv_blocked_plain(L, Dinv), cl.tri_inv_blocked_plain(L)
+        err = {'L': rel(L, Lp), 'Dinv': rel(Dinv, Dinvp), 'X': rel(X, Xp),
+               'X_without_Dinv': rel(X0, X0p)}
+        recon = float(torch.linalg.matrix_norm(L @ L.transpose(1, 2) - D).max()
+                      / torch.linalg.matrix_norm(D).min())
+        lower = bool((torch.triu(L, 1) == 0).all() and (torch.triu(X, 1) == 0).all())
+        Lr = torch.linalg.cholesky(D.double().cpu())
+        eyeM = torch.eye(M, device=dev).expand(b, M, M)
+        Xr = torch.linalg.solve_triangular(Lr, eyeM.double().cpu(), upper=False)
+        f64 = {'L': rel(L.double().cpu(), Lr), 'X': rel(X.double().cpu(), Xr)}
+        # A second element where the batch has one: element 1 non-PD (K1),
+        # a zero pivot in element 1's factor (K3 without K1's inverses).
+        pair = D if b > 1 else D.expand(2, M, M)
+        bad = pair.clone()
+        bad[1] = -torch.eye(M, device=dev)
+        Lb, Db = cl.chol_factor_blocked(bad)
+        Xb = cl.tri_inv_blocked(Lb, Db)
+        Lz = (L if b > 1 else L.expand(2, M, M)).clone()
+        Lz[1, 5, 5] = 0.0
+        Xz = cl.tri_inv_blocked(Lz)
+        rest = [i for i in range(bad.shape[0]) if i != 1]
+        nan_ok = (not finite(torch, Lb[1]) and not finite(torch, Xb[1])
+                  and finite(torch, Lb[rest]) and finite(torch, Xb[rest]))
+        zero_ok = not finite(torch, Xz[1]) and finite(torch, Xz[rest])
+        check(max(err.values()) <= 1e-5 and recon <= 5e-6 and lower
+              and max(f64.values()) <= 1e-4 and nan_ok and zero_ok,
+              f'K1/K3 [{b},{M},{M}]: vs plain {err}, recon {recon}, lower '
+              f'{lower}, route vs float64 {f64}, non-PD NaN in its element '
+              f'only {nan_ok}, zero pivot {zero_ok}')
+
+        def library_factor(D=D):
+            return torch.linalg.cholesky(D)
+
+        def library_inverse(L=L, eyeM=eyeM):
+            return torch.linalg.solve_triangular(L, eyeM, upper=False)
+
+        def library_pair(D=D, eyeM=eyeM):
+            return torch.linalg.solve_triangular(torch.linalg.cholesky(D),
+                                                 eyeM, upper=False)
+        # Cholesky M^3/3 and the triangular inverse M^3/3 per matrix; each
+        # reads its input once and writes its output once.
+        bnd, by = bound_ms(8 * b * M * M, b * M ** 3 / 3)
+        plain_iters = 2 if M == 1024 else 5
+        line = {'phase': 'K1/K3 blocked', **card, 'shape': [b, M, M],
+                'input': 'flagship Kuu[:, :64, :64]' if M == 64 else 'spd',
+                'cluster_blocks': cl._cluster(M),
+                'rel_err_vs_plain': err, 'recon_rel_err': recon,
+                'lower_triangular': lower, 'route_rel_err_vs_f64': f64,
+                'non_pd_gives_nan': nan_ok,
+                'zero_pivot_gives_non_finite': zero_ok,
+                'tolerance': K1K3_TOLERANCE,
+                'k1_ms': kernel_ms(torch, lambda: cl.chol_factor_blocked(D),
+                                   'chol_factor_cluster_kernel'),
+                'k1_call_ms': cuda_ms(torch, lambda: cl.chol_factor_blocked(D), 50),
+                'k1_plain_ms': cuda_ms(
+                    torch, lambda: cl.chol_factor_blocked_plain(D), plain_iters),
+                'k1_library_ms': cuda_ms(torch, library_factor, 50),
+                'k3_ms': kernel_ms(torch, lambda: cl.tri_inv_blocked(L, Dinv),
+                                   'tri_inv_strip_kernel'),
+                'k3_without_dinv_ms': kernel_ms(
+                    torch, lambda: cl.tri_inv_blocked(L), 'tri_inv_strip_kernel'),
+                'k3_call_ms': cuda_ms(torch, lambda: cl.tri_inv_blocked(L, Dinv), 50),
+                'k3_plain_ms': cuda_ms(
+                    torch, lambda: cl.tri_inv_blocked_plain(L, Dinv), plain_iters),
+                'k3_library_ms': cuda_ms(torch, library_inverse, 50),
+                'bound_ms': bnd, 'bound_by': by,
+                'route_ms': cuda_ms(torch, lambda: cl.chol_inv_batched(D), 50),
+                'route_library_ms': cuda_ms(torch, library_pair, 50),
+                'library_call': 'torch.linalg.cholesky (K1), '
+                                'solve_triangular(L, I) (K3), both (route)'}
+        emit(line)
+        k1['max_abs_err'] = max(k1['max_abs_err'], float(max(
+            (L - Lp).abs().max(), (Dinv - Dinvp).abs().max())))
+        k3['max_abs_err'] = max(k3['max_abs_err'], float(max(
+            (X - Xp).abs().max(), (X0 - X0p).abs().max())))
+        if (b, M) == (1, 1024):
+            for k, pre in ((k1, 'k1_'), (k3, 'k3_')):
+                k.update({key: line[pre + key] for key in (
+                    'ms', 'plain_ms', 'library_ms')},
+                    bound_ms=bnd, bound_by=by, shape=[b, M, M])
+    return [k1, k3]
+
+
 def base_case_phases(torch, dev, card: dict, rng) -> list:
-    """K1 at P = 128 (the M=1024 factor's panel), K2 at the flagship's
-    [20, 64, 64] and the M=1024 [10, 128, 128], K3 at [8, 128, 128]: each
+    """K2 at the flagship's [20, 64, 64] and the M=1024 [10, 128, 128]
     against its plain version (float32, 1e-5 of the largest magnitude),
-    its non-PD (K3: zero-pivot) element NaN in that element only, timed by
-    the profiler beside the plain version, one library call and its bound.
-    Then the NatGrad driver and the M=1024 factor-plus-inverse route
-    against float64 references.  Returns the kernels-line entries of K2
-    and K3."""
+    its non-PD element NaN in that element only, timed by the profiler
+    beside the plain version, one library call and its bound.  Then the
+    drivers at the main paths' shapes against float64 references: the
+    NatGrad solve (K2) and ``chol_with_inv`` (K1 then K3) at [1024, 1024]
+    and [3, 384, 384], each timed beside the library.
+    Returns the kernels-line entry of K2."""
     from deepcgp_tpu_torch.ops import cuda_linalg as cl
     from deepcgp_tpu_torch.ops import linalg
     tol = 1e-5
     tolerance = ('relative to max|.|: factor and inverse <= 1e-5 of the '
                  'plain version, reconstruction <= 5e-6')
-
-    D = spd_batch(torch, rng, 1, 128, dev)
-    L, Li = cl.chol_inv_base(D)
-    torch.cuda.synchronize()
-    Lp, Lip = cl.chol_inv_base_plain(D)
-    e = (rel(L, Lp), rel(Li, Lip))
-    check(max(e) <= tol, f'K1 [1,128,128]: {e}')
-    eye1 = torch.eye(128, device=dev).expand(1, 128, 128)
-    bnd, by = bound_ms(3 * 4 * 128 * 128, 2 * 128 ** 3 / 3)
-    emit({'phase': 'K1 chol_inv_base P=128', **card, 'shape': [1, 128, 128],
-          'max_rel_err_L': e[0], 'max_rel_err_Linv': e[1],
-          'tolerance': tolerance,
-          'ms': kernel_ms(torch, lambda: cl.chol_inv_base(D), 'chol_inv_kernel'),
-          'plain_ms': cuda_ms(torch, lambda: cl.chol_inv_base_plain(D), 5),
-          'library_ms': cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-              torch.linalg.cholesky(D), eye1, upper=False), 50),
-          'library_call': 'torch.linalg.cholesky + solve_triangular',
-          'bound_ms': bnd, 'bound_by': by})
 
     k2 = {'name': 'chol_inv_base_upper', 'route': 'cuda',
           'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
@@ -411,40 +529,6 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
                       max_abs_err=err)
         k2['max_abs_err'] = max(k2['max_abs_err'], err)
 
-    b, P = 8, 128
-    L = torch.linalg.cholesky(spd_batch(torch, rng, b, P, dev)).contiguous()
-    X = cl.tri_inv_base(L)
-    torch.cuda.synchronize()
-    Xp = cl.tri_inv_base_plain(L)
-    eX = rel(X, Xp)
-    eye8 = torch.eye(P, device=dev).expand(b, P, P)
-    recon = rel(L @ X, eye8)
-    bad = L.clone()
-    bad[1, 5, 5] = 0.0
-    Xb = cl.tri_inv_base(bad)
-    rest = [i for i in range(b) if i != 1]
-    nan_ok = not finite(torch, Xb[1]) and finite(torch, Xb[rest])
-    check(eX <= tol and recon <= 5e-6 and nan_ok,
-          f'K3 [{b},{P},{P}]: dX {eX}, recon {recon}, zero pivot {nan_ok}')
-    bnd, by = bound_ms(2 * 4 * b * P * P, b * P ** 3 / 3)
-    line = {'phase': 'K3 tri_inv_base', **card, 'shape': [b, P, P],
-            'max_rel_err_X': eX, 'recon_rel_err': recon,
-            'zero_pivot_gives_non_finite': nan_ok, 'tolerance': tolerance,
-            'ms': kernel_ms(torch, lambda: cl.tri_inv_base(L), 'tri_inv_kernel'),
-            'call_ms': cuda_ms(torch, lambda: cl.tri_inv_base(L), 200),
-            'plain_ms': cuda_ms(torch, lambda: cl.tri_inv_base_plain(L), 5),
-            'library_ms': cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-                L, eye8, upper=False), 50),
-            'library_call': 'torch.linalg.solve_triangular(L, I)',
-            'bound_ms': bnd, 'bound_by': by}
-    emit(line)
-    k3 = {'name': 'tri_inv_base', 'route': 'cuda',
-          'source': 'deepcgp_tpu_torch/csrc/tri_inv.cu',
-          'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:165',
-          'max_abs_err': float((X - Xp).abs().max()),
-          **{key: line[key] for key in ('shape', 'ms', 'plain_ms', 'bound_ms',
-                                        'bound_by', 'library_ms')}}
-
     # The drivers at the main paths' shapes, against float64 references:
     # the NatGrad solve W R^-T ([20, 384, 384] panel 64; [10, 1024, 1024]
     # panel 128) and the M=1024 Kuu's factor and inverse.
@@ -471,22 +555,29 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
                 torch, lambda G=G, W=W, p=panel: cl.chol_right_solve_upper(
                     G, W, panel=p), 10),
             'library_ms': cuda_ms(torch, library, 10)}
-    K = spd_batch(torch, rng, 1, 1024, dev)[0]
-    L, Li = linalg.chol_with_inv(K)
-    Lref = torch.linalg.cholesky(K.double().cpu())
-    eL, eLi = rel(L.double().cpu(), Lref), rel(Li.double().cpu(), torch.linalg.inv(Lref))
-    check(eL <= 1e-4 and eLi <= 1e-4, f'chol_with_inv [1024,1024]: {eL}, {eLi}')
-    eyeK = torch.eye(1024, device=dev)
-    drivers['chol_with_inv 1024'] = {
-        'rel_err_vs_f64': [eL, eLi],
-        'ms': cuda_ms(torch, lambda: linalg.chol_with_inv(K), 10),
-        'library_ms': cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-            torch.linalg.cholesky(K), eyeK, upper=False), 10)}
+    # chol_with_inv at the two route shapes (two launches each), beside
+    # the library's factor plus inverse timed in the same call.
+    for label, K in (('chol_with_inv 1x1024', spd_batch(torch, rng, 1, 1024, dev)[0]),
+                     ('chol_with_inv 3x384', spd_batch(torch, rng, 3, 384, dev))):
+        M = K.shape[-1]
+        L, Li = linalg.chol_with_inv(K)
+        Lref = torch.linalg.cholesky(K.double().cpu())
+        Liref = torch.linalg.solve_triangular(
+            Lref, torch.eye(M, dtype=torch.float64).expand(Lref.shape),
+            upper=False)
+        eL, eLi = rel(L.double().cpu(), Lref), rel(Li.double().cpu(), Liref)
+        check(eL <= 1e-4 and eLi <= 1e-4, f'{label}: {eL}, {eLi}')
+        eyeK = torch.eye(M, device=dev).expand(K.shape)
+        ms = cuda_ms(torch, lambda K=K: linalg.chol_with_inv(K), 20)
+        lib = cuda_ms(torch, lambda K=K, e=eyeK: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(K), e, upper=False), 20)
+        drivers[label] = {'rel_err_vs_f64': [eL, eLi], 'ms': ms,
+                          'library_ms': lib, 'ms_over_library_ms': ms / lib}
     emit({'phase': 'linalg drivers', **card, 'drivers': drivers,
           'tolerance': 'relative to max|.| of the float64 result: 1e-4',
           'library_call': 'torch.linalg.cholesky (+ solve_triangular, + '
                           'the product W R^-T)'})
-    return [k2, k3]
+    return [k2]
 
 
 def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
@@ -593,7 +684,7 @@ def m1024_adam(torch, model, seed: int, rng, dev, card: dict, reset_counts,
                read_counts) -> dict:
     """A short Adam run of the M=1024 configuration (two 10-step chunks after
     5 warm-up steps): the q_sqrt moments stored in bf16 by stochastic
-    rounding, 8 K1 + 1 K3 launches per step, finite ELBOs; and the
+    rounding, 1 K1 + 1 K3 launches per step, finite ELBOs; and the
     rounding on the card bit-identical to the CPU on the same input and
     salt.  Returns the launches."""
     from deepcgp_tpu_torch.training import optim, trainer
@@ -616,7 +707,7 @@ def m1024_adam(torch, model, seed: int, rng, dev, card: dict, reset_counts,
     launches = read_counts()
     trace = torch.cat([warm] + traces).cpu().numpy()
     check(bool(np.isfinite(trace).all()), 'M=1024 Adam: an ELBO is not finite')
-    expected = launches_of(chol_inv_base=8 * 20, tri_inv_base=20)
+    expected = launches_of(chol_inv_base=20, tri_inv_base=20)
     check(launches == expected, f'M=1024 Adam: launches {launches}, expected {expected}')
     x = torch.as_tensor(rng.randn(10, 1024, 1024) * np.exp(rng.uniform(
         -20, 20, (10, 1024, 1024))), dtype=torch.float32)
@@ -813,11 +904,41 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
     return state, launches
 
 
+FM32_DEFAULT_FLOOR = 1e-8
+
+
+def fm32_default_init_step(torch, seed: int, rng, dev, card: dict) -> None:
+    """One Adam step of CIFAR fm32 from the builder's default init (last
+    layer lengthscale 5, where the timed window starts at 25), the card
+    against the CPU under the same rule as every path, with layer 1's
+    leaves whose float64 gradient is below FM32_DEFAULT_FLOOR read and not
+    held to it (float32 cannot resolve them on either side)."""
+    from deepcgp_tpu_torch.models import builder as mbuilder
+    from deepcgp_tpu_torch.training import trainer
+    X, Y = learnable_data(rng, IMAGE)
+    model = mbuilder.build_model(
+        types.SimpleNamespace(**FM32, num_samples=TRAIN_SAMPLES), IMAGE,
+        images=X, generator=torch.Generator().manual_seed(seed), device=dev)
+    lengthscale = float(model.layers[1].kernel.base_kernel.lengthscales.max())
+    config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
+                                 batch_size=TRAIN_BATCH)
+    state = trainer.init_state(model, config, seed=seed)
+    Xd = torch.as_tensor(X.reshape(TRAIN_IMAGES, -1), device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    fields, failure = adam_step_vs_cpu(torch, state, config, Xd, Yd,
+                                       TRAIN_BATCH, rng,
+                                       floor=FM32_DEFAULT_FLOOR)
+    emit({'phase': 'fm32 default init step', **card, 'config': FM32,
+          'last_layer_lengthscale': lengthscale, 'agrees': failure is None,
+          **fields})
+    check(failure is None, f'fm32 at the default init: {failure}')
+
+
 def mnist_conv_serving(torch, model, step: int, dev, card: dict, rng,
                        reset_counts, read_counts) -> dict:
     """The trained MNIST ConvKernel snapshot served through
     ``Predictor.from_run_dir`` at batch BATCH, S=SAMPLES: a window of
-    batch-sized requests with 8 K1 + 1 K3 + 1 K6 per predict_y, and the
+    batch-sized requests with 1 K1 + 1 K3 + 1 K6 per predict_y, and the
     probabilities of 32 rows against the same snapshot on the CPU in
     float32 and float64 with the same noise.  Returns the launches."""
     from deepcgp_tpu_torch.serving import Predictor
@@ -950,23 +1071,9 @@ def main() -> int:
                        add_jitter(rbfs[1].K(Zs[1]))])
     kernels = []
 
-    # -- K1: batched Cholesky + inverse base case ----------------------------
-    D = Kuu[:, :64, :64].contiguous()
-    L, Li = cuda_linalg.chol_inv_base(D)
-    torch.cuda.synchronize()
-    Lp, Lip = cuda_linalg.chol_inv_base_plain(D)
-    eL, eLi = rel(L, Lp), rel(Li, Lip)
-    recon = float(torch.linalg.matrix_norm(L @ L.transpose(1, 2) - D).max()
-                  / torch.linalg.matrix_norm(D).min())
-    check(eL <= 1e-5 and eLi <= 1e-5 and recon <= 5e-6,
-          f'K1 [3,64,64]: dL {eL}, dLinv {eLi}, recon {recon}')
-    bad = D.clone()
-    bad[1] = -torch.eye(64, device=dev)
-    Lb, Lib = cuda_linalg.chol_inv_base(bad)
-    nan_ok = (not bool(torch.isfinite(Lb[1]).all())
-              and not bool(torch.isfinite(Lib[1]).all())
-              and bool(torch.isfinite(Lb[[0, 2]]).all()))
-    check(nan_ok, 'K1: a non-PD input must give NaN in its own factor only')
+    # -- K1 and K3: the blocked factor and the inverse, two launches --------
+    kernels += k1_k3_phases(torch, dev, card, rng, Kuu)
+    # The route on the flagship's own Kuu grams, against the library.
     LB, LiB = cuda_linalg.chol_inv_batched(Kuu)
     torch.cuda.synchronize()
     Lref = torch.linalg.cholesky(Kuu)
@@ -976,50 +1083,16 @@ def main() -> int:
     reconB = float(torch.linalg.matrix_norm(LB @ LB.transpose(1, 2) - Kuu).max()
                    / torch.linalg.matrix_norm(Kuu).min())
     check(dB <= 2e-5 and dBi <= 6e-5 and reconB <= 1e-5,
-          f'K1 driver [3,384,384]: dL {dB}, dLinv {dBi}, recon {reconB}')
-    eye64 = torch.eye(64, device=dev).expand(3, 64, 64)
-    eye384 = torch.eye(384, device=dev).expand(3, 384, 384)
+          f'K1/K3 route [3,384,384] flagship Kuu: dL {dB}, dLinv {dBi}, '
+          f'recon {reconB}')
+    emit({'phase': 'K1/K3 route flagship Kuu', **card, 'shape': [3, 384, 384],
+          'rel_err_L_vs_library': dB, 'rel_err_Linv_vs_library': dBi,
+          'recon_rel_err': reconB,
+          'tolerance': 'relative to max|.| of torch.linalg.cholesky + '
+                       'solve_triangular: dL <= 2e-5, dLinv <= 6e-5; '
+                       'reconstruction <= 1e-5'})
 
-    def lib64():
-        Lc = torch.linalg.cholesky(D)
-        return torch.linalg.solve_triangular(Lc, eye64, upper=False)
-
-    def lib384():
-        Lc = torch.linalg.cholesky(Kuu)
-        return torch.linalg.solve_triangular(Lc, eye384, upper=False)
-
-    k1_ms = kernel_ms(torch, lambda: cuda_linalg.chol_inv_base(D),
-                      'chol_inv_kernel')
-    k1_call = cuda_ms(torch, lambda: cuda_linalg.chol_inv_base(D), 200)
-    k1_plain = cuda_ms(torch, lambda: cuda_linalg.chol_inv_base_plain(D), 10)
-    k1_lib = cuda_ms(torch, lib64, 50)
-    drv_ms = cuda_ms(torch, lambda: cuda_linalg.chol_inv_batched(Kuu), 20)
-    drv_lib = cuda_ms(torch, lib384, 20)
-    b, P = D.shape[0], D.shape[1]
-    # Cholesky P^3/3 plus the triangular inverse P^3/3 per matrix.
-    k1_bound, k1_by = bound_ms(3 * 4 * b * P * P, b * 2 * P ** 3 / 3)
-    emit({'phase': 'K1 chol_inv_base', **card,
-          'shape': [b, P, P], 'max_rel_err_L': eL, 'max_rel_err_Linv': eLi,
-          'recon_rel_err': recon,
-          'tolerance': 'relative to max|.|: dL<=1e-5 dLinv<=1e-5 recon<=5e-6;'
-                       ' driver vs library dL<=2e-5 dLinv<=6e-5 recon<=1e-5',
-          'non_pd_gives_nan': nan_ok, 'ms': k1_ms, 'call_ms': k1_call,
-          'plain_ms': k1_plain,
-          'library_ms': k1_lib,
-          'library_call': 'torch.linalg.cholesky + solve_triangular',
-          'driver_shape': [3, 384, 384], 'driver_rel_err_L': dB,
-          'driver_rel_err_Linv': dBi, 'driver_recon_rel_err': reconB,
-          'driver_ms': drv_ms, 'driver_library_ms': drv_lib})
-    kernels.append({'name': 'chol_inv_base', 'route': 'cuda',
-                    'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
-                    'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:80',
-                    'max_abs_err': float(max((L - Lp).abs().max(),
-                                             (Li - Lip).abs().max())),
-                    'ms': k1_ms, 'plain_ms': k1_plain, 'bound_ms': k1_bound,
-                    'bound_by': k1_by, 'library_ms': k1_lib,
-                    'shape': [b, P, P]})
-
-    # -- K1 at P = 128, K2, K3 and the drivers around them -------------------
+    # -- K2 and the drivers around it ------------------------------------------
     kernels += base_case_phases(torch, dev, card, rng)
 
     # -- K4: fused extraction -> RBF cross-covariance ------------------------
@@ -1184,7 +1257,8 @@ def main() -> int:
               'probabilities sum to 1')
         check(labels.shape == (200,) and bool(np.isfinite(dens).all())
               and bool((dens <= 1e-6).all()), 'labels and log-densities')
-        check(launches == launches_of(chol_inv_base=6 * batches,
+        check(launches == launches_of(chol_inv_base=batches,
+                                      tri_inv_base=batches,
                                       conv_rbf_cross=batches),
               f'launches {launches} for {batches} predict_y calls')
         path_launches['serving'] = launches
@@ -1290,7 +1364,7 @@ def main() -> int:
     steps = TRAIN_CHUNK * len(traces)
     trace = torch.cat([warm] + traces).cpu().numpy()
     check(bool(np.isfinite(trace).all()), 'a training ELBO is not finite')
-    check(launches == launches_of(chol_inv_base=6 * steps,
+    check(launches == launches_of(chol_inv_base=steps, tri_inv_base=steps,
                                   conv_rbf_cross=steps,
                                   conv_rbf_cross_bwd=2 * steps),
           f'launches {launches} for {steps} training steps')
@@ -1397,9 +1471,12 @@ def main() -> int:
     # returns the rounding noise of the products around the squared
     # distance instead, on the CPU as on the card
     # (tools/torch_grad_witness.py): the check would hold noise to noise.
+    # One step at the default init is checked after the window, with layer
+    # 1's leaves below FM32_DEFAULT_FLOOR in float64 read, not held.
     _, path_launches['fm32_adam'] = unfused_adam(
         torch, 'fm32', FM32, IMAGE, args.seed, rng, dev, card, reset_counts,
         read_counts, loaded={1: {'base_kernel/lengthscales': LENGTHSCALES[1]}})
+    fm32_default_init_step(torch, args.seed, rng, dev, card)
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

@@ -1,53 +1,518 @@
-// Batched Cholesky factor plus its inverse, in two orientations:
-//   chol_inv_base:        D [b, P, P] SPD -> (L, L^-1), L lower, L L^T = D;
-//   chol_inv_base_upper:  D [b, P, P] SPD -> (R, R^-1), R upper, R R^T = D.
+// Batched Cholesky factors, in two forms:
+//   chol_factor_blocked:  A [b, M, M] SPD -> L lower (L L^T = A) and the
+//                         inverses of its M/32 diagonal 32x32 blocks, for
+//                         M % 32 == 0 and M <= 1024 (K1);
+//   chol_inv_base_upper:  D [b, P, P] SPD -> (R, R^-1), R upper, R R^T = D,
+//                         P <= 128 (K2).
 //
-// Replace the TPU kernels `_chol_inv_base_kernel` (K1, the base case of
-// `chol_inv_batched` / `chol_factor_batched`) and
-// `_chol_inv_base_kernel_upper` (K2, the base case of the NatGrad drivers
-// `chol_inv_batched_upper` / `chol_right_solve_upper`) in
-// deepcgp_tpu/ops/pallas_linalg.py.  Same algorithm: Gaussian elimination on
-// the augmented working matrix W = [D | I].  Lower: step j = 0 .. P-1 reads
-// the pivot W[j][j], and with rsq = rsqrt(pivot):
-//   column j of L      = W[j:, j] * rsq
-//   row j of L^-1      = W[j, P:] * rsq
-//   rows i > j update  W[i, k] -= (W[i, j] * rsq) * rsq * W[j, k].
-// Upper: the same recurrence from the bottom-right corner, j = P-1 .. 0:
-// column j of R = W[:j+1, j] * rsq, row j of R^-1 = W[j, P:] * rsq, and the
-// rows i < j update -- the Cholesky of the index-reversed matrix, without
-// reversing anything.
-// Both read the WHOLE of D (the pivot row's entries right of / left of the
-// diagonal feed the updates), as the TPU kernels do: a caller whose matrix
-// is meaningful in one triangle only symmetrizes it first.
-// A non-positive pivot gives NaN (rsqrt of a negative number) and the NaN
-// spreads through the rest of that matrix, never to another batch element:
-// callers detect a failed factorization by its non-finite values.
+// K1 replaces the TPU kernel `_chol_inv_base_kernel` together with the
+// blocked drivers around it (`chol_inv_batched`, `chol_factor_batched`) in
+// deepcgp_tpu/ops/pallas_linalg.py: the whole right-looking factorization
+// of a matrix is one launch.  K2 replaces `_chol_inv_base_kernel_upper`, the
+// base case of the NatGrad drivers `chol_inv_batched_upper` /
+// `chol_right_solve_upper`.
 //
-// What bounds it on an H100: not bytes (3 P^2 floats per matrix) nor
-// arithmetic (~2P^3/3 per matrix), but the P-step serial chain: every step
-// depends on the pivot the previous one wrote.  Design: one thread block
-// per matrix keeps its whole [P, 2P] working matrix in shared memory (32 KB
-// at P = 64, 128 KB at P = 128, above 48 KB by opting in), so a step costs
-// one barrier and a few shared-memory operations per thread; no global
-// traffic inside the chain.  Each step touches only the live entries --
-// lower: trailing left columns k > j and right columns k <= j; upper:
-// leading left columns k < j and right columns k >= j (the rest of the
-// right half is a structural zero) -- exactly P columns, so no update races
-// with a read of the pivot row or column.  A thread keeps one column slot
-// for the whole chain, so it reads the pivot row once per step and divides
-// no index inside the chain; the block is 1024 threads wide, so a step is at
-// most P/8 dependent shared-memory updates per thread -- with one block per
-// SM nothing else hides their latency.  The factor and the inverse are
-// written once, coalesced, after the chain: column j and row j of W stop
-// changing after step j.
-// With b = 1-20 matrices only 1-20 of the 132 SMs work; batching more
-// matrices per call is the lever for a later change, not this one.
+// K1, panel k = 0 .. M/32 - 1 over the working matrix W (= A, then its
+// Schur complements), in 32x32 tiles:
+//   diagonal   L_kk = factor of W_kk                       (one warp)
+//   panel      L_ik = W_ik L_kk^-T,             i > k      (one warp a tile)
+//   downdate   W_ij -= L_ik L_jk^T,             i >= j > k (one warp a tile)
+//   inverse    L_kk^-1, written beside L for K3 (tri_inv.cu)
+// The diagonal factor runs its columns in blocks of 8: step j reads the
+// pivot W[j][j], rsq = rsqrt(pivot), column j of L is W[j:, j] * rsq and
+// the rows i > j update W[i][k] -= (W[i][j] * rsq) * rsq * W[j][k] over the
+// block's columns k > j; a rank-8 update then folds the block into the
+// columns right of it.  So the 8x8 sub-blocks on the diagonal are read
+// whole (both triangles, after their downdates); everything else is read
+// on and below the diagonal only.  The panel solve is forward substitution
+// with L_kk (x_q = w_q * (1 / L_qq), then w_q' -= L_q'q x_q), and so is the
+// inverse (on the identity's columns).  A non-positive pivot gives NaN
+// (rsqrt of a negative number) that spreads through the rest of its matrix
+// and never to another one: callers detect a failed factorization by its
+// non-finite values.
+//
+// What bounds it on an H100: not bytes (8 M^2 per matrix) nor arithmetic
+// (M^3/3 per matrix, 0.36 GFLOP at M = 1024), but the chain of M/32
+// panels, each a diagonal factor, a panel solve and a barrier that every
+// block of the matrix crosses.  Design:
+// * one thread-block cluster per matrix (8 or 16 blocks on neighbouring
+//   SMs), so a lone M = 1024 matrix works on 16 SMs, not 1; the blocks meet
+//   at one cluster barrier a panel (barrier.cluster, release/acquire);
+// * the first block runs the chain of diagonal tiles and nothing else, one
+//   step ahead: in panel k's phase its first warp downdates tile k+1 with
+//   panel k, factors it in registers (pivot entries by __shfl_sync, no
+//   block barrier inside the 32 steps) and publishes it: L_dd^T with the
+//   diagonal's reciprocals in the block's shared memory, then a flag set
+//   in every block of the cluster; its other warps write L_dd^-1 meanwhile;
+// * the other blocks' warps share panel k's downdate, one 32x32 tile at a
+//   time in a fixed round-robin (a lane owns a 4x8 interleaved sub-tile: 32
+//   FMAs per three 16-byte shared-memory reads, the tile's copy in flight
+//   meanwhile); the warps that downdated column k+1's tiles fetch L_dd^T from
+//   the first block (distributed shared memory) once it is flagged and
+//   solve them before the barrier;
+// * the working matrix stays in global memory (the L output buffer, 4 MB at
+//   M = 1024, so L2-resident); every block stages the current panel (up to
+//   31 tiles, 140 KB) in its shared memory once per panel, and every read
+//   of data written inside the kernel bypasses L1 (cp.async.cg, ld.cg).
+// The chain's steps are single warps, so what sets their time is
+// instructions issued one after another: the diagonal factor leaves the
+// inverse to the other warps, and the panel solve reads the diagonal's
+// reciprocals instead of dividing.  tools/torch_chol_clusters.py stamps the
+// chain's phases with clock64().  Full float32 FMA throughout; nothing
+// uses the tensor cores.
+//
+// K2 (unchanged): one thread block per matrix keeps its whole [P, 2P]
+// working matrix in shared memory (32 KB at P = 64, 128 KB at P = 128) and
+// runs the elimination from the bottom-right corner, j = P-1 .. 0: column j
+// of R = W[:j+1, j] * rsq, row j of R^-1 = W[j, P:] * rsq, and the rows
+// i < j update over the live columns (leading left k < j, right k >= j).
+// It reads the whole of D, as the TPU kernel does.  Its bound is the
+// P-step chain: one 1024-thread barrier and at most P/8 dependent
+// shared-memory updates per thread a step.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+// ------------------------------------------------------------------ K1
+
+constexpr int kW = 32;           // panel width: one warp, one lane a row
+constexpr int kLd = 36;          // row stride of a staged tile (16-byte rows)
+constexpr int kSub = 8;          // the diagonal factor's column blocks
+constexpr int kWarps = 8;        // warps of a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxM = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// The cluster barrier (arrive.release, wait.acquire): every block's
+// stores before it, global ones included, are seen after it.
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// A warp copies the 32x32 tile at G (row stride ld) into S (row stride kLd),
+// asynchronously; the caller waits.
+__device__ __forceinline__ void warp_tile_async(const float* G, int ld,
+                                                float* S, int lane) {
+#pragma unroll
+  for (int e = lane; e < kW * 8; e += 32) {
+    const int r = e >> 3, c = (e & 7) * 4;
+    cp_async16(S + r * kLd + c, G + static_cast<size_t>(r) * ld + c);
+  }
+}
+
+// A warp writes the 32x32 tile S (row stride kLd) to G (row stride ld).
+__device__ __forceinline__ void warp_tile_store(const float* S, float* G,
+                                                int ld, int lane) {
+#pragma unroll
+  for (int e = lane; e < kW * 8; e += 32) {
+    const int r = e >> 3, c = (e & 7) * 4;
+    __stcg(reinterpret_cast<float4*>(G + static_cast<size_t>(r) * ld + c),
+           *reinterpret_cast<const float4*>(S + r * kLd + c));
+  }
+}
+
+// acc[t][u] = sum_q A[g + 8t][q] * B[h + 4u][q] for lane = 4g + h, A and B
+// 32x32 tiles in shared memory (row stride kLd): the lane's rows and
+// columns interleave, so each 16-byte read is free of bank conflicts.
+__device__ __forceinline__ void warp_tile_abt(const float* A, const float* B,
+                                              float acc[4][8], int lane) {
+  const int g = lane >> 2, h = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[t][u] = 0.0f;
+#pragma unroll 2
+  for (int q = 0; q < kW; q += 4) {
+    float4 a[4], b[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      a[t] = *reinterpret_cast<const float4*>(A + (g + 8 * t) * kLd + q);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      b[u] = *reinterpret_cast<const float4*>(B + (h + 4 * u) * kLd + q);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float s = acc[t][u];
+        s = fmaf(a[t].x, b[u].x, s);
+        s = fmaf(a[t].y, b[u].y, s);
+        s = fmaf(a[t].z, b[u].z, s);
+        s = fmaf(a[t].w, b[u].w, s);
+        acc[t][u] = s;
+      }
+  }
+}
+
+// S[g + 8t][h + 4u] -= acc[t][u]: the lane's 32 entries of a tile.
+__device__ __forceinline__ void frag_subtract_from(const float acc[4][8],
+                                                   float* S, int lane) {
+  const int g = lane >> 2, h = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float* s = S + (g + 8 * t) * kLd + h + 4 * u;
+      *s = *s - acc[t][u];
+    }
+}
+
+// The downdate of one tile: S -= A B^T (all three in shared memory), the
+// product taken while the caller's asynchronous copy into S lands.
+__device__ __forceinline__ void warp_downdate(float* S, const float* A,
+                                              const float* B, int lane) {
+  float acc[4][8];
+  warp_tile_abt(A, B, acc, lane);
+  cp_async_wait_all();
+  __syncwarp();
+  frag_subtract_from(acc, S, lane);
+  __syncwarp();
+}
+
+// One warp factors the 32x32 tile S (shared memory, row stride kLd) in
+// place: lane i holds row i in registers; the columns go in blocks of 8,
+// each eliminated step by step with the pivot row's live entries by
+// __shfl_sync, then folded into the columns right of the block by one
+// rank-8 update through the scratch P ([32][9]).  Step j of a block reads
+// the pivot W[j][j], rsq = rsqrt(pivot); column j of L = W[j:, j] * rsq;
+// the rows i > j update W[i][k] -= (W[i][j] * rsq) * rsq * W[j][k] for the
+// block's columns k > j.  The 8x8 diagonal sub-blocks are read whole (both
+// triangles), the rest of the tile on and below its diagonal.  Leaves L
+// (zeros above its diagonal) in S, and L^T in LT with the reciprocals of
+// the diagonal in its column 32 (LT[q][32] = 1 / L_qq).
+__device__ void warp_factor_tile(float* S, float* P, float* LT, int lane) {
+  const int i = lane;
+  float a[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) a[k] = S[i * kLd + k];
+#pragma unroll
+  for (int b = 0; b < kW; b += kSub) {
+#pragma unroll
+    for (int j = b; j < b + kSub; ++j) {
+      const float r = rsqrtf(__shfl_sync(kFull, a[j], j));
+      const float m = (a[j] * r) * r;
+      const bool below = i > j;
+#pragma unroll
+      for (int k = j + 1; k < b + kSub; ++k) {
+        const float w = __shfl_sync(kFull, a[k], j);
+        if (below) a[k] = fmaf(-m, w, a[k]);
+      }
+      a[j] = (i >= j) ? a[j] * r : 0.0f;
+    }
+    if (b + kSub < kW) {
+#pragma unroll
+      for (int p = 0; p < kSub; ++p) P[i * (kSub + 1) + p] = a[b + p];
+      __syncwarp();
+      if (i >= b + kSub) {
+#pragma unroll
+        for (int k = b + kSub; k < kW; ++k) {
+          float s = 0.0f;
+#pragma unroll
+          for (int p = 0; p < kSub; ++p)
+            s = fmaf(a[b + p], P[k * (kSub + 1) + p], s);
+          a[k] -= s;
+        }
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kW; k += 4)
+    *reinterpret_cast<float4*>(S + i * kLd + k) =
+        make_float4(a[k], a[k + 1], a[k + 2], a[k + 3]);
+#pragma unroll
+  for (int k = 0; k < kW; ++k) LT[k * kLd + i] = a[k];
+  __syncwarp();
+  LT[i * kLd + kW] = 1.0f / LT[i * kLd + i];
+  __syncwarp();
+}
+
+// The panel solve of one tile by forward substitution: S (row stride kLd)
+// <- S L^-T, L given as LT = L^T (row stride kLd, 1 / L_qq in column 32):
+// lane r solves row r, x_q = w_q * (1 / L_qq), then w_q' -= L_q'q x_q for
+// q' > q.  Written to G.
+__device__ __forceinline__ void warp_panel_solve(float* S, const float* LT,
+                                                 float* G, int ld, int lane) {
+  float w[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) w[k] = S[lane * kLd + k];
+#pragma unroll
+  for (int q = 0; q < kW; ++q) {
+    w[q] *= LT[q * kLd + kW];
+#pragma unroll
+    for (int k = (q + 1) / 4 * 4; k < kW; k += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(LT + q * kLd + k);
+      if (k > q) w[k] = fmaf(-l.x, w[q], w[k]);
+      if (k + 1 > q) w[k + 1] = fmaf(-l.y, w[q], w[k + 1]);
+      if (k + 2 > q) w[k + 2] = fmaf(-l.z, w[q], w[k + 2]);
+      if (k + 3 > q) w[k + 3] = fmaf(-l.w, w[q], w[k + 3]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kW; k += 4)
+    *reinterpret_cast<float4*>(S + lane * kLd + k) =
+        make_float4(w[k], w[k + 1], w[k + 2], w[k + 3]);
+  __syncwarp();
+  warp_tile_store(S, G, ld, lane);
+  __syncwarp();
+}
+
+// The first block's warps 1-7 write the diagonal tile's inverse (L in S)
+// to Dg (row stride 32): warp w takes columns c = w-1, w+6, ... together,
+// each by forward substitution on e_c, lane s holding row s:
+// x_q *= 1 / L_qq, then x_s -= L_sq x_q for s > q.  Off the chain of
+// panels: K3 (tri_inv.cu) takes these inverses.
+__device__ void warps_diag_inverse(const float* S, float* Dg, int warp,
+                                   int lane) {
+  constexpr int kCols = (kW + kWarps - 2) / (kWarps - 1);
+  float lrow[kW], x[kCols];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) lrow[k] = S[lane * kLd + k];
+  const float rd = 1.0f / S[lane * kLd + lane];
+#pragma unroll
+  for (int t = 0; t < kCols; ++t)
+    x[t] = lane == warp - 1 + (kWarps - 1) * t ? 1.0f : 0.0f;
+#pragma unroll
+  for (int q = 0; q < kW; ++q) {
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) {
+      const float xq = __shfl_sync(kFull, x[t] * rd, q);
+      if (lane == q) x[t] = xq;
+      if (lane > q) x[t] = fmaf(-lrow[q], xq, x[t]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kCols; ++t) {
+    const int c = warp - 1 + (kWarps - 1) * t;
+    if (c < kW) __stcg(Dg + lane * kW + c, x[t]);
+  }
+}
+
+// The diagonal warp tells every block of the cluster that the factor tile
+// in its block's `ldiag` belongs to `flag`: after a fence, it sets their
+// `ready`.
+__device__ __forceinline__ void warp_publish(int* ready, int flag, int lane) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __threadfence();
+  if (lane < static_cast<int>(cluster.num_blocks()))
+    *reinterpret_cast<volatile int*>(cluster.map_shared_rank(ready, lane)) =
+        flag;
+}
+
+// A warp waits until this block's `ready` reaches `flag`, then returns the
+// diagonal factor tile (transposed) that the first block's `ldiag` holds:
+// copied into `local` where given, else that buffer itself (distributed
+// shared memory).
+__device__ __forceinline__ const float* warp_fetch_ldiag(const int* ready,
+                                                         int flag,
+                                                         float* ldiag,
+                                                         float* local,
+                                                         int lane) {
+  if (lane == 0)
+    while (*reinterpret_cast<const volatile int*>(ready) < flag)
+      __nanosleep(32);
+  __syncwarp();
+  __threadfence();
+  const float* src = cg::this_cluster().map_shared_rank(ldiag, 0);
+  if (local == nullptr) return src;
+#pragma unroll
+  for (int e = lane; e < kW * kLd / 4; e += 32)   // the reciprocals too
+    reinterpret_cast<float4*>(local)[e] =
+        reinterpret_cast<const float4*>(src)[e];
+  __syncwarp();
+  return local;
+}
+
+// The row of entry u of a triangle whose row r holds r + 1 entries.
+__device__ __forceinline__ int tri_row(int u) {
+  int r = static_cast<int>((sqrtf(8.0f * u + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > u) --r;
+  while ((r + 1) * (r + 2) / 2 <= u) ++r;
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    chol_factor_cluster_kernel(const float* __restrict__ A,
+                               float* __restrict__ L, float* __restrict__ Dinv,
+                               int M, long long* __restrict__ trace) {
+  extern __shared__ __align__(16) float k1_smem[];
+  __shared__ int ready;     // the diagonal tile last published here, + 1
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mat = blockIdx.x / csize;
+  const int n = M / kW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The first block runs the chain of diagonal tiles; the other blocks'
+  // warps share the downdates and the panel solves.
+  const int me = (rank - 1) * kWarps + warp;
+  const int nwork = (csize - 1) * kWarps;
+  const size_t base = static_cast<size_t>(mat) * M * M;
+  const float* Am = A + base;
+  float* Lm = L + base;
+  float* Dm = Dinv + static_cast<size_t>(mat) * n * kW * kW;
+
+  float* panel = k1_smem;                                     // [M-32][kLd]
+  float* slot = panel + (M - kW) * kLd + warp * 2 * kW * kLd;  // [32][kLd]
+  float* held = slot + kW * kLd;                               // [32][kLd]
+  float* ldiag = panel + (M - kW) * kLd + kWarps * 2 * kW * kLd;  // L_dd^T
+  float* slot0 = panel + (M - kW) * kLd;      // the diagonal tile
+  float* scratch = slot0 + kW * kLd;          // the factor's [32][9]
+  auto tile = [&](float* P, int i, int j) {
+    return P + static_cast<size_t>(i) * kW * M + j * kW;
+  };
+  // Optional clock64() stamps of the first cluster (chol_factor_blocked_traced).
+  const bool tracer = trace != nullptr && blockIdx.x < 2;
+  auto mark = [&](int at) {
+    if (tracer && lane == 0) trace[at] = clock64();
+  };
+  if (threadIdx.x == 0) ready = 0;
+  if (rank == 0 && threadIdx.x == 0) mark(0);
+
+  // W = A on and below the diagonal tiles, L = 0 above them; the first
+  // block factors tile (0, 0) straight from A meanwhile.
+  if (rank == 0) {
+    if (warp == 0) {
+      warp_tile_async(Am, M, slot0, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      warp_factor_tile(slot0, scratch, ldiag, lane);
+      warp_tile_store(slot0, Lm, M, lane);
+    }
+    __syncthreads();
+    if (warp > 0) warps_diag_inverse(slot0, Dm, warp, lane);
+  }
+  const int vec_per_row = M / 4;
+  for (int e = rank * kThreads + threadIdx.x; e < M * vec_per_row;
+       e += csize * kThreads) {
+    const int r = e / vec_per_row, c = (e % vec_per_row) * 4;
+    const int ti = r / kW, tj = c / kW;
+    if (ti == 0 && tj == 0) continue;
+    const size_t off = static_cast<size_t>(r) * M + c;
+    const float4 val = tj > ti ? make_float4(0.f, 0.f, 0.f, 0.f)
+                               : __ldg(reinterpret_cast<const float4*>(Am + off));
+    __stcg(reinterpret_cast<float4*>(Lm + off), val);
+  }
+  cluster_sync();
+  if (rank == 0 && threadIdx.x == 0) mark(1);
+  if (n == 1) return;
+
+  // Panel 0's solve, L_i0 = W_i0 L_00^-T, by the other blocks' warps
+  // against L_00^T staged from the factor written above.
+  if (rank > 0) {
+    for (int e = threadIdx.x; e < kW * 8; e += kThreads) {
+      const int r = e >> 3, c = (e & 7) * 4;
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(Lm + r * M + c));
+      ldiag[c * kLd + r] = v.x;
+      ldiag[(c + 1) * kLd + r] = v.y;
+      ldiag[(c + 2) * kLd + r] = v.z;
+      ldiag[(c + 3) * kLd + r] = v.w;
+    }
+    __syncthreads();
+    if (threadIdx.x < kW)
+      ldiag[threadIdx.x * kLd + kW] = 1.0f / ldiag[threadIdx.x * kLd + threadIdx.x];
+    __syncthreads();
+    for (int t = me; t < n - 1; t += nwork) {
+      warp_tile_async(tile(Lm, t + 1, 0), M, slot, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      warp_panel_solve(slot, ldiag, tile(Lm, t + 1, 0), M, lane);
+    }
+  }
+  cluster_sync();
+  if (rank == 0 && threadIdx.x == 0) mark(2);
+
+  // Panel k: downdate the trailing tiles with L_{k+1:, k}.  Lookahead: the
+  // first block downdates and factors tile d = k+1 at once and publishes
+  // it; the warps that downdated column d's tiles solve them against it,
+  // all before the one barrier of the panel.
+  for (int k = 0; k + 1 < n; ++k) {
+    long long* at = tracer ? trace + 8 + 10 * k : nullptr;
+    const int d = k + 1;
+    if (rank == 0) {
+      if (warp == 0) {
+        if (at && lane == 0) at[0] = clock64();
+        warp_tile_async(tile(Lm, d, k), M, panel, lane);
+        warp_tile_async(tile(Lm, d, d), M, slot0, lane);
+        cp_async_wait_all();
+        __syncwarp();
+        warp_downdate(slot0, panel, panel, lane);
+        if (at && lane == 0) at[1] = clock64();
+        warp_factor_tile(slot0, scratch, ldiag, lane);
+        if (at && lane == 0) at[3] = clock64();
+        warp_publish(&ready, d + 1, lane);
+        if (at && lane == 0) at[4] = clock64();
+        warp_tile_store(slot0, tile(Lm, d, d), M, lane);
+        if (at && lane == 0) at[2] = clock64();
+      }
+      __syncthreads();
+      if (warp > 0) warps_diag_inverse(slot0, Dm + d * kW * kW, warp, lane);
+    } else {
+      const int prow = M - (k + 1) * kW;
+      for (int e = threadIdx.x; e < prow * 8; e += kThreads) {
+        const int r = e >> 3, c = (e & 7) * 4;
+        cp_async16(panel + r * kLd + c,
+                   Lm + static_cast<size_t>((k + 1) * kW + r) * M + k * kW + c);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      const int ncol = n - d - 1;               // tiles (i, d), i > d
+      bool holding = false;
+      for (int c = me; c < ncol; c += nwork) {
+        const int i = d + 1 + c;
+        float* S = holding ? slot : held;
+        warp_tile_async(tile(Lm, i, d), M, S, lane);
+        warp_downdate(S, panel + (i - k - 1) * kW * kLd, panel, lane);
+        if (holding)                // a second column tile: solve it now
+          warp_panel_solve(S, warp_fetch_ldiag(&ready, d + 1, ldiag, nullptr,
+                                               lane),
+                           tile(Lm, i, d), M, lane);
+        holding = true;
+      }
+      // The tiles (i, j), d < j <= i, after the column tiles in the
+      // round-robin: entry u of the triangle is tile (d+1+r, d+1+u-r(r+1)/2).
+      const int ntri = ncol * (ncol + 1) / 2;
+      for (int u = ((me - ncol) % nwork + nwork) % nwork; u < ntri;
+           u += nwork) {
+        const int r = tri_row(u);
+        const int i = d + 1 + r, j = d + 1 + u - r * (r + 1) / 2;
+        float* Wij = tile(Lm, i, j);
+        warp_tile_async(Wij, M, slot, lane);
+        warp_downdate(slot, panel + (i - k - 1) * kW * kLd,
+                      panel + (j - k - 1) * kW * kLd, lane);
+        warp_tile_store(slot, Wij, M, lane);
+        __syncwarp();
+      }
+      if (me < ncol) {
+        if (at && me == 0 && lane == 0) at[6] = clock64();
+        const float* LT = warp_fetch_ldiag(&ready, d + 1, ldiag, slot, lane);
+        if (at && me == 0 && lane == 0) at[8] = clock64();
+        warp_panel_solve(held, LT, tile(Lm, d + 1 + me, d), M, lane);
+        if (at && me == 0 && lane == 0) at[5] = clock64();
+      }
+    }
+    cluster_sync();
+    if (at && rank == 0 && threadIdx.x == 0) at[7] = clock64();
+  }
+}
+
+// ------------------------------------------------------------------ K2
+
+constexpr int kBaseThreads = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
 
 __device__ void load_augmented(const float* __restrict__ Db, float* W, int P) {
@@ -57,44 +522,6 @@ __device__ void load_augmented(const float* __restrict__ Db, float* W, int P) {
     W[t] = (k < P) ? Db[i * P + k] : ((k - P) == i ? 1.0f : 0.0f);
   }
   __syncthreads();
-}
-
-__global__ void chol_inv_kernel(const float* __restrict__ D,
-                                float* __restrict__ L,
-                                float* __restrict__ Linv, int P) {
-  extern __shared__ float smem[];
-  const int P2 = 2 * P;
-  float* W = smem;            // [P][2P]
-  float* rsq = smem + P * P2;  // [P]
-  const size_t base = static_cast<size_t>(blockIdx.x) * P * P;
-  load_augmented(D + base, W, P);
-
-  // Each thread owns one live column slot c and every rstep-th row; the
-  // block is a whole number of P-thread row groups.
-  const int c = threadIdx.x % P;
-  const int r0 = threadIdx.x / P;
-  const int rstep = blockDim.x / P;
-  for (int j = 0; j < P; ++j) {
-    const float r = rsqrtf(W[j * P2 + j]);
-    if (threadIdx.x == 0) rsq[j] = r;
-    // Slot c maps the first P-1-j slots to the trailing left block
-    // (k = j+1 .. P-1) and the other j+1 to the live right block
-    // (k = P .. P+j).
-    const int rows = P - 1 - j;
-    const int k = (c < rows) ? (j + 1 + c) : (P + c - rows);
-    const float wjk = W[j * P2 + k];
-    for (int i = j + 1 + r0; i < P; i += rstep) {
-      const float m = (W[i * P2 + j] * r) * r;
-      W[i * P2 + k] -= m * wjk;
-    }
-    __syncthreads();
-  }
-
-  for (int t = threadIdx.x; t < P * P; t += blockDim.x) {
-    const int i = t / P, k = t % P;
-    L[base + t] = (k <= i) ? W[i * P2 + k] * rsq[k] : 0.0f;
-    Linv[base + t] = (k <= i) ? W[i * P2 + P + k] * rsq[i] : 0.0f;
-  }
 }
 
 __global__ void chol_inv_upper_kernel(const float* __restrict__ D,
@@ -131,35 +558,107 @@ __global__ void chol_inv_upper_kernel(const float* __restrict__ D,
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const float* D, float* F, float* Finv, int b, int P,
-           void* stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(P) * 2 * P + P);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = P * (kThreads / P);
-  kernel<<<b, threads, smem, static_cast<cudaStream_t>(stream)>>>(D, F, Finv,
-                                                                   P);
+}  // namespace
+
+// A, L: [b, M, M] and Dinv: [b, M/32, 32, 32], contiguous float32 on the
+// device, M % 32 == 0 and 32 <= M <= 1024; `cluster` blocks a matrix (1-8,
+// or up to 16 where the card allows non-portable clusters).  The panel and
+// the warps' tiles take (M + 512) * 144 bytes of dynamic shared memory
+// (216 KB at M = 1024).  Launches on `stream`, allocates nothing, and
+// returns the first CUDA error.
+static int factor_launch(const float* A, float* L, float* Dinv, int b, int M,
+                         int cluster, long long* trace, void* stream) {
+  if (M % kW || M < kW || M > kMaxM || cluster < 2 || cluster > 16 || b < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(M - kW) + (2 * kWarps + 1) * kW) * kLd;
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_factor_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(chol_factor_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, chol_factor_cluster_kernel, A, L, Dinv, M,
+                           trace);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// D, L, Linv: [b, P, P] contiguous float32 on the device, 0 < P <= 128; the
+// D, R, Rinv: [b, P, P] contiguous float32 on the device, 0 < P <= 128; the
 // working matrix (33 KB at P = 64, 129 KB at P = 128) opts in to more than
-// the default 48 KB of dynamic shared memory where it needs to.  Launches
-// on `stream`, allocates nothing, and returns the first CUDA error.
-extern "C" int chol_inv_base(const float* D, float* L, float* Linv, int b,
-                             int P, void* stream) {
-  return launch(chol_inv_kernel, D, L, Linv, b, P, stream);
-}
-
-// The upper orientation, same contract: R upper with R R^T = D, Rinv = R^-1.
+// the default 48 KB of dynamic shared memory where it needs to.  R upper
+// with R R^T = D, Rinv = R^-1.  Launches on `stream`, allocates nothing,
+// and returns the first CUDA error.
 extern "C" int chol_inv_base_upper(const float* D, float* R, float* Rinv,
                                    int b, int P, void* stream) {
-  return launch(chol_inv_upper_kernel, D, R, Rinv, b, P, stream);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(P) * 2 * P + P);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chol_inv_upper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = P * (kBaseThreads / P);
+  chol_inv_upper_kernel<<<b, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(D, R, Rinv, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int chol_factor_blocked(const float* A, float* L, float* Dinv,
+                                   int b, int M, int cluster, void* stream) {
+  return factor_launch(A, L, Dinv, b, M, cluster, nullptr, stream);
+}
+
+// chol_factor_blocked with clock64() stamps of the first cluster's phases
+// written to `trace` (8 + 10 (M/32 - 1) values).
+extern "C" int chol_factor_blocked_traced(const float* A, float* L,
+                                          float* Dinv, int b, int M,
+                                          int cluster, long long* trace,
+                                          void* stream) {
+  return factor_launch(A, L, Dinv, b, M, cluster, trace, stream);
+}
+
+// The number of `cluster`-block clusters of chol_factor_blocked at this M
+// that the card can hold at once (0: the launch would fail), or minus the
+// CUDA error.
+extern "C" int chol_factor_max_clusters(int M, int cluster) {
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(M - kW) + (2 * kWarps + 1) * kW) * kLd;
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_factor_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(chol_factor_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, chol_factor_cluster_kernel,
+                                       &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
 }

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from deepcgp_tpu_torch.config import JITTER
-from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
+from deepcgp_tpu_torch.models.base_kernels import RBF, frozen_parameter
 from deepcgp_tpu_torch.ops import cuda_cross, cuda_patches
 from deepcgp_tpu_torch.ops.linalg import add_jitter
 
@@ -94,7 +94,13 @@ class AdditivePatchKernel(nn.Module):
 
     def Kdiag(self, ND_X: torch.Tensor, patches=None) -> torch.Tensor:
         """RBF Kdiag is the constant variance * mean(w): the patch values
-        never enter, so ``patches`` is not read."""
+        never enter, so ``patches`` is not read.  Any other base kernel's
+        Kdiag reads the patches (the JAX package's branch), which the port
+        does not have yet: it raises rather than answer the RBF's value."""
+        if not isinstance(self.base_kernel, RBF):
+            raise NotImplementedError(
+                'AdditivePatchKernel.Kdiag: only an RBF base kernel, got '
+                f'{type(self.base_kernel).__name__}')
         v = self.base_kernel.variance * self.patch_weights.mean()
         return v.expand(ND_X.shape[0]).to(ND_X.dtype)
 

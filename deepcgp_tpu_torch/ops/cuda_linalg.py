@@ -1,20 +1,27 @@
 """Batched Cholesky factors, their inverses and triangular inverses: the
-CUDA base cases and their blocked drivers.
+CUDA kernels and the drivers named after the JAX package's.
 
-Counterpart of ``deepcgp_tpu/ops/pallas_linalg.py``.  Three kernels, each
-one launch over a batch of [P, P] matrices (P <= 128):
+Counterpart of ``deepcgp_tpu/ops/pallas_linalg.py``.  Three kernels:
 
-* :func:`chol_inv_base` (``csrc/chol_inv.cu``, K1): lower factor and its
-  inverse, under :func:`chol_inv_batched` (factor plus inverse) and
-  :func:`chol_factor_batched` (factor only);
-* :func:`chol_inv_base_upper` (``csrc/chol_inv.cu``, K2): upper factor
-  R (R R^T = D) and its inverse, under the NatGrad drivers
-  :func:`chol_inv_batched_upper` and :func:`chol_right_solve_upper`;
-* :func:`tri_inv_base` (``csrc/tri_inv.cu``, K3): inverse of a lower
-  factor, under :func:`tri_inv_doubling`.
+* K1 (``csrc/chol_inv.cu``, :func:`chol_factor_blocked`): the whole
+  blocked lower Cholesky factor of a [B, M, M] batch (M % 32 == 0,
+  M <= 1024) in one launch, one thread-block cluster a matrix, with the
+  inverses of its 32x32 diagonal blocks;
+* K3 (``csrc/tri_inv.cu``, :func:`tri_inv_blocked`): the inverse of a
+  [B, M, M] lower triangle in one launch, by independent column strips,
+  taking K1's diagonal-block inverses where it has them;
+* K2 (``csrc/chol_inv.cu``, :func:`chol_inv_base_upper`): upper factor
+  R (R R^T = D) and its inverse of [b, P, P] blocks, P <= 128, under the
+  NatGrad drivers :func:`chol_inv_batched_upper` and
+  :func:`chol_right_solve_upper`.
 
-The drivers' panel solves, trailing downdates and block substitutions are
-full-f32 matrix products (TF32 is off, see ``config``).
+The JAX package's names keep their signatures: :func:`chol_inv_base` and
+:func:`chol_inv_batched` run K1 then K3, :func:`chol_factor_batched` K1,
+:func:`tri_inv_base` and :func:`tri_inv_doubling` K3 -- no Python panel
+loop on the card.  On a CPU tensor each runs the kernels' plain versions,
+which follow the kernels' block order step for step.  The K2 drivers'
+panel solves, trailing downdates and block substitutions are full-f32
+matrix products (TF32 is off, see ``config``).
 
 A non-PD batch element gives NaN in its factor and inverse and leaves the
 others untouched, as ``torch.linalg.cholesky`` in JAX's NaN convention
@@ -29,18 +36,25 @@ import torch
 
 from deepcgp_tpu_torch.ops import cuda_build
 
-# Default panel of the drivers (the JAX package's PANEL), and the largest
-# matrix the kernels take: K1/K2 keep a [P, 2P] working matrix in shared
-# memory (128 KB at 128), K3 L and X^T (132 KB at 128).
+# The NatGrad drivers' default panel (the JAX package's PANEL), and the
+# largest block K2 takes: a [P, 2P] working matrix in shared memory (128 KB
+# at 128).
 PANEL = 64
 MAX_P = 128
+# K1's panel width and K3's diagonal blocks (one warp, one lane a row), and
+# the largest matrix K1 and K3 take (K1 stages a [M - 32, 32] panel in each
+# block's shared memory: 140 KB at 1024).
+W = 32
+MAX_M = 1024
+_SUB = 8          # the diagonal factor's column blocks
 
 
 def _T(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
-def _check_device(what: str, A: torch.Tensor, multiple: int = 1) -> bool:
+def _check_device(what: str, A: torch.Tensor, multiple: int = 1,
+                  largest: int = MAX_P) -> bool:
     """True for a CPU tensor (the plain version runs); for a CUDA tensor,
     raise on anything the kernel does not take and return False."""
     if A.device.type == 'cpu':
@@ -49,9 +63,9 @@ def _check_device(what: str, A: torch.Tensor, multiple: int = 1) -> bool:
         raise ValueError(f'{what}: unsupported device {A.device}')
     if A.dtype != torch.float32:
         raise TypeError(f'{what}: float32 only, got {A.dtype}')
-    if (A.ndim != 3 or A.shape[1] != A.shape[2]
-            or not 0 < A.shape[1] <= MAX_P or A.shape[1] % multiple):
-        raise ValueError(f'{what}: need [b, P, P] with P <= {MAX_P}'
+    if (A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[0] == 0
+            or not 0 < A.shape[1] <= largest or A.shape[1] % multiple):
+        raise ValueError(f'{what}: need [b, P, P] with P <= {largest}'
                          f'{f" and P % {multiple} == 0" if multiple > 1 else ""},'
                          f' got {tuple(A.shape)}')
     if not A.is_contiguous():
@@ -73,69 +87,152 @@ def _launch(library: str, symbol: str, A: torch.Tensor, n_out: int):
     return outs
 
 
+def _width(M: int) -> int:
+    """The plain versions' block width: K1's W, or the whole matrix where
+    it is not a multiple of W (the CPU takes any M; the card raises)."""
+    return W if M % W == 0 else M
+
+
 # ------------------------------------------------------------------- K1
 
 
-def chol_inv_base_plain(D: torch.Tensor):
-    """Plain PyTorch version of K1, step for step: Gaussian elimination on
-    [D | I] advanced over the whole batch at once."""
+def _factor_tile_plain(D: torch.Tensor) -> torch.Tensor:
+    """The factor of one diagonal tile as K1's warp computes it: the
+    columns in blocks of 8, each eliminated step by step (pivot W[j][j],
+    rsq = rsqrt(pivot), column j of L = W[j:, j] * rsq, rows i > j update
+    the block's columns k > j by (W[i][j] * rsq) * rsq * W[j][k]), then
+    folded into the columns right of it by one rank-8 update.  The 8x8
+    diagonal sub-blocks are read whole (both triangles)."""
     b, P, _ = D.shape
-    eye = torch.eye(P, dtype=D.dtype, device=D.device).expand(b, P, P)
-    W = torch.cat([D, eye], dim=2).clone()
-    L = torch.zeros_like(D)
-    Linv = torch.empty_like(D)
-    for j in range(P):
-        rowj = W[:, j:j + 1, :]                              # [b, 1, 2P]
-        rsq = torch.rsqrt(rowj[:, :, j:j + 1])               # [b, 1, 1]
-        Linv[:, j:j + 1, :] = rowj[:, :, P:] * rsq
-        cvec = W[:, j:, j:j + 1] * rsq                       # [b, P-j, 1]
-        L[:, j:, j:j + 1] = cvec
-        if j + 1 < P:
-            W[:, j + 1:, :] -= (cvec[:, 1:] * rsq) * rowj
-    return L, Linv
+    Wt = D.clone()
+    for b0 in range(0, P, _SUB):
+        e = min(b0 + _SUB, P)
+        for j in range(b0, e):
+            rsq = torch.rsqrt(Wt[:, j, j])[:, None]               # [b, 1]
+            m = (Wt[:, j + 1:, j] * rsq) * rsq                    # [b, P-j-1]
+            Wt[:, j + 1:, j + 1:e] -= m[:, :, None] * Wt[:, j:j + 1, j + 1:e]
+            Wt[:, j:, j] *= rsq
+            Wt[:, :j, j] = 0
+        if e < P:
+            Lb = Wt[:, e:, b0:e]
+            Wt[:, e:, e:] -= Lb @ _T(Lb)
+    return torch.tril(Wt)
+
+
+def _forward_sub_plain(Lii: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Lii^-1 R for lower Lii [B, w, w], column by column as K3's warps and
+    K1's inverse warps run it: y_q *= 1 / L_qq, then r_s -= L_sq y_q for
+    s > q."""
+    Y = R.clone()
+    for q in range(Lii.shape[-1]):
+        Y[:, q] = Y[:, q] * (1 / Lii[:, q, q, None])
+        Y[:, q + 1:] -= Lii[:, q + 1:, q, None] * Y[:, q:q + 1]
+    return Y
+
+
+def _right_solve_plain(Wt: torch.Tensor, Lkk: torch.Tensor) -> torch.Tensor:
+    """Wt Lkk^-T for Wt [B, m, w], a row per lane as K1's panel solve runs
+    it: x_q = w_q * (1 / L_qq), then w_q' -= L_q'q x_q for q' > q."""
+    X = Wt.clone()
+    for q in range(Lkk.shape[-1]):
+        X[:, :, q] = X[:, :, q] * (1 / Lkk[:, q, q, None])
+        X[:, :, q + 1:] -= X[:, :, q:q + 1] * Lkk[:, None, q + 1:, q]
+    return X
+
+
+def tri_inv_base_plain(L: torch.Tensor) -> torch.Tensor:
+    """The inverse of lower [b, P, P] by forward substitution on the
+    identity: the plain version of :func:`tri_inv_base` at M = P <= 32,
+    and of the diagonal-block inverses K1 writes."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return _forward_sub_plain(L, eye.expand(L.shape))
+
+
+def chol_inv_base_plain(D: torch.Tensor):
+    """The factor and its inverse of one [b, P, P] block, as K1 computes
+    them for each diagonal tile: the plain version of :func:`chol_inv_base`
+    at M = P <= 32."""
+    L = _factor_tile_plain(D)
+    return L, tri_inv_base_plain(L)
+
+
+def chol_factor_blocked_plain(A: torch.Tensor, w: int | None = None):
+    """Plain PyTorch version of K1, in its block order: the right-looking
+    factor of A [B, M, M] in w-wide panels (w = W by default),
+
+        L_kk, L_kk^-1 = chol_inv_base_plain(rem_kk);
+        L_21 = rem_21 L_kk^-T (forward substitution on L_kk);
+        rem <- rem_22 - L_21 L_21^T.
+
+    Returns (L, Dinv) with Dinv [B, M/w, w, w] the diagonal blocks'
+    inverses."""
+    B, M, _ = A.shape
+    w = w or _width(M)
+    if M % w:
+        raise ValueError(f'chol_factor_blocked_plain: M = {M}, w = {w}')
+    L = torch.zeros_like(A)
+    Dinv = A.new_empty(B, M // w, w, w)
+    rem = A
+    for k in range(M // w):
+        s = k * w
+        Lkk, Dinv[:, k] = chol_inv_base_plain(rem[:, :w, :w])
+        L[:, s:s + w, s:s + w] = Lkk
+        if s + w < M:
+            L21 = _right_solve_plain(rem[:, w:, :w], Lkk)    # [B, m, w]
+            L[:, s + w:, s:s + w] = L21
+            rem = rem[:, w:, w:] - L21 @ _T(L21)
+    return L, Dinv
+
+
+def _cluster(M: int) -> int:
+    """K1's blocks per matrix: 16 (non-portable) from M = 512 up, where a
+    matrix has enough tiles to share, else 8."""
+    return 16 if M >= 512 else 8
+
+
+def chol_factor_blocked(A: torch.Tensor):
+    """K1: A [B, M, M] SPD -> (L, Dinv), L lower with L L^T = A and Dinv
+    [B, M/32, 32, 32] the inverses of its diagonal blocks.
+
+    A CUDA tensor (float32, contiguous, M % 32 == 0, M <= 1024) launches
+    the kernel, one thread-block cluster a matrix, or raises; a CPU tensor
+    takes :func:`chol_factor_blocked_plain`.  Launches count on
+    ``chol_inv_base.launches``."""
+    if _check_device('chol_factor_blocked', A, W, MAX_M):
+        return chol_factor_blocked_plain(A)
+    B, M, _ = A.shape
+    L = torch.empty_like(A)
+    Dinv = A.new_empty(B, M // W, W, W)
+    fn = cuda_build.function(
+        'chol_inv', 'chol_factor_blocked',
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, M,
+                        _cluster(M), stream), 'chol_factor_blocked')
+    chol_inv_base.launches += 1
+    return L, Dinv
 
 
 def chol_inv_base(D: torch.Tensor):
-    """[b, P, P] symmetric -> (chol(D), chol(D)^-1), L lower.  The whole of
-    D is read, both triangles, as the JAX kernel reads it: a matrix
+    """[b, M, M] symmetric -> (chol(D), chol(D)^-1), L lower: K1 then K3
+    (:func:`chol_factor_blocked`, :func:`tri_inv_blocked` with K1's
+    diagonal-block inverses), two launches.  The 8x8 sub-blocks on the
+    diagonal are read whole (both triangles), as the JAX base kernel reads
+    its whole input, the rest on and below the diagonal: a matrix
     meaningful in its lower triangle only goes through
     :func:`sym_from_tril` first.
 
-    A CUDA tensor launches K1 (float32, contiguous, P <= 128) or raises; a
-    CPU tensor takes :func:`chol_inv_base_plain`."""
-    if _check_device('chol_inv_base', D):
-        return chol_inv_base_plain(D)
-    L, Linv = _launch('chol_inv', 'chol_inv_base', D, 2)
-    chol_inv_base.launches += 1
-    return L, Linv
+    ``chol_inv_base.launches`` counts K1's launches."""
+    L, Dinv = chol_factor_blocked(D)
+    return L, tri_inv_blocked(L, Dinv)
 
 
 chol_inv_base.launches = 0
 
 
-def _factor_lower(A: torch.Tensor, P: int):
-    """Right-looking factor phase: A [B, M, M] SPD -> (L dense lower, the
-    inverses of its M/P diagonal blocks), with
-
-        L_kk, L_kk^-1 = base(rem_kk);  L_21 = A_21 L_kk^-T;
-        rem <- rem_22 - L_21 L_21^T."""
-    M = A.shape[-1]
-    L = torch.zeros_like(A)
-    Dinv = []
-    rem = A
-    for k in range(M // P):
-        s = k * P
-        Lkk, Lkkinv = chol_inv_base(rem[:, :P, :P].contiguous())
-        L[:, s:s + P, s:s + P] = Lkk
-        Dinv.append(Lkkinv)
-        if s + P < M:
-            L21 = rem[:, P:, :P] @ _T(Lkkinv)                # [B, m, P]
-            L[:, s + P:, s:s + P] = L21
-            rem = rem[:, P:, P:] - L21 @ _T(L21)
-    return L, Dinv
-
-
 def _panel(what: str, A: torch.Tensor, panel: int) -> int:
+    """The JAX drivers' shape contract, [B, M, M] with M a multiple of
+    P = min(panel, M); returns P."""
     B, M, M2 = A.shape
     P = min(panel, M)
     if M != M2 or M % P:
@@ -144,46 +241,29 @@ def _panel(what: str, A: torch.Tensor, panel: int) -> int:
 
 
 def chol_inv_batched(A: torch.Tensor):
-    """Blocked right-looking Cholesky of a batch of SPD matrices with the
-    explicit inverse of the factor: A [B, M, M], M a multiple of PANEL
-    (or below it) -> (L, L^-1).  The inverse by block forward
-    substitution, X_kk = L_kk^-1, X_i,:i = -L_ii^-1 (L_i,:i X_:i,:i), taken
-    a whole block row per product (2 products per row instead of one per
-    block pair): the driver's time on the card is launches, not
-    arithmetic."""
-    P = _panel('chol_inv_batched', A, PANEL)
-    M = A.shape[-1]
-    if M == P:
-        return chol_inv_base(A.contiguous())
-    L, Dinv = _factor_lower(A, P)
-    X = torch.zeros_like(A)
-    for k, Dk in enumerate(Dinv):
-        X[:, k * P:(k + 1) * P, k * P:(k + 1) * P] = Dk
-    for i in range(1, M // P):
-        s = i * P
-        X[:, s:s + P, :s] = -(Dinv[i] @ (L[:, s:s + P, :s] @ X[:, :s, :s]))
-    return L, X
+    """Blocked Cholesky of a batch of SPD matrices with the explicit
+    inverse of the factor: A [B, M, M] -> (L, L^-1), as
+    :func:`chol_inv_base` (K1 then K3: two launches whatever M)."""
+    _panel('chol_inv_batched', A, PANEL)
+    return chol_inv_base(A.contiguous())
 
 
 def chol_factor_batched(A: torch.Tensor, panel: int = 128) -> torch.Tensor:
     """Factor-only blocked Cholesky: A [B, M, M] SPD -> L lower with
-    L L^T = A -- the factor phase of :func:`chol_inv_batched` without the
-    block inverse, for callers that build the inverse another way (the
-    M > 512 route of ``linalg._chol_inv_impl`` pairs it with
-    :func:`tri_inv_doubling`)."""
-    P = _panel('chol_factor_batched', A, panel)
-    if A.shape[-1] == P:
-        return chol_inv_base(A.contiguous())[0]
-    return _factor_lower(A, P)[0]
+    L L^T = A, one K1 launch.  ``panel`` keeps the JAX driver's shape
+    contract (M a multiple of min(panel, M)); the kernel's own panel is
+    W."""
+    _panel('chol_factor_batched', A, panel)
+    return chol_factor_blocked(A.contiguous())[0]
 
 
 # ------------------------------------------------------------------- K2
 
 
 def chol_inv_base_upper_plain(D: torch.Tensor):
-    """Plain PyTorch version of K2, step for step: the elimination of
-    :func:`chol_inv_base_plain` run from the bottom-right corner, so the
-    factor comes out upper (R R^T = D)."""
+    """Plain PyTorch version of K2, step for step: Gaussian elimination on
+    [D | I] advanced over the whole batch at once, from the bottom-right
+    corner, so the factor comes out upper (R R^T = D)."""
     b, P, _ = D.shape
     eye = torch.eye(P, dtype=D.dtype, device=D.device).expand(b, P, P)
     W = torch.cat([D, eye], dim=2).clone()
@@ -224,7 +304,8 @@ def sym_from_tril(D: torch.Tensor) -> torch.Tensor:
 
 
 def _factor_blocks_upper(A: torch.Tensor, P: int):
-    """Upper mirror of :func:`_factor_lower`, from the bottom-right corner:
+    """Upper mirror of :func:`chol_factor_blocked_plain`, from the
+    bottom-right corner, in P-wide panels around K2:
 
         R_kk, R_kk^-1 = base(sym(rem_kk));  R_12 = A_21^T R_kk^-T;
         rem <- rem_11 - R_12 R_12^T.
@@ -301,64 +382,80 @@ def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
 # ------------------------------------------------------------------- K3
 
 
-def tri_inv_base_plain(L: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K3, as the JAX kernel computes it: forward
-    substitution a row at a time over the whole batch,
-    X[i, :] = (e_i - sum_{p<i} L[i, p] X[p, :]) / L[i, i]."""
-    b, P, _ = L.shape
+def tri_inv_blocked_plain(L: torch.Tensor, Dinv: torch.Tensor | None = None,
+                          w: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K3: L [B, M, M] lower -> L^-1 in w-wide
+    blocks (w = W by default), each column block j independent of the
+    others,
+
+        X_jj = L_jj^-1,   X_ij = -L_ii^-1 sum_{j <= p < i} L_ip X_pj,
+
+    taken a block row at a time for all column blocks at once (the same
+    arithmetic per entry).  L_ii^-1 is ``Dinv[:, i]`` where given (K1's
+    second output), else forward substitution on L_ii.  The strict upper
+    triangle of L is not read."""
+    B, M, _ = L.shape
+    w = w or _width(M)
+    if M % w:
+        raise ValueError(f'tri_inv_blocked_plain: M = {M}, w = {w}')
     X = torch.zeros_like(L)
-    eye = torch.eye(P, dtype=L.dtype, device=L.device)
-    for i in range(P):
-        contrib = (L[:, i, :i, None] * X[:, :i, :]).sum(1, keepdim=True)
-        X[:, i:i + 1, :] = (eye[i] - contrib) / L[:, i:i + 1, i:i + 1]
+    eye = torch.eye(w, dtype=L.dtype, device=L.device).expand(B, w, w)
+    for i in range(M // w):
+        s = i * w
+        R = torch.cat([-(L[:, s:s + w, :s] @ X[:, :s, :s]), eye], dim=2)
+        X[:, s:s + w, :s + w] = (Dinv[:, i] @ R if Dinv is not None else
+                                 _forward_sub_plain(L[:, s:s + w, s:s + w], R))
+    return X
+
+
+def tri_inv_blocked(L: torch.Tensor,
+                    Dinv: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: L [B, M, M] lower-triangular -> L^-1 (the strict upper triangle
+    of L is not read), with K1's diagonal-block inverses ``Dinv`` [B, M/32,
+    32, 32] where given.
+
+    A CUDA tensor (float32, contiguous, M % 32 == 0, M <= 1024) launches
+    the kernel or raises; a CPU tensor takes :func:`tri_inv_blocked_plain`.
+    Launches count on ``tri_inv_base.launches``."""
+    if _check_device('tri_inv_blocked', L, W, MAX_M):
+        return tri_inv_blocked_plain(L, Dinv)
+    B, M, _ = L.shape
+    if Dinv is not None and (Dinv.shape != (B, M // W, W, W)
+                             or Dinv.dtype != L.dtype
+                             or Dinv.device != L.device
+                             or not Dinv.is_contiguous()):
+        raise ValueError(f'tri_inv_blocked: Dinv {tuple(Dinv.shape)} for L '
+                         f'{tuple(L.shape)}')
+    X = torch.empty_like(L)
+    fn = cuda_build.function(
+        'tri_inv', 'tri_inv_blocked',
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(L.device).cuda_stream
+    cuda_build.check(fn(L.data_ptr(),
+                        None if Dinv is None else Dinv.data_ptr(),
+                        X.data_ptr(), B, M, stream), 'tri_inv_blocked')
+    tri_inv_base.launches += 1
     return X
 
 
 def tri_inv_base(L: torch.Tensor) -> torch.Tensor:
-    """[b, P, P] lower-triangular -> L^-1 (the strict upper triangle of L
-    is not read).
+    """[b, M, M] lower-triangular -> L^-1 (the strict upper triangle of L
+    is not read): one K3 launch, which substitutes on the diagonal blocks.
 
-    A CUDA tensor launches K3 (float32, contiguous, P <= 128, P % 4 == 0)
-    or raises; a CPU tensor takes :func:`tri_inv_base_plain`."""
-    if _check_device('tri_inv_base', L, multiple=4):
-        return tri_inv_base_plain(L)
-    X, = _launch('tri_inv', 'tri_inv_base', L, 1)
-    tri_inv_base.launches += 1
-    return X
+    ``tri_inv_base.launches`` counts K3's launches."""
+    return tri_inv_blocked(L.contiguous())
 
 
 tri_inv_base.launches = 0
 
 
 def tri_inv_doubling(L: torch.Tensor, block: int = 128) -> torch.Tensor:
-    """L [..., M, M] lower-triangular -> L^-1 by recursive block doubling,
-
-        inv([[A, 0], [B, C]]) = [[A^-1, 0], [-C^-1 B A^-1, C^-1]]:
-
-    the M/block diagonal blocks invert together in one K3 launch, then
-    log2(M/block) levels of batched products merge pairs.  Needs
-    M % block == 0 and M/block a power of two."""
+    """L [..., M, M] lower-triangular -> L^-1, one K3 launch.  ``block``
+    keeps the JAX driver's shape contract (M % block == 0 and M/block a
+    power of two, as its block doubling needs); K3 itself takes the column
+    strips of the whole matrix at once."""
     *batch, M, M2 = L.shape
     nb = M // block
     if M != M2 or M % block or nb & (nb - 1):
         raise ValueError(f'tri_inv_doubling: {tuple(L.shape)} with block {block}')
-    Lf = L.reshape(-1, M, M)
-    Bn = Lf.shape[0]
-    dblocks = torch.stack(
-        [Lf[:, k * block:(k + 1) * block, k * block:(k + 1) * block]
-         for k in range(nb)], dim=1).reshape(Bn * nb, block, block)
-    invs = list(tri_inv_base(dblocks).reshape(Bn, nb, block, block).unbind(1))
-    s = block
-    while s < M:
-        pairs = len(invs) // 2
-        Ainv = torch.stack(invs[0::2], dim=1)              # [Bn, pairs, s, s]
-        Cinv = torch.stack(invs[1::2], dim=1)
-        Bblk = torch.stack(
-            [Lf[:, (2 * p + 1) * s:(2 * p + 2) * s, 2 * p * s:(2 * p + 1) * s]
-             for p in range(pairs)], dim=1)
-        X21 = -(Cinv @ (Bblk @ Ainv))
-        merged = torch.cat([torch.cat([Ainv, torch.zeros_like(X21)], dim=-1),
-                            torch.cat([X21, Cinv], dim=-1)], dim=-2)
-        invs = list(merged.unbind(1))
-        s *= 2
-    return invs[0].reshape(*batch, M, M)
+    return tri_inv_base(L.reshape(-1, M, M)).reshape(*batch, M, M)

@@ -33,31 +33,30 @@ def cholesky(K: torch.Tensor) -> torch.Tensor:
 
 
 def _bigchol_slice(K: torch.Tensor) -> bool:
-    """Shapes the JAX package factors with its M > 512 kernels (the
-    factor-only driver and the block-doubling triangular inverse)."""
+    """Shapes above M = 512 that the JAX package factors with its M > 512
+    kernels (the factor-only driver and the block-doubling triangular
+    inverse), up to the largest matrix K1 and K3 take."""
     M = K.shape[-1]
-    return (K.dtype == torch.float32 and M > 512 and M % 128 == 0
-            and ((M // 128) & (M // 128 - 1)) == 0)
+    return (K.dtype == torch.float32 and 512 < M <= cuda_linalg.MAX_M
+            and M % 128 == 0 and ((M // 128) & (M // 128 - 1)) == 0)
 
 
 def _chol_inv_impl(K: torch.Tensor):
     """(chol(K), chol(K)^-1) for K [..., M, M] SPD (0 or 1 batch dims).
 
-    float32 with M a multiple of 64 and M <= 512 goes to the blocked
-    driver around K1.  float32 at M > 512 (M/128 a power of two) goes to
-    the factor-only driver around K1 at panel 128 and the block-doubling
-    triangular inverse around K3.  (A CPU tensor takes the kernels' plain
-    versions.)  Every other shape or dtype takes ``torch.linalg.cholesky``
-    plus one triangular solve, as the JAX package takes XLA's."""
+    float32 with M a multiple of 64 and M <= 512, or M = 1024 (the JAX
+    package's two kernel routes, the second capped at K1's and K3's
+    largest matrix) goes to K1 then K3: two launches on the card, the
+    kernels' plain versions on the CPU.  Every other shape or dtype takes
+    ``torch.linalg.cholesky`` plus one triangular solve, as the JAX package
+    takes XLA's."""
     M = K.shape[-1]
-    if K.dtype == torch.float32 and M % 64 == 0 and M <= 512 and K.ndim in (2, 3):
+    if K.ndim in (2, 3) and (
+            (K.dtype == torch.float32 and M % 64 == 0 and M <= 512)
+            or _bigchol_slice(K)):
         KB = K[None] if K.ndim == 2 else K
         L, Linv = cuda_linalg.chol_inv_batched(KB.contiguous())
         return (L[0], Linv[0]) if K.ndim == 2 else (L, Linv)
-    if _bigchol_slice(K):
-        KB = K.reshape(-1, M, M)
-        L = cuda_linalg.chol_factor_batched(KB).reshape(K.shape)
-        return L, cuda_linalg.tri_inv_doubling(L)
     L = cholesky(K)
     eye = torch.eye(M, dtype=K.dtype, device=K.device).expand(K.shape)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)

@@ -150,8 +150,8 @@ def test_slice_f32_through_kernel_paths_matches_jax(monkeypatch):
     model, X, Y = _jax_model(np.float32)
     port = _port(model)
     assert cuda_cross.supported(port.layers[-1].kernel)
-    calls = {'k1': 0, 'k4': 0}
-    base, cross = cuda_linalg.chol_inv_base_plain, cuda_cross.conv_rbf_cross_plain
+    calls = {'k1': 0, 'k3': 0, 'k4': 0}
+    cross = cuda_cross.conv_rbf_cross_plain
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -159,11 +159,14 @@ def test_slice_f32_through_kernel_paths_matches_jax(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(cuda_linalg, 'chol_inv_base_plain', count('k1', base))
+    monkeypatch.setattr(cuda_linalg, 'chol_factor_blocked_plain',
+                        count('k1', cuda_linalg.chol_factor_blocked_plain))
+    monkeypatch.setattr(cuda_linalg, 'tri_inv_blocked_plain',
+                        count('k3', cuda_linalg.tri_inv_blocked_plain))
     monkeypatch.setattr(cuda_cross, 'conv_rbf_cross_plain', count('k4', cross))
     p = _compare(model, port, X[:10], Y[:10], dict(rtol=0, atol=1e-4),
                  dict(rtol=1e-4))
     assert p.dtype == torch.float32
     # Both predict_y and predict_density went through the kernel paths:
-    # one batched base call (M=64 is one panel) and one cross per call.
-    assert calls == {'k1': 2, 'k4': 2}
+    # one K1 and one K3 call for the batched Kuu, and one cross per call.
+    assert calls == {'k1': 2, 'k3': 2, 'k4': 2}

@@ -162,29 +162,30 @@ def test_tri_inv_doubling_and_factor_match_jax():
 
 
 def test_chol_with_inv_m1024_takes_the_big_route(monkeypatch):
-    """float32 at M = 1024 goes to the factor-only driver (8 K1 base cases
-    at P = 128) and one K3 call for the 8 diagonal blocks, and agrees with
-    numpy's float64 factor and inverse to 2e-5 of their largest magnitude
-    (float32 on a well-conditioned matrix)."""
+    """float32 at M = 1024 goes to K1 (the whole blocked factor, one call)
+    and K3 (the whole inverse, one call, with K1's diagonal-block
+    inverses), and agrees with numpy's float64 factor and inverse to 2e-5
+    of their largest magnitude (float32 on a well-conditioned matrix)."""
     calls = {'k1': 0, 'k3': 0}
-    k1, k3 = cuda_linalg.chol_inv_base_plain, cuda_linalg.tri_inv_base_plain
+    k1 = cuda_linalg.chol_factor_blocked_plain
+    k3 = cuda_linalg.tri_inv_blocked_plain
 
     def count(name, fn):
-        def wrapped(x):
+        def wrapped(x, *a):
             calls[name] += 1
-            assert x.shape[1:] == (128, 128), x.shape
-            return fn(x)
+            assert x.shape == (1, 1024, 1024), x.shape
+            return fn(x, *a)
         return wrapped
 
-    monkeypatch.setattr(cuda_linalg, 'chol_inv_base_plain', count('k1', k1))
-    monkeypatch.setattr(cuda_linalg, 'tri_inv_base_plain', count('k3', k3))
+    monkeypatch.setattr(cuda_linalg, 'chol_factor_blocked_plain', count('k1', k1))
+    monkeypatch.setattr(cuda_linalg, 'tri_inv_blocked_plain', count('k3', k3))
     S = _spd(np.random.RandomState(8), 1, 1024)[0]
     assert linalg._bigchol_slice(_t(S).float())
     L, Li = linalg.chol_with_inv(_t(S).float())
     Lr = np.linalg.cholesky(S)
     _close(L.numpy(), Lr, 2e-5)
     _close(Li.numpy(), np.linalg.inv(Lr), 2e-5)
-    assert calls == {'k1': 8, 'k3': 1}
+    assert calls == {'k1': 1, 'k3': 1}
 
 
 # ------------------------------------------------------------ natgrad_update

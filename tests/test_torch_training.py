@@ -137,7 +137,7 @@ def test_elbo_and_gradients_f32_through_kernel_paths(monkeypatch):
     on the latter."""
     monkeypatch.setenv('DEEPCGP_PALLAS_FORCE', '1')
     monkeypatch.setenv('DEEPCGP_PALLAS_CROSS', '1')
-    calls = {'k1': 0, 'k4': 0, 'k5': 0}
+    calls = {'k1': 0, 'k3': 0, 'k4': 0, 'k5': 0}
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -145,8 +145,10 @@ def test_elbo_and_gradients_f32_through_kernel_paths(monkeypatch):
             return fn(*a, **k)
         return wrapped
 
-    monkeypatch.setattr(cuda_linalg, 'chol_inv_base_plain',
-                        count('k1', cuda_linalg.chol_inv_base_plain))
+    monkeypatch.setattr(cuda_linalg, 'chol_factor_blocked_plain',
+                        count('k1', cuda_linalg.chol_factor_blocked_plain))
+    monkeypatch.setattr(cuda_linalg, 'tri_inv_blocked_plain',
+                        count('k3', cuda_linalg.tri_inv_blocked_plain))
     monkeypatch.setattr(cuda_cross, 'conv_rbf_cross_plain',
                         count('k4', cuda_cross.conv_rbf_cross_plain))
     monkeypatch.setattr(cuda_cross, 'conv_rbf_cross_bwd_plain',
@@ -158,8 +160,8 @@ def test_elbo_and_gradients_f32_through_kernel_paths(monkeypatch):
         ref = np.asarray(jax_leaf(grads_j, name))
         err = np.abs(g.numpy() - ref).max() / np.abs(ref).max()
         assert err <= 5e-3, (name, err)
-    # One batched base call for the three M=64 grams, one K4, one K5.
-    assert calls == {'k1': 1, 'k4': 1, 'k5': 1}
+    # One K1 and one K3 call for the three M=64 grams, one K4, one K5.
+    assert calls == {'k1': 1, 'k3': 1, 'k4': 1, 'k5': 1}
 
 
 def _trajectory(white, optimizer='Adam', steps=5):

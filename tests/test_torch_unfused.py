@@ -380,3 +380,16 @@ def test_ard_patch_last_layer_snapshot_both_ways(tmp_path):
     np.testing.assert_allclose(np.asarray(back.layers[-1].kernel.patch_weights),
                                np.asarray(model.layers[-1].kernel.patch_weights),
                                rtol=1e-12)
+
+
+def test_additive_kdiag_raises_for_a_base_that_is_not_rbf():
+    """AdditivePatchKernel.Kdiag is variance * mean(w) only for an RBF base
+    (the JAX package reads the patches for any other); until that branch
+    is ported, another base raises instead of answering the RBF's value."""
+    class Other(torch.nn.Module):
+        variance = torch.tensor(2.0)
+
+    view = FullView(input_size=(9, 9), filter_size=3, feature_maps=3)
+    k = AdditivePatchKernel(Other(), torch.ones(view.patch_count), view)
+    with pytest.raises(NotImplementedError):
+        k.Kdiag(torch.zeros(2, 9 * 9 * 3))

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""K1's cluster size on the card: the blocked Cholesky factor
+(``csrc/chol_inv.cu``) at the route shapes with 4, 8 and 16 blocks a
+matrix, and K3 (``csrc/tri_inv.cu``) beside it, each held against its
+plain version first.
+
+    python3 tools/torch_chol_clusters.py
+
+Prints one JSON line per shape and cluster size: the clusters the card
+holds at once (``cudaOccupancyMaxActiveClusters``), the profiler's device
+ms per launch and the relative error against the plain version; and for
+the wrapper's own cluster size (``cuda_linalg._cluster``) the first
+cluster's phases of one launch in SM clock cycles (``clock64``), panel by
+panel.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('torch_chol_clusters: needs a CUDA card', file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from deepcgp_tpu_torch.ops import cuda_build, cuda_linalg as cl
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({'card': card, 'build': cuda_build.build(
+        ('chol_inv', 'tri_inv'))}), flush=True)
+    factor = cuda_build.function(
+        'chol_inv', 'chol_factor_blocked',
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    most = cuda_build.function('chol_inv', 'chol_factor_max_clusters',
+                               [ctypes.c_int] * 2)
+    rng = np.random.RandomState(0)
+    dev = torch.device('cuda')
+    for b, M in ((3, 384), (1, 1024)):
+        D = cs.spd_batch(torch, rng, b, M, dev)
+        Lp, Dp = cl.chol_factor_blocked_plain(D)
+        for cluster in (2, 4, 8, 16):
+            L = torch.empty_like(D)
+            Dinv = D.new_empty(b, M // cl.W, cl.W, cl.W)
+
+            def run(L=L, Dinv=Dinv, cluster=cluster):
+                stream = torch.cuda.current_stream().cuda_stream
+                cuda_build.check(factor(D.data_ptr(), L.data_ptr(),
+                                        Dinv.data_ptr(), b, M, cluster,
+                                        stream), 'chol_factor_blocked')
+            run()
+            torch.cuda.synchronize()
+            err = max(cs.rel(L, Lp), cs.rel(Dinv, Dp))
+            line = {'shape': [b, M, M], 'cluster': cluster,
+                    'max_active_clusters': most(M, cluster),
+                    'rel_err_vs_plain': err, 'card': card,
+                    'k1_ms': cs.kernel_ms(torch, run,
+                                          'chol_factor_cluster_kernel')}
+            print(json.dumps(line), flush=True)
+            cs.check(err <= 1e-5, f'K1 [{b},{M},{M}] cluster {cluster}: {err}')
+        n = M // cl.W
+        trace = torch.zeros(8 + 10 * (n - 1), dtype=torch.int64, device=dev)
+        traced = cuda_build.function(
+            'chol_inv', 'chol_factor_blocked_traced',
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        L = torch.empty_like(D)
+        Dinv = D.new_empty(b, n, cl.W, cl.W)
+        for _ in range(2):
+            cuda_build.check(traced(
+                D.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b, M,
+                cl._cluster(M), trace.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), 'traced')
+        torch.cuda.synchronize()
+        t = trace.cpu().numpy()
+        at = t[8:].reshape(n - 1, 10)
+        phases = {
+            'setup_cycles': int(t[1] - t[0]),
+            'panel0_solve_cycles': int(t[2] - t[1]),
+            'diag_wait_and_downdate': (at[:, 1] - at[:, 0]).tolist(),
+            'diag_factor': (at[:, 3] - at[:, 1]).tolist(),
+            'diag_publish': (at[:, 4] - at[:, 3]).tolist(),
+            'diag_store': (at[:, 2] - at[:, 4]).tolist(),
+            'rank0_barrier': (at[:, 7] - at[:, 2]).tolist(),
+            'col_wait_and_fetch_rank1': (at[:, 8] - at[:, 6]).tolist(),
+            'col_solve_rank1': (at[:, 5] - at[:, 8]).tolist(),
+            'panel_cycles': np.diff(
+                np.concatenate([at[:, 0], [at[-1, 7]]])).tolist(),
+            'total_cycles': int(at[-1, 7] - t[0])}
+        print(json.dumps({'shape': [b, M, M], 'cluster': cl._cluster(M),
+                          'trace': phases, 'card': card}), flush=True)
+        X = cl.tri_inv_blocked(Lp.contiguous(), Dp.contiguous())
+        torch.cuda.synchronize()
+        err = cs.rel(X, cl.tri_inv_blocked_plain(Lp, Dp))
+        print(json.dumps({'shape': [b, M, M], 'k3_rel_err_vs_plain': err,
+                          'k3_ms': cs.kernel_ms(
+                              torch, lambda: cl.tri_inv_blocked(Lp, Dp),
+                              'tri_inv_strip_kernel'),
+                          'card': card}), flush=True)
+        cs.check(err <= 1e-5, f'K3 [{b},{M},{M}]: {err}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -115,8 +115,9 @@ def swapped(variant: str):
             return ve(self, Fmu.double(), Fvar.double(), Y).to(Fmu.dtype)
         put(likelihoods.MultiClass, 'variational_expectations', expectations)
     elif variant == 'plain':
-        put(cuda_linalg, 'chol_inv_base', cuda_linalg.chol_inv_base_plain)
-        put(cuda_linalg, 'tri_inv_base', cuda_linalg.tri_inv_base_plain)
+        put(cuda_linalg, 'chol_factor_blocked',
+            cuda_linalg.chol_factor_blocked_plain)
+        put(cuda_linalg, 'tri_inv_blocked', cuda_linalg.tri_inv_blocked_plain)
         put(cuda_patches, 'extract_patches_transposed',
             cuda_patches.extract_patches_transposed_plain)
         put(cuda_patches, 'col2im_transposed',

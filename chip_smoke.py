@@ -7,10 +7,12 @@ Builds every CUDA kernel of the port from deepcgp_tpu_torch/csrc and holds
 each against its plain PyTorch version on the card: K1 (the whole blocked
 Cholesky factor of a batch, one thread-block cluster a matrix) and K3 (the
 whole triangular inverse, by column strips) -- together the port's
-factor-plus-inverse in two launches -- at the old base shapes and the two
-route shapes [3, 384, 384] and [1, 1024, 1024], K2 (the upper
-Cholesky-with-inverse base case of NatGrad), K4 (fused extraction -> RBF
-cross-covariance) and K5 (its backward).  Then it drives the main paths of
+factor-plus-inverse in two launches -- at the old base shapes, the two
+Kuu route shapes [3, 384, 384] and [1, 1024, 1024] and the NatGrad
+solve's [20, 384, 384] and [10, 1024, 1024], K2 (the upper
+Cholesky-with-inverse base case of NatGrad's panel driver), K4 (fused
+extraction -> RBF cross-covariance) and K5 (its backward, the image side
+one thread-block cluster per image).  Then it drives the main paths of
 the flagship CIFAR-shaped 2-layer conv-GP (M=384,384, 10 feature maps,
 filters 5,5, strides 3,1, ConvKernel last layer; random weights or data
 from the seed):
@@ -24,13 +26,16 @@ from the seed):
   CIFAR-shaped data, as bench.py drives the JAX package, then the trained
   model saved as a snapshot and served;
 * NatGrad training of the same configuration (natural gradient on q_mu
-  and q_sqrt through K2, Adam on the rest, gamma 0.001);
+  and q_sqrt, its solve by K1 and K3 on the index-reversed G, Adam on the
+  rest, gamma 0.001);
 
 and of the M=1024 MNIST-shaped configuration (28x28x1, no hidden layer, an
 ARD-RBF last layer over the 784 pixels, M=1024, batch 128, S=10, k-means++
-inducing points): NatGrad training through K1 and K3 at M = 1024 and K2
-at P = 128, and a short Adam run through the bf16 stochastic-rounding
-moment store.
+inducing points): NatGrad training through K1 and K3 at M = 1024 (Kuu and
+the solve), a short Adam run through the bf16 stochastic-rounding moment
+store, and five NatGrad steps at M = 1088, above K1's largest matrix,
+where the solve takes the K2 panel driver, and one step of it against the
+CPU.
 
 Then the unfused last-layer route, whose geometries the fused K4/K5 pair
 does not take: K6 (patch extraction in transposed order) and K7 (its
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import json
 import os
 import subprocess
@@ -88,15 +94,25 @@ M1024 = dict(M='1024', feature_maps='', filter_sizes='5', strides='1',
 M1024_IMAGE, M1024_BATCH = (28, 28, 1), 128
 # Launches per NatGrad step and per run_chunk call (the terminal ELBO that
 # verifies a chunk's last commit), by kernel counter.
+# The NatGrad solve runs K1 and K3 on the index-reversed G (one each per
+# step) where K1 takes M, so K2 launches only above M = 1024: 17 a step at
+# M = 1088 (panel 64), where Kuu takes the library route.
 NATGRAD_PER_STEP = {
-    'flagship': {'chol_inv_base': 1, 'chol_inv_base_upper': 6,
-                 'tri_inv_base': 1, 'conv_rbf_cross': 1,
+    'flagship': {'chol_inv_base': 2, 'chol_inv_base_upper': 0,
+                 'tri_inv_base': 2, 'conv_rbf_cross': 1,
                  'conv_rbf_cross_bwd': 2},
-    'm1024': {'chol_inv_base': 1, 'chol_inv_base_upper': 8, 'tri_inv_base': 1,
-              'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0}}
+    'm1024': {'chol_inv_base': 2, 'chol_inv_base_upper': 0, 'tri_inv_base': 2,
+              'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0},
+    'm1088': {'chol_inv_base_upper': 17}}
 NATGRAD_PER_CHUNK = {
     'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1},
-    'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
+    'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
+    'm1088': {}}
+# NatGrad above K1's largest matrix: the M=1024 configuration at M = 1088.
+# No configuration of the repo goes past M = 1024 (BASELINE.md's sweep ends
+# there); this path drives the K2 panel driver, the NatGrad solve's route
+# above K1's largest matrix, through the trainer.
+M1088 = dict(M1024, M='1088')
 # The unfused route's configurations (examples/mnist_parity.py --m1024, and
 # BASELINE.md's CIFAR fm32 sweep point), their launches per Adam step, and
 # the MNIST snapshot's launches per predict_y.
@@ -155,28 +171,42 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(torch, fn, kernel: str, iters: int = 50) -> float:
+# Every profiled round of kernel_ms: [kernel, launches recorded, made].
+PROFILER_ROUNDS = []
+
+
+def kernel_ms(torch, fn, kernel: str, iters: int = 50,
+              rounds: int = 8) -> float:
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, per launch, from the profiler over ``iters`` calls of fn()
     -- the kernel alone, without the host time of its wrapper."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # The profiler may drop events of a run (seen: 49 and 46 of 50): the
-    # mean is over the launches it recorded, at least 90% of them, and a
-    # run that kept fewer is profiled once more.
-    for _ in range(2):
+    # The profiler may lose some of a round's device events (seen: 49, 46
+    # and 29 of 50).  Each recorded event is one whole launch, so the mean
+    # is over the launches recorded, and rounds of ``iters`` calls go on
+    # until ``iters`` launches are recorded.  A round that records more
+    # launches than it made matched another kernel, and fails.
+    total_us, seen = 0.0, 0
+    for _ in range(rounds):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages() if kernel in e.key
                 and e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(hits) == 1 and 0.9 * iters <= hits[0].count <= iters:
-            return hits[0].self_device_time_total / 1e3 / hits[0].count
-    raise RuntimeError(f'chip_smoke check failed: profiler saw '
-                       f'{[(e.key, e.count) for e in hits]} of {iters} '
-                       f'launches of {kernel}')
+        check(len(hits) <= 1 and sum(e.count for e in hits) <= iters,
+              f'profiler saw {[(e.key, e.count) for e in hits]} for '
+              f'{iters} launches of {kernel}')
+        PROFILER_ROUNDS.append([kernel, hits[0].count if hits else 0, iters])
+        if hits:
+            total_us += hits[0].self_device_time_total
+            seen += hits[0].count
+        if seen >= iters:
+            return total_us / 1e3 / seen
+    raise RuntimeError(f'chip_smoke check failed: profiler recorded {seen} '
+                       f'of {rounds * iters} launches of {kernel}')
 
 
 def profile_device(torch, fn):
@@ -356,12 +386,17 @@ K1K3_TOLERANCE = ('relative to max|.|: K1 (factor, diagonal-block inverses) '
                   'of the plain version on the same inputs, reconstruction '
                   '<= 5e-6; the route (K1 then K3) <= 1e-4 of float64')
 # K1's and K3's shapes: the old base cases' ([3, 64, 64] the flagship's Kuu
-# slice, [1, 128, 128], [8, 128, 128]) and the two route shapes
-# ([3, 384, 384] flagship, [1, 1024, 1024] M=1024 and MNIST ConvKernel).
-K1K3_SHAPES = ((3, 64), (1, 128), (8, 128), (3, 384), (1, 1024))
+# slice, [1, 128, 128], [8, 128, 128]), the two Kuu route shapes
+# ([3, 384, 384] flagship, [1, 1024, 1024] M=1024 and MNIST ConvKernel) and
+# the NatGrad solve's ([20, 384, 384] flagship at 4 blocks a matrix,
+# [10, 1024, 1024] M=1024 at 8; their inputs come from the ``aux``
+# generator, see main).
+K1K3_SOLVE_SHAPES = ((20, 384), (10, 1024))
+K1K3_SHAPES = ((3, 64), (1, 128), (8, 128), (3, 384), (1, 1024)) + \
+    K1K3_SOLVE_SHAPES
 
 
-def k1_k3_phases(torch, dev, card: dict, rng, Kuu) -> list:
+def k1_k3_phases(torch, dev, card: dict, rng, aux, Kuu) -> list:
     """K1 (the whole blocked factor, one cluster a matrix) and K3 (the whole
     inverse by column strips) at K1K3_SHAPES: each against its plain
     version on the same inputs, the route against float64, a non-PD
@@ -377,8 +412,8 @@ def k1_k3_phases(torch, dev, card: dict, rng, Kuu) -> list:
           'source': 'deepcgp_tpu_torch/csrc/tri_inv.cu',
           'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:165', 'max_abs_err': 0.0}
     for b, M in K1K3_SHAPES:
-        D = (Kuu[:, :M, :M].contiguous() if M == 64
-             else spd_batch(torch, rng, b, M, dev))
+        D = (Kuu[:, :M, :M].contiguous() if M == 64 else spd_batch(
+            torch, aux if (b, M) in K1K3_SOLVE_SHAPES else rng, b, M, dev))
         L, Dinv = cl.chol_factor_blocked(D)
         X = cl.tri_inv_blocked(L, Dinv)
         X0 = cl.tri_inv_blocked(L)
@@ -429,7 +464,7 @@ def k1_k3_phases(torch, dev, card: dict, rng, Kuu) -> list:
         plain_iters = 2 if M == 1024 else 5
         line = {'phase': 'K1/K3 blocked', **card, 'shape': [b, M, M],
                 'input': 'flagship Kuu[:, :64, :64]' if M == 64 else 'spd',
-                'cluster_blocks': cl._cluster(M),
+                'cluster_blocks': cl._cluster(M, b),
                 'rel_err_vs_plain': err, 'recon_rel_err': recon,
                 'lower_triangular': lower, 'route_rel_err_vs_f64': f64,
                 'non_pd_gives_nan': nan_ok,
@@ -468,12 +503,14 @@ def k1_k3_phases(torch, dev, card: dict, rng, Kuu) -> list:
 
 
 def base_case_phases(torch, dev, card: dict, rng) -> list:
-    """K2 at the flagship's [20, 64, 64] and the M=1024 [10, 128, 128]
-    against its plain version (float32, 1e-5 of the largest magnitude),
-    its non-PD element NaN in that element only, timed by the profiler
-    beside the plain version, one library call and its bound.  Then the
-    drivers at the main paths' shapes against float64 references: the
-    NatGrad solve (K2) and ``chol_with_inv`` (K1 then K3) at [1024, 1024]
+    """K2 at [20, 64, 64] and [10, 128, 128] against its plain version
+    (float32, 1e-5 of the largest magnitude), its non-PD element NaN in
+    that element only, timed by the profiler beside the plain version, one
+    library call and its bound.  Then the drivers at the main paths'
+    shapes against float64 references: the NatGrad solve by its reversed
+    route (K1 then K3), the K2 panel driver and two library forms at
+    [20, 384, 384] and [10, 1024, 1024], the panel driver at
+    [2, 1088, 1088], and ``chol_with_inv`` (K1 then K3) at [1024, 1024]
     and [3, 384, 384], each timed beside the library.
     Returns the kernels-line entry of K2."""
     from deepcgp_tpu_torch.ops import cuda_linalg as cl
@@ -529,32 +566,79 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
                       max_abs_err=err)
         k2['max_abs_err'] = max(k2['max_abs_err'], err)
 
-    # The drivers at the main paths' shapes, against float64 references:
-    # the NatGrad solve W R^-T ([20, 384, 384] panel 64; [10, 1024, 1024]
-    # panel 128) and the M=1024 Kuu's factor and inverse.
+    # The NatGrad solve Y = W R^-T at the main paths' shapes ([20, 384, 384]
+    # flagship, [10, 1024, 1024] M=1024), against float64: the reversed
+    # route (K1 and K3 on J G J, one product), the K2 panel driver called
+    # explicitly, and the library in two forms, all in the same call.  G is
+    # passed as natgrad_update builds it (its lower triangle, zeros above)
+    # and with garbage above the diagonal: the kernel routes must not see
+    # the difference.  Then the panel driver above K1's largest matrix.
     drivers = {}
-    for b, M, panel in ((20, 384, 64), (10, 1024, 128)):
+    for b, M, panel in ((20, 384, 64), (10, 1024, 128), (2, 1088, 64)):
         G = spd_batch(torch, rng, b, M, dev)
+        Gt = torch.tril(G)
+        Gg = Gt + torch.triu(torch.randn(b, M, M, device=dev) * 1e3, 1)
         W = torch.tril(spd_batch(torch, rng, b, M, dev))
-        Y = cl.chol_right_solve_upper(G, W, panel=panel)
         Gd, Wd = G.double().cpu(), W.double().cpu()
-        R = torch.linalg.cholesky(Gd.flip(-1, -2)).flip(-1, -2)
-        Yref = torch.linalg.solve_triangular(R.transpose(-1, -2), Wd,
+        Rd = torch.linalg.cholesky(Gd.flip(-1, -2)).flip(-1, -2)
+        Yref = torch.linalg.solve_triangular(Rd.transpose(-1, -2), Wd,
                                              upper=False, left=False)
-        eY = rel(Y.double().cpu(), Yref)
-        check(eY <= 1e-4, f'chol_right_solve_upper [{b},{M},{M}]: {eY}')
         Gf = G.flip(-1, -2)
         eyeM = torch.eye(M, device=dev).expand(b, M, M)
 
-        def library(Gf=Gf, eyeM=eyeM, W=W):
+        def reversed_route(G=Gt, W=W):
+            return cl.chol_right_solve_reversed(G, W)
+
+        def panels(G=Gt, W=W, p=panel):
+            return cl.chol_right_solve_upper_panels(G, W, panel=p)
+
+        def library_inverse(Gf=Gf, eyeM=eyeM, W=W):
             Lf = torch.linalg.cholesky(Gf)
             Rinv = torch.linalg.solve_triangular(Lf, eyeM, upper=False).flip(-1, -2)
             return W @ Rinv.transpose(-1, -2)
-        drivers[f'chol_right_solve_upper {b}x{M}'] = {
-            'rel_err_vs_f64': eY, 'ms': cuda_ms(
-                torch, lambda G=G, W=W, p=panel: cl.chol_right_solve_upper(
-                    G, W, panel=p), 10),
-            'library_ms': cuda_ms(torch, library, 10)}
+
+        def library_solve(Gf=Gf, W=W):
+            Lf = torch.linalg.cholesky(Gf)          # R^T = J Lf^T J, lower
+            return torch.linalg.solve_triangular(
+                Lf.transpose(-1, -2).flip(-1, -2), W, upper=False, left=False)
+        forms = {'panels': panels, 'library_inverse': library_inverse,
+                 'library_solve': library_solve}
+        if M <= cl.MAX_M:
+            forms = {'reversed': reversed_route, **forms}
+        entry = {'shape': [b, M, M], 'panel': panel, 'rel_err_vs_f64': {},
+                 'launches_per_call': {}, 'tril_only_equals_garbage': {}}
+        for name, fn in forms.items():
+            before = (cl.chol_inv_base.launches, cl.tri_inv_base.launches,
+                      cl.chol_inv_base_upper.launches)
+            Y = fn()
+            torch.cuda.synchronize()
+            after = (cl.chol_inv_base.launches, cl.tri_inv_base.launches,
+                     cl.chol_inv_base_upper.launches)
+            entry['launches_per_call'][name] = dict(zip(
+                ('K1', 'K3', 'K2'), (a - b0 for a, b0 in zip(after, before))))
+            entry['rel_err_vs_f64'][name] = rel(Y.double().cpu(), Yref)
+            if name in ('reversed', 'panels'):
+                entry['tril_only_equals_garbage'][name] = bool(torch.equal(
+                    fn(G=Gg), Y))
+        for name, fn in forms.items():
+            entry[f'{name}_ms'] = cuda_ms(torch, fn, 10 if M < 1024 else 5)
+        entry['library_ms'] = min(entry['library_inverse_ms'],
+                                  entry['library_solve_ms'])
+        # What the function needs: the factor B M^3 / 3 and the solve
+        # B N M^2 (N = M), each input read and the output written once.
+        entry['bound_ms'], entry['bound_by'] = bound_ms(
+            4 * 3 * b * M * M, b * M ** 3 / 3 + b * M ** 3)
+        if 'reversed' in forms:
+            entry['route_over_library'] = entry['reversed_ms'] / entry['library_ms']
+        label = f'natgrad solve {b}x{M}'
+        drivers[label] = entry
+        expected = {'reversed': {'K1': 1, 'K3': 1, 'K2': 0},
+                    'panels': {'K1': 0, 'K3': 0, 'K2': M // panel}}
+        check(max(entry['rel_err_vs_f64'].values()) <= 1e-4
+              and all(entry['tril_only_equals_garbage'].values())
+              and all(entry['launches_per_call'][k] == v
+                      for k, v in expected.items() if k in forms),
+              f'{label}: {entry}')
     # chol_with_inv at the two route shapes (two launches each), beside
     # the library's factor plus inverse timed in the same call.
     for label, K in (('chol_with_inv 1x1024', spd_batch(torch, rng, 1, 1024, dev)[0]),
@@ -574,20 +658,27 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
         drivers[label] = {'rel_err_vs_f64': [eL, eLi], 'ms': ms,
                           'library_ms': lib, 'ms_over_library_ms': ms / lib}
     emit({'phase': 'linalg drivers', **card, 'drivers': drivers,
-          'tolerance': 'relative to max|.| of the float64 result: 1e-4',
-          'library_call': 'torch.linalg.cholesky (+ solve_triangular, + '
-                          'the product W R^-T)'})
+          'tolerance': 'relative to max|.| of the float64 result: 1e-4; '
+                       'the kernel routes bit-equal with G tril-only and '
+                       'with garbage above the diagonal; launches per call '
+                       'exactly 1 K1 + 1 K3 (reversed), M/panel K2 (panels)',
+          'library_call': 'torch.linalg.cholesky of J G J, then '
+                          'solve_triangular(L, I) and the product W R^-T '
+                          '(library_inverse) or solve_triangular on W '
+                          '(library_solve); library_ms is the faster'})
     return [k2]
 
 
 def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
                      rng, dev, card: dict, reset_counts, read_counts,
-                     warmup: int, chunk: int, window_seconds: float):
+                     warmup: int, chunk: int, window_seconds: float,
+                     noise_rng=None):
     """NatGrad training from a fresh build on TRAIN_IMAGES synthetic images:
     ``warmup`` steps, then ``chunk``-step ``run_chunk`` calls for
-    ``window_seconds``, with the launch counters checked per step and per
-    chunk; then one step on the card against the same model on the CPU,
-    same batch and noise.  Returns (state, config, Xd, Yd, launches, the
+    ``window_seconds`` (one at least), with the launch counters checked
+    per step and per chunk; then one step on the card against the same
+    model on the CPU, same batch and noise (drawn from ``noise_rng``,
+    default ``rng``).  Returns (state, config, Xd, Yd, launches, the
     freshly built model)."""
     import copy
     from deepcgp_tpu_torch.models import builder as mbuilder
@@ -612,7 +703,7 @@ def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
     reset_counts()
     traces = []
     t_window = time.perf_counter()
-    while time.perf_counter() - t_window < window_seconds:
+    while not traces or time.perf_counter() - t_window < window_seconds:
         traces.append(trainer.run_chunk(state, config, Xd, Yd, chunk))
         torch.cuda.synchronize()
     window = time.perf_counter() - t_window
@@ -629,7 +720,8 @@ def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
 
     # One step's proposal, the card against the CPU (plain versions): the
     # same parameters, batch and noise, both from step 0 and steps_back 0.
-    noise = [rng.randn(model.num_samples, batch, layer.num_outputs)
+    noise = [(noise_rng or rng).randn(model.num_samples, batch,
+                                      layer.num_outputs)
              for layer in model.layers]
     xb, yb = Xd[:batch], Yd[:batch]
     sides = {}
@@ -723,6 +815,43 @@ def m1024_adam(torch, model, seed: int, rng, dev, card: dict, reset_counts,
           'sr_to_bf16_card_equals_cpu_bits': same,
           'sr_to_bf16_elements': x.numel()})
     return launches
+
+
+K5_PHASES = ('setup', 'gram', 'cross', 'T', 'TZ', 'cluster_sync_1',
+             'reduce', 'cluster_sync_2', 'col2im')
+
+
+def k5_image_trace(torch, img, Z, variance, gamma, u, wkd, f, s, d,
+                   with_kdiag, dkzx, dkd) -> dict:
+    """SM clock cycles of the K5 image side's phases in its middle block
+    (thread 0's clock64() at each boundary, ``conv_rbf_cross_bwd_image_traced``),
+    the second of two launches."""
+    from deepcgp_tpu_torch.ops import cuda_build, cuda_cross
+    N, H, W, C = img.shape
+    M = Z.shape[0]
+    P = u.shape[0]
+    Zt, Zp = cuda_cross._padded_zt(Z), cuda_cross._padded_z(Z)
+    zn = cuda_cross._padded_zn(Z)
+    Mpad = Zt.shape[1]
+    T = torch.empty(N, P, Mpad, device=img.device)
+    part = torch.empty(N, cuda_cross.bwd_cluster(M), 2 * P + 2, device=img.device)
+    dimg = torch.empty_like(img)
+    scal = torch.stack([variance, gamma]).float()
+    trace = torch.zeros(10, dtype=torch.int64, device=img.device)
+    fn = cuda_build.function(
+        'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image_traced',
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+    for _ in range(2):
+        cuda_build.check(fn(
+            img.data_ptr(), Zt.data_ptr(), Zp.data_ptr(), zn.data_ptr(),
+            scal.data_ptr(),
+            u.data_ptr(), wkd.data_ptr(), dkzx.data_ptr(), dkd.data_ptr(),
+            T.data_ptr(), part.data_ptr(), dimg.data_ptr(), N, H, W, C, f, s,
+            d, M, Mpad, int(with_kdiag), trace.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), 'traced')
+    torch.cuda.synchronize()
+    t = trace.cpu().tolist()
+    return {name: t[i + 1] - t[i] for i, name in enumerate(K5_PHASES)}
 
 
 def patches_phases(torch, dev, card: dict, rng) -> list:
@@ -1061,6 +1190,11 @@ def main() -> int:
           'arch': 'sm_90a', 'libraries': report})
 
     rng = np.random.RandomState(args.seed)
+    # The inputs of the checks added with the NatGrad solve's K1/K3 shapes,
+    # K5's L = 300 and 400 rows and the M = 1088 step's noise come from a
+    # generator of their own, so that every other check keeps the inputs
+    # that the seed's stream gave it before they were added.
+    aux = np.random.RandomState(args.seed + 1)
     rbfs = [RBF.create(5.0, ls, device=dev) for ls in LENGTHSCALES]
     snapshot = flagship_snapshot(args.seed)
     Zs = [torch.as_tensor(snapshot[f'DGP/layers/{i}/feature/Z'],
@@ -1072,7 +1206,7 @@ def main() -> int:
     kernels = []
 
     # -- K1 and K3: the blocked factor and the inverse, two launches --------
-    kernels += k1_k3_phases(torch, dev, card, rng, Kuu)
+    kernels += k1_k3_phases(torch, dev, card, rng, aux, Kuu)
     # The route on the flagship's own Kuu grams, against the library.
     LB, LiB = cuda_linalg.chol_inv_batched(Kuu)
     torch.cuda.synchronize()
@@ -1154,19 +1288,24 @@ def main() -> int:
         (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 10, 5, 1, 384, True),  # training
         (256, 15, 13, 10, 3, 2, 200, True),
         (256, 15, 13, 10, 3, 2, 200, False),
+        # The widest fused rows: L = 300 and L = 400 (BASELINE.md's CIFAR
+        # fm16), three and four 128-column tiles of L.
+        (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 12, 5, 1, 384, True),
+        (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 16, 5, 1, 384, True),
     ]
     grad_names = ('images', 'Z', 'variance', 'gamma', 'u', 'wkd')
     k5 = None
-    for N, H, W, C, f, s, M, kd_on in bwd_geoms:
-        img = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
+    for i, (N, H, W, C, f, s, M, kd_on) in enumerate(bwd_geoms):
+        g = rng if i < 3 else aux           # the wide rows: see aux in main
+        img = torch.as_tensor(g.randn(N, H, W, C), dtype=torch.float32,
                               device=dev)
-        Z = torch.as_tensor(patches_of(rng, rng.randn(32, H, W, C), M, f),
+        Z = torch.as_tensor(patches_of(g, g.randn(32, H, W, C), M, f),
                             dtype=torch.float32, device=dev)
         Pn = ((H - f) // s + 1) * ((W - f) // s + 1)
         L5 = f * f * C
-        w = torch.as_tensor(rng.rand(Pn) + 0.5, dtype=torch.float32, device=dev)
-        dkzx = torch.as_tensor(rng.randn(N, M), dtype=torch.float32, device=dev)
-        dkd = torch.as_tensor(rng.randn(N), dtype=torch.float32, device=dev)
+        w = torch.as_tensor(g.rand(Pn) + 0.5, dtype=torch.float32, device=dev)
+        dkzx = torch.as_tensor(g.randn(N, M), dtype=torch.float32, device=dev)
+        dkd = torch.as_tensor(g.randn(N), dtype=torch.float32, device=dev)
         a = (img, Z, var, gamma, w / Pn, w, f, s, 1, kd_on, dkzx, dkd)
         out = cuda_cross.conv_rbf_cross_bwd(*a)
         torch.cuda.synchronize()
@@ -1181,6 +1320,10 @@ def main() -> int:
                              'in other orders, the Z side by atomics'}
         check(max(errs.values()) <= 1e-3,
               f'K5 {line["geometry"]}: relative errors {errs}')
+        fn = lambda: cuda_cross.conv_rbf_cross_bwd(*a)  # noqa: E731
+        ms_image = kernel_ms(torch, fn, 'bwd_image_kernel')
+        ms_z = kernel_ms(torch, fn, 'bwd_z_kernel')
+        line.update(ms_image_side=ms_image, ms_z_side=ms_z)
         if k5 is None:
             # Recomputed cross products, T Z and T^T patches: 3 x 2NPML;
             # the symmetric Kdiag gram NP(P+1)L and its product 2NP^2L.
@@ -1190,20 +1333,38 @@ def main() -> int:
             nbytes = 4 * (2 * N * H * W * C + 2 * M * L5 + N * M + N
                           + 4 * Pn + 4)
             k5_bound, k5_by = bound_ms(nbytes, ops)
-            fn = lambda: cuda_cross.conv_rbf_cross_bwd(*a)  # noqa: E731
-            ms_image = kernel_ms(torch, fn, 'bwd_image_kernel')
-            ms_z = kernel_ms(torch, fn, 'bwd_z_kernel')
             ms = ms_image + ms_z
             call = cuda_ms(torch, fn, 50)
             plain = cuda_ms(
                 torch, lambda: cuda_cross.conv_rbf_cross_bwd_plain(*a), 10)
             err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-            line.update(ms=ms, ms_image_side=ms_image, ms_z_side=ms_z,
-                        launches_per_call=2, call_ms=call, plain_ms=plain,
-                        library_ms=None,
+            # Image side: the cross products and T Z (2 x 2NPML) and the
+            # gram; Z side: T^T patches (2NPML).
+            ops_z = 2 * N * Pn * M * L5
+            Mpad = -(-M // 128) * 128
+            clusters = cuda_build.function(
+                'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image_max_clusters',
+                [ctypes.c_int] * 3)(Pn, L5, Mpad)
+            S5 = cuda_cross.bwd_cluster(M)
+            threads = 64 * (-(-Pn // 8))
+            line.update(ms=ms, launches_per_call=2, call_ms=call,
+                        plain_ms=plain, library_ms=None,
                         library_note='none: no one PyTorch call computes it',
                         bound_ms=k5_bound, bound_by=k5_by, gflop=ops / 1e9,
-                        achieved_tflops=ops / ms / 1e9)
+                        achieved_tflops=ops / ms / 1e9,
+                        image_side_tflops=(ops - ops_z) / ms_image / 1e9,
+                        z_side_tflops=ops_z / ms_z / 1e9,
+                        image_side_target_ms=0.43,
+                        image_side={
+                            'cluster_blocks': S5, 'blocks': N * S5,
+                            'threads_per_block': threads,
+                            'dynamic_smem_bytes': cuda_cross.bwd_smem_bytes(Pn, L5),
+                            'resident_clusters': clusters,
+                            'resident_warps_per_sm': clusters * S5 * threads
+                            / 32 / torch.cuda.get_device_properties(0)
+                            .multi_processor_count},
+                        ptxas=report.get('conv_rbf_cross_bwd', {}).get('ptxas'),
+                        image_side_trace_cycles=k5_image_trace(torch, *a))
             k5 = {'name': 'conv_rbf_cross_bwd', 'route': 'cuda',
                   'source': 'deepcgp_tpu_torch/csrc/conv_rbf_cross_bwd.cu',
                   'replaces': 'deepcgp_tpu/ops/pallas_cross.py:243',
@@ -1312,7 +1473,7 @@ def main() -> int:
 
     # -- training: the flagship's Adam steps from a fresh build -------------
     from deepcgp_tpu_torch.models import builder as mbuilder
-    from deepcgp_tpu_torch.training import trainer
+    from deepcgp_tpu_torch.training import optim, trainer
     from deepcgp_tpu_torch.utils import checkpoint
     flags = types.SimpleNamespace(**FLAGSHIP, num_samples=TRAIN_SAMPLES)
     Xtr = rng.randn(TRAIN_IMAGES, *IMAGE).astype(np.float32)
@@ -1454,6 +1615,15 @@ def main() -> int:
     path_launches['m1024_adam'] = m1024_adam(torch, fresh, args.seed, rng, dev,
                                              card, reset_counts, read_counts)
     del fresh
+    # NatGrad above K1's largest matrix (M = 1088): the solve takes the K2
+    # panel driver, Kuu the library; two warm-up steps and one 3-step chunk.
+    check(optim.natgrad_route(torch.float32, 1088) == 'panels',
+          'M = 1088 does not take the K2 panel driver')
+    path_launches['m1088_natgrad'] = natgrad_training(
+        torch, 'm1088',
+        types.SimpleNamespace(**M1088, num_samples=TRAIN_SAMPLES), M1024_IMAGE,
+        M1024_BATCH, args.seed, rng, dev, card, reset_counts, read_counts,
+        2, 3, 0.0, noise_rng=aux)[4]
 
     # -- the unfused route: MNIST's single-layer ConvKernel, CIFAR fm32 -----
     state, launches = unfused_adam(torch, 'mnist_conv', MNIST_CONV,
@@ -1486,6 +1656,9 @@ def main() -> int:
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_by_path', 'shape', 'max_abs_err', 'ms', 'plain_ms',
              'bound_ms', 'bound_by', 'library_ms')
+    short = [r for r in PROFILER_ROUNDS if r[1] < r[2]]
+    emit({'phase': 'profiler rounds', 'rounds': len(PROFILER_ROUNDS),
+          'short': short})
     emit({'kernels': [{key: k[key] for key in order} for k in kernels]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

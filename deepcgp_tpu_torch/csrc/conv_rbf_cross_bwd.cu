@@ -23,37 +23,63 @@
 // partial rows (compiler workarounds there).  The masks are strict
 // (D > 0, E > 0), as in the TPU kernel.
 //
-// What bounds it on an H100: arithmetic.  At the flagship training step
-// (N = 320 images of 10x10x10, f = 5, P = 36, L = 250, M = 384) the
-// recomputed cross products, T Z and T^T patches are 3 x 2 N P M L =
-// 6.6 GFLOP, the gram and its product 0.3 GFLOP, against ~4 MB of inputs
-// and outputs.  All float32 FMA, outside the tensor cores.
+// What bounds it on an H100: arithmetic, if the card is kept busy.  At
+// the flagship training step (N = 320 images of 10x10x10, f = 5, P = 36,
+// L = 250, M = 384) the recomputed cross products, T Z and T^T patches are
+// 3 x 2 N P M L = 6.6 GFLOP, the gram and its product 0.3 GFLOP, against
+// ~4 MB of inputs and outputs.  All float32 FMA, outside the tensor cores.
+// The first design (one block of P/8 warps per image) ran the image side
+// at ~5 TFLOP/s: 320 blocks of 5 warps, two an SM by registers (175) and
+// shared memory (109 KB), left a ragged second wave of 56 blocks and 10
+// warps an SM to hide one L2 round trip per row of Z.
 //
 // Design: two launches.  dZ sums over every image, and one [M, L] partial
 // per image would be 123 MB at the flagship, so the work splits:
-//  1. image side, one block per image (one warp per 8 patch rows, P <= 64):
-//     builds the patch matrix in shared memory in two layouts, recomputes
-//     the cross-covariance tile by tile with K4's 8 x 4 register tile,
-//     writes T [N, P, Mpad] to device memory (17.7 MB at the flagship),
-//     accumulates dpatches = T Z in registers (8 rows x 4 NLT columns a
-//     lane, Z read as float4 from a padded [Mpad][Lpad] copy in L2), adds
-//     the Kdiag gram terms, col2im's dpatches out of shared memory (a
-//     gather over the patches that cover each pixel: no atomics), and
-//     writes per-image partials of du, dwkd, dvar and dgamma, which the
-//     wrapper sums;
+//  1. image side, one thread-block cluster per image, one block per
+//     128-column tile of M (S = Mpad / 128 blocks, at most 8; a block takes
+//     the tiles rank, rank + S, ...), two warps per 8-row group, one a
+//     64-column half of each tile.  A block holds the image's patch matrix
+//     (transposed) in shared memory, streams its tile of Z through a
+//     two-stage cp.async ring (8 KB a stage: 16 rows of Z^T for the cross
+//     products, then whole rows of Z for T Z), recomputes its tile of the
+//     cross-covariance (8 rows x 2 columns a lane), writes T [N, P, Mpad]
+//     to device memory (17.7 MB at the flagship) and accumulates its part
+//     of T Z in registers.  The image's gram is dealt out too: each block
+//     takes the pairs p <= q whose index in the upper triangle is its rank
+//     mod S (S is symmetric, so a pair gives both entries) and adds
+//     2 S_own patches to its part, so the parts sum to T Z + 2 S patches
+//     and no block needs another's S.  At the flagship: 960 blocks of 10
+//     warps, ~103 KB of shared memory and at most 102 registers, so two
+//     blocks and 20 warps an SM; wider blocks (P > 40 or L > 256, up to 16
+//     warps) take one.  The parts meet over distributed shared memory:
+//     the patch-element columns are dealt out by rank (column l to the
+//     rank of its channel, l mod C mod S); each block sums its columns
+//     over the cluster in rank order, adds the row-sum term and col2im's
+//     its channels' pixels through tables of the patches that cover each
+//     image row and column -- a gather, no atomics, the same order every
+//     run.  Per-(image, rank) partials of du, dwkd, dvar and dgamma go to
+//     device memory for the wrapper to sum.  conv_rbf_cross_bwd_image_traced
+//     stamps the phases of one block with clock64();
 //  2. Z side, blocks over (64 inducing rows, 128 patch elements, a chunk
-//     of images): dZ = sum T^T (2 Z - 2 patches) with the same register
+//     of images): dZ = sum T^T (2 Z - 2 patches) with an 8 x 4 register
 //     tile over T and patches staged per image in shared memory, and one
 //     float atomicAdd per output element per block (a few million in all).
-// No tensor cores, cp.async or TMA yet.
+// All float32 FMA: no tensor cores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kRows = 8;       // patch rows per warp
 constexpr int kMT = 128;       // inducing columns / patch elements per tile
-constexpr int kMaxWarps = 8;   // so P <= 64
+constexpr int kHalfT = 64;     // columns of a tile one warp covers, 2 a lane
+constexpr int kMaxWarps = 16;  // 8 row groups (P <= 64) x 2 halves
+constexpr int kMaxCluster = 8; // blocks an image: a portable cluster
+constexpr int kStage = 2048;   // floats of Z a stage holds (8 KB)
+constexpr int kLC = kStage / kMT;  // rows of Z^T a cross-product stage holds
 constexpr int kZRows = 64;     // inducing rows per Z-side block (8 x 8)
 constexpr int kZThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
@@ -61,9 +87,49 @@ constexpr int kMaxDevices = 64;
 
 __host__ __device__ inline int padded_rows(int P) { return (P + 7) / 8 * 8; }
 
+// The image side's block takes two warps per 8-row group, one a 64-column
+// half of each tile.  Up to 10 warps with dpatches accumulators over at
+// most 2 tiles of L it is built for two blocks an SM (at most 102
+// registers); wider ones, up to 16 warps, for one.
+__host__ __device__ inline bool image_wide(int P, int L) {
+  return padded_rows(P) / kRows > 5 || L > 2 * kMT;
+}
+
+// Image-side cluster size: one block per 128-column tile of Mpad, at most
+// a portable cluster's 8 (a block then takes several tiles).
+__host__ __device__ inline int image_cluster(int Mpad) {
+  return Mpad / kMT < kMaxCluster ? Mpad / kMT : kMaxCluster;
+}
+
 __device__ inline float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows row0 .. row0 + rows - 1 of the first `width` columns of a
+// row-major matrix (leading dimension ld, both multiples of 4) into dst
+// [rows][width] by cp.async, as one committed group of the whole block.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int ld, int width, int row0,
+                                           int rows) {
+  const int q = width / 4;
+  for (int i = threadIdx.x; i < rows * q; i += blockDim.x) {
+    const int r = i / q, c = 4 * (i % q);
+    cp_async16(dst + r * width + c,
+               src + static_cast<size_t>(row0 + r) * ld + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 __device__ inline int patch_offset(int l, int f, int C, int W, int dilation) {
@@ -72,272 +138,415 @@ __device__ inline int patch_offset(int l, int f, int C, int W, int dilation) {
   return ((fy * dilation) * W + fx * dilation) * C + c;
 }
 
-template <int NLT>
-__global__ void __launch_bounds__(kMaxWarps * 32) bwd_image_kernel(
-    const float* __restrict__ img, const float* __restrict__ Zt,
-    const float* __restrict__ Zp, const float* __restrict__ scal,
-    const float* __restrict__ u, const float* __restrict__ wkd,
-    const float* __restrict__ dkzx, const float* __restrict__ dkd,
-    float* __restrict__ Tg, float* __restrict__ part,
-    float* __restrict__ dimg, int H, int W, int C, int f, int stride,
-    int dilation, int Hout, int Wout, int M, int Mpad, int with_kdiag) {
+
+// clock64() at the image side's phase boundaries, thread 0 of the middle
+// block only, when the caller asks for a trace (else a null pointer).
+#define K5_STAMP(i)                                                        \
+  if (trace != nullptr && tid == 0 && blockIdx.x == gridDim.x / 2)         \
+    trace[i] = clock64();
+
+template <int NLT, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 512 : 320, WIDE ? 1 : 2)
+    bwd_image_kernel(const float* __restrict__ img,
+                     const float* __restrict__ Zt,
+                     const float* __restrict__ Zp,
+                     const float* __restrict__ zn,
+                     const float* __restrict__ scal,
+                     const float* __restrict__ u,
+                     const float* __restrict__ wkd,
+                     const float* __restrict__ dkzx,
+                     const float* __restrict__ dkd, float* __restrict__ Tg,
+                     float* __restrict__ part, float* __restrict__ dimg,
+                     int H, int W, int C, int f, int stride, int dilation,
+                     int Hout, int Wout, int M, int Mpad, int with_kdiag,
+                     long long* __restrict__ trace) {
+  constexpr int Lpad = NLT * kMT;
+  constexpr int MC = kStage / Lpad;   // rows of Z a T Z stage holds
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int P = Hout * Wout;
   const int L = f * f * C;
   const int Ppad = padded_rows(P);
-  constexpr int Lpad = NLT * kMT;
-  float* PsT = smem;                    // [L][Ppad]: patches, transposed
-  float* Xs = PsT + L * Ppad;           // [Ppad][Lpad]: patches; then dpatches
-  float* TT = Xs + Ppad * Lpad;         // [kMT][Ppad]: T of one column tile
-  float* SS = TT + kMT * Ppad;          // [Ppad][Ppad + 1]: S of the gram
-  float* pn = SS + Ppad * (Ppad + 1);   // [Ppad]
-  float* rs = pn + Ppad;                // [Ppad]: row sums of S + S^T
-  float* dws = rs + Ppad;               // [Ppad]: sum_q w_q Kd[p, q]
-  float* zn = dws + Ppad;               // [kMT]
-  float* red = zn + kMT;                // [2 kMaxWarps]
+  const int G = Ppad / kRows;
+  const int Sp = Ppad + 1;
+  const int Usize = kMT * Ppad > Ppad * Lpad ? kMT * Ppad : Ppad * Lpad;
+  float* PsT = smem;                  // [L][Ppad]: patches, transposed
+  float* TT = PsT + L * Ppad;         // [kMT][Ppad]: T of one column tile;
+  float* Xs = TT;                     //   then [Ppad][Lpad]: dpatches
+  float* Zs = TT + Usize;             // [2][kStage]: staged rows of Z
+  float* SS = Zs + 2 * kStage;        // [Ppad][Sp]: S on this rank's pairs
+  float* pn = SS + Ppad * Sp;         // [Ppad]
+  float* dws = pn + Ppad;             // [Ppad]: sum_q w_q Kd[p, q], own pairs
+  float* rowTp = dws + Ppad;          // [Ppad]: this block's row sums of
+                                      //   T and of S + S^T on its pairs
+  float* rowTt = rowTp + Ppad;        // [Ppad]: the image's
+  float* hsum = rowTt + Ppad;         // [2 halves][du, rowT][Ppad]
+  float* red = hsum + 4 * Ppad;       // [2 kMaxWarps]
 
   const int tid = threadIdx.x;
   const int w = tid / 32, lane = tid % 32;
-  const int n = blockIdx.x;
+  const int g = w % G, h = w / G;     // row group, half
+  const int n = blockIdx.x / S;
   const float var = scal[0];
   const float gamma = scal[1];
   const int HWC = H * W * C;
   const float* x = img + static_cast<size_t>(n) * HWC;
+  K5_STAMP(0);
 
-  // im2col into both layouts; padded rows and columns are zeros.
-  for (int t = tid; t < Ppad * Lpad; t += blockDim.x) {
-    const int p = t / Lpad, l = t % Lpad;
-    float v = 0.0f;
-    if (p < P && l < L) {
-      const int oy = p / Wout, ox = p % Wout;
-      v = x[((oy * stride) * W + ox * stride) * C +
-            patch_offset(l, f, C, W, dilation)];
-    }
-    Xs[t] = v;
-    if (l < L) PsT[l * Ppad + p] = v;
-  }
-  for (int p = tid; p < Ppad; p += blockDim.x) {
-    rs[p] = 0.0f;
-    dws[p] = 0.0f;
+  // The image into shared memory (TT's space, unused until T), where it
+  // fits, and each patch element's offset in it (the Z stages' space);
+  // then im2col, transposed: a warp a patch element l, a lane a patch row
+  // (P <= 64, so two at most); padded rows are zeros.
+  const int nwarps = blockDim.x / 32;
+  int* loff = reinterpret_cast<int*>(Zs);
+  for (int l = tid; l < L; l += blockDim.x)
+    loff[l] = patch_offset(l, f, C, W, dilation);
+  if (HWC <= Usize) {
+    for (int t = tid; t < HWC; t += blockDim.x) TT[t] = __ldg(x + t);
+    x = TT;
   }
   __syncthreads();
-  for (int p = tid; p < Ppad; p += blockDim.x) {
+  int poff[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int p = lane + 32 * k;
+    poff[k] = p < P ? ((p / Wout) * stride * W + (p % Wout) * stride) * C : -1;
+  }
+  for (int l = w; l < L; l += nwarps) {
+    const int lo = loff[l];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int p = lane + 32 * k;
+      if (p < Ppad) PsT[l * Ppad + p] = poff[k] >= 0 ? x[poff[k] + lo] : 0.0f;
+    }
+  }
+  for (int p = tid; p < Ppad; p += blockDim.x) dws[p] = 0.0f;
+  for (int i = tid; i < 4 * Ppad; i += blockDim.x) hsum[i] = 0.0f;
+  for (int i = tid; i < Ppad * Sp; i += blockDim.x) SS[i] = 0.0f;
+  __syncthreads();
+  for (int p = w; p < Ppad; p += nwarps) {   // squared norms, a warp a row
     float s = 0.0f;
-    for (int l = 0; l < L; ++l) {
+    for (int l = lane; l < L; l += 32) {
       const float v = PsT[l * Ppad + p];
       s += v * v;
     }
-    pn[p] = s;
+    s = warp_sum(s);
+    if (lane == 0) pn[p] = s;
   }
   __syncthreads();
 
+  K5_STAMP(1);
   float dvar_acc = 0.0f, dgam_acc = 0.0f;
   const float inv_p2 = 1.0f / (static_cast<float>(P) * static_cast<float>(P));
   const float dd = with_kdiag ? dkd[n] : 0.0f;
   if (with_kdiag) {
-    // The image's own gram, one (p, q) pair per thread.  Kd[p,q] and
-    // Kd[q,p] are the same sums term for term, so dwkd needs one of them.
-    const int Sp = Ppad + 1;
-    for (int t = tid; t < P * P; t += blockDim.x) {
-      const int p = t / P, q = t % P;
-      float g = 0.0f;
-      for (int l = 0; l < L; ++l) g += PsT[l * Ppad + p] * PsT[l * Ppad + q];
-      const float e = pn[p] + pn[q] - 2.0f * g;
+    // This rank's share of the image's gram: the pairs p <= q whose
+    // index t in the upper triangle, row by row, has t mod S == rank.
+    // E, Kd and S are symmetric (E[p,q] and E[q,p] are the same sums term
+    // for term), so each pair gives both entries.
+    for (int t = tid * S + rank; t < P * (P + 1) / 2; t += blockDim.x * S) {
+      int p = 0, q = t;
+      while (q >= P - p) {
+        q -= P - p;
+        ++p;
+      }
+      q += p;
+      float gr = 0.0f;
+      for (int l = 0; l < L; ++l) gr += PsT[l * Ppad + p] * PsT[l * Ppad + q];
+      const float e = pn[p] + pn[q] - 2.0f * gr;
       const float eh = fmaxf(e, 0.0f);
       const float kd = var * expf(gamma * eh);
       const float base = dd * wkd[p] * wkd[q] * inv_p2 * kd;
-      dvar_acc += base;
-      dgam_acc += base * eh;
-      SS[p * Sp + q] = e > 0.0f ? base * gamma : 0.0f;
+      const float both = p == q ? base : 2.0f * base;
+      dvar_acc += both;
+      dgam_acc += both * eh;
+      const float sv = e > 0.0f ? base * gamma : 0.0f;
+      SS[p * Sp + q] = sv;
+      SS[q * Sp + p] = sv;
       atomicAdd(&dws[p], wkd[q] * kd);
+      if (p != q) atomicAdd(&dws[q], wkd[p] * kd);
     }
-    __syncthreads();
-    for (int p = tid; p < P; p += blockDim.x) {
-      float s = 0.0f;
-      for (int q = 0; q < P; ++q) s += SS[p * Sp + q] + SS[q * Sp + p];
-      rs[p] = s;
-    }
-    __syncthreads();
   }
 
-  const int pw = w * kRows;          // this warp's first patch row
-  float up[kRows], du_r[kRows], rowT[kRows];
-  float dx[kRows][4 * NLT];
+  K5_STAMP(2);
+  const int pw = g * kRows;          // this warp's first patch row
+  const int cw = h * kHalfT + 2 * lane;  // the lane's first column of a tile
+  float dx[kRows][2 * NLT];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    up[r] = pw + r < P ? u[pw + r] : 0.0f;
-    du_r[r] = rowT[r] = 0.0f;
+  for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int c = 0; c < 4 * NLT; ++c) dx[r][c] = 0.0f;
-  }
+    for (int c = 0; c < 2 * NLT; ++c) dx[r][c] = 0.0f;
 
-  for (int m0 = 0; m0 < M; m0 += kMT) {
-    // Cross products of the warp's 8 rows with the lane's 4 columns.
-    const float* zcol = Zt + m0 + 4 * lane;
-    float acc[kRows][4];
+  const int ntiles = Mpad / kMT;
+  for (int tile = rank; tile < ntiles; tile += S) {
+    const int m0 = tile * kMT;
+    // Cross products of the warp's 8 rows with the lane's 2 columns, over
+    // rows of the Z^T tile staged kLC at a time (cp.async, two stages).
+    float acc[kRows][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-    float zsq[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    const int nlc = (L + kLC - 1) / kLC;
+    stage_rows(Zs, Zt + m0, Mpad, kMT, 0, min(kLC, L));
+    for (int ch = 0; ch < nlc; ++ch) {
+      if (ch + 1 < nlc) {
+        stage_rows(Zs + ((ch + 1) & 1) * kStage, Zt + m0, Mpad, kMT,
+                   (ch + 1) * kLC, min(kLC, L - (ch + 1) * kLC));
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* zs = Zs + (ch & 1) * kStage + cw;
+      const int l0 = ch * kLC, rows = min(kLC, L - l0);
 #pragma unroll 4
-    for (int l = 0; l < L; ++l) {
-      const float4 z = __ldg(reinterpret_cast<const float4*>(
-          zcol + static_cast<size_t>(l) * Mpad));
-      const float* row = PsT + l * Ppad + pw;
-      const float4 a0 = *reinterpret_cast<const float4*>(row);
-      const float4 a1 = *reinterpret_cast<const float4*>(row + 4);
-      const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float zz[4] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] += a[r] * zz[j];
-      if (w == 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) zsq[j] += zz[j] * zz[j];
-      }
-    }
-    if (w == 0) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) zn[4 * lane + j] = zsq[j];
-    }
-    __syncthreads();
-
-    float a[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + 4 * lane + j;
-      a[j] = m < M ? dkzx[static_cast<size_t>(n) * M + m] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int p = pw + r;
-      float tv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float d2 = pn[p] + zn[4 * lane + j] - 2.0f * acc[r][j];
-        const float dh = fmaxf(d2, 0.0f);
-        const float ak = a[j] * (var * expf(gamma * dh));
-        const float auk = up[r] * ak;
-        dvar_acc += auk;
-        dgam_acc += auk * dh;
-        const float t = d2 > 0.0f ? auk * gamma : 0.0f;
-        du_r[r] += ak;
-        rowT[r] += t;
-        tv[j] = t;
-        TT[(4 * lane + j) * Ppad + p] = t;
-      }
-      if (p < P) {
-        *reinterpret_cast<float4*>(
-            Tg + (static_cast<size_t>(n) * P + p) * Mpad + m0 + 4 * lane) =
-            make_float4(tv[0], tv[1], tv[2], tv[3]);
-      }
-    }
-    __syncthreads();
-
-    // dpatches += T Z over this tile's columns.
-    const int mlim = min(kMT, M - m0);
-    for (int mm = 0; mm < mlim; ++mm) {
-      const float4 t0 = *reinterpret_cast<const float4*>(TT + mm * Ppad + pw);
-      const float4 t1 = *reinterpret_cast<const float4*>(TT + mm * Ppad + pw + 4);
-      const float tr[kRows] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-      const float* zrow = Zp + static_cast<size_t>(m0 + mm) * Lpad + 4 * lane;
-#pragma unroll
-      for (int lt = 0; lt < NLT; ++lt) {
-        const float4 z = __ldg(reinterpret_cast<const float4*>(zrow + lt * kMT));
+      for (int i = 0; i < rows; ++i) {
+        const float* row = PsT + (l0 + i) * Ppad + pw;
+        const float4 a0 = *reinterpret_cast<const float4*>(row);
+        const float4 a1 = *reinterpret_cast<const float4*>(row + 4);
+        const float a[kRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float2 z = *reinterpret_cast<const float2*>(zs + i * kMT);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
-          dx[r][4 * lt + 0] += tr[r] * z.x;
-          dx[r][4 * lt + 1] += tr[r] * z.y;
-          dx[r][4 * lt + 2] += tr[r] * z.z;
-          dx[r][4 * lt + 3] += tr[r] * z.w;
+          acc[r][0] += a[r] * z.x;
+          acc[r][1] += a[r] * z.y;
         }
       }
+      __syncthreads();  // this stage is refilled two chunks on
     }
-    __syncthreads();  // TT and zn are rewritten by the next tile
-  }
+    K5_STAMP(3);
+    // The rows of T Z's first stage load while T is formed.
+    const int mlim = min(kMT, M - m0);
+    const int nmc = (mlim + MC - 1) / MC;
+    stage_rows(Zs, Zp + static_cast<size_t>(m0) * Lpad, Lpad, Lpad, 0,
+               min(MC, mlim));
 
-  const size_t pbase = static_cast<size_t>(n) * (2 * P + 2);
+    {
+      float a[2], znj[2], du_r[kRows], rowT[kRows];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    du_r[r] = warp_sum(du_r[r]);
-    rowT[r] = warp_sum(rowT[r]);
-    if (lane == 0 && pw + r < P) part[pbase + pw + r] = du_r[r];
-  }
-
-  // dpatches in registers: the T terms, then the gram terms.
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int p = pw + r;
-#pragma unroll
-    for (int lt = 0; lt < NLT; ++lt) {
-      const float4 xp = *reinterpret_cast<const float4*>(
-          Xs + p * Lpad + lt * kMT + 4 * lane);
-      const float s = 2.0f * (rowT[r] + rs[p]);
-      dx[r][4 * lt + 0] = -2.0f * dx[r][4 * lt + 0] + s * xp.x;
-      dx[r][4 * lt + 1] = -2.0f * dx[r][4 * lt + 1] + s * xp.y;
-      dx[r][4 * lt + 2] = -2.0f * dx[r][4 * lt + 2] + s * xp.z;
-      dx[r][4 * lt + 3] = -2.0f * dx[r][4 * lt + 3] + s * xp.w;
-    }
-  }
-  if (with_kdiag) {
-    const int Sp = Ppad + 1;
-    for (int q = 0; q < P; ++q) {
-      float sq[kRows];
+      for (int j = 0; j < 2; ++j) {
+        const int m = m0 + cw + j;
+        a[j] = m < M ? dkzx[static_cast<size_t>(n) * M + m] : 0.0f;
+        znj[j] = __ldg(zn + m);
+      }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int p = pw + r;
-        sq[r] = p < P ? 2.0f * (SS[p * Sp + q] + SS[q * Sp + p]) : 0.0f;
+        const float up = p < P ? __ldg(u + p) : 0.0f;
+        float tv[2];
+        du_r[r] = rowT[r] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float d2 = pn[p] + znj[j] - 2.0f * acc[r][j];
+          const float dh = fmaxf(d2, 0.0f);
+          const float ak = a[j] * (var * expf(gamma * dh));
+          const float auk = up * ak;
+          dvar_acc += auk;
+          dgam_acc += auk * dh;
+          const float t = d2 > 0.0f ? auk * gamma : 0.0f;
+          du_r[r] += ak;
+          rowT[r] += t;
+          tv[j] = t;
+          TT[(cw + j) * Ppad + p] = t;
+        }
+        if (p < P) {
+          *reinterpret_cast<float2*>(
+              Tg + (static_cast<size_t>(n) * P + p) * Mpad + m0 + cw) =
+              make_float2(tv[0], tv[1]);
+        }
       }
 #pragma unroll
-      for (int lt = 0; lt < NLT; ++lt) {
-        const float4 xq = *reinterpret_cast<const float4*>(
-            Xs + q * Lpad + lt * kMT + 4 * lane);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          dx[r][4 * lt + 0] -= sq[r] * xq.x;
-          dx[r][4 * lt + 1] -= sq[r] * xq.y;
-          dx[r][4 * lt + 2] -= sq[r] * xq.z;
-          dx[r][4 * lt + 3] -= sq[r] * xq.w;
+      for (int r = 0; r < kRows; ++r) {
+        const float du = warp_sum(du_r[r]);
+        const float rt = warp_sum(rowT[r]);
+        if (lane == 0) {
+          hsum[(2 * h) * Ppad + pw + r] += du;
+          hsum[(2 * h + 1) * Ppad + pw + r] += rt;
         }
       }
     }
+
+    K5_STAMP(4);
+    // This block's part of dpatches: += T Z over the tile's rows of Z,
+    // staged MC at a time.
+    for (int ch = 0; ch < nmc; ++ch) {
+      if (ch + 1 < nmc) {
+        stage_rows(Zs + ((ch + 1) & 1) * kStage,
+                   Zp + static_cast<size_t>(m0) * Lpad, Lpad, Lpad,
+                   (ch + 1) * MC, min(MC, mlim - (ch + 1) * MC));
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // also: TT is complete
+      const float* zs = Zs + (ch & 1) * kStage + cw;
+      const int r0 = ch * MC, rows = min(MC, mlim - r0);
+      for (int i = 0; i < rows; ++i) {
+        const float4 t0 = *reinterpret_cast<const float4*>(TT + (r0 + i) * Ppad + pw);
+        const float4 t1 =
+            *reinterpret_cast<const float4*>(TT + (r0 + i) * Ppad + pw + 4);
+        const float tr[kRows] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+        for (int lt = 0; lt < NLT; ++lt) {
+          const float2 z =
+              *reinterpret_cast<const float2*>(zs + i * Lpad + lt * kMT);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            dx[r][2 * lt] += tr[r] * z.x;
+            dx[r][2 * lt + 1] += tr[r] * z.y;
+          }
+        }
+      }
+      __syncthreads();  // this stage is refilled; TT by the next tile
+    }
   }
-  __syncthreads();  // every read of the patches in Xs is done
+
+  K5_STAMP(5);
+  if (with_kdiag) {
+    // The block's part of the gram term: S on its own pairs (both entries,
+    // zeros elsewhere), so that the parts sum to S over the cluster.  S is
+    // symmetric, so -2 (S + S^T) patches = -4 S patches, and the block
+    // adds 2 S_own patches to its part of T Z, which the reduction scales
+    // by -2.  The patches go to Xs in [Ppad][Lpad] for the product (TT
+    // is no longer read; columns from L on are not written and not used).
+    for (int p = w; p < Ppad; p += nwarps)
+      for (int l = lane; l < L; l += 32) Xs[p * Lpad + l] = PsT[l * Ppad + p];
+    __syncthreads();
+    for (int q = 0; q < P; ++q) {
+      float sq[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sq[r] = 2.0f * SS[(pw + r) * Sp + q];
+#pragma unroll
+      for (int lt = 0; lt < NLT; ++lt) {
+        const float2 xq =
+            *reinterpret_cast<const float2*>(Xs + q * Lpad + lt * kMT + cw);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          dx[r][2 * lt] += sq[r] * xq.x;
+          dx[r][2 * lt + 1] += sq[r] * xq.y;
+        }
+      }
+    }
+    __syncthreads();  // every read of the patches in Xs is done
+  }
+  // The block's part of T Z (+ 2 S patches) into Xs.
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int lt = 0; lt < NLT; ++lt)
-      *reinterpret_cast<float4*>(Xs + (pw + r) * Lpad + lt * kMT + 4 * lane) =
-          make_float4(dx[r][4 * lt], dx[r][4 * lt + 1], dx[r][4 * lt + 2],
-                      dx[r][4 * lt + 3]);
+      *reinterpret_cast<float2*>(Xs + (pw + r) * Lpad + lt * kMT + cw) =
+          make_float2(dx[r][2 * lt], dx[r][2 * lt + 1]);
+  __syncthreads();
+  const size_t pbase = (static_cast<size_t>(n) * S + rank) * (2 * P + 2);
+  for (int p = tid; p < Ppad; p += blockDim.x) {
+    const float du = hsum[p] + hsum[2 * Ppad + p];
+    float rs = 0.0f;  // this block's part of the row sums of S + S^T
+    for (int q = 0; q < P; ++q) rs += SS[p * Sp + q];
+    rowTp[p] = hsum[Ppad + p] + hsum[3 * Ppad + p] + 2.0f * rs;
+    if (p < P) part[pbase + p] = du;
+  }
+  cluster.sync();  // every rank's Xs and rowTp are written
+  K5_STAMP(6);
+
+  for (int p = tid; p < Ppad; p += blockDim.x) {
+    float s = 0.0f;
+    for (int r = 0; r < S; ++r) s += cluster.map_shared_rank(rowTp, r)[p];
+    rowTt[p] = s;
+  }
   __syncthreads();
 
-  // col2im: each pixel gathers the patch elements that read it.
+  // dpatches on this rank's columns: the channels c with c mod S == rank,
+  // kU elements a thread at once, so that their loads overlap.
+  const int nch = (C - rank + S - 1) / S;
+  const int own = f * f * nch;
+  const int total = P * own;
+  constexpr int kU = 4;
+  for (int t0 = tid; t0 < total; t0 += kU * blockDim.x) {
+    int idx[kU];
+    float d[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int t = min(t0 + u * static_cast<int>(blockDim.x), total - 1);
+      const int p = t / own, i = t - p * own;
+      const int pos = i / nch;
+      const int l = pos * C + rank + S * (i - pos * nch);
+      idx[u] = p * Lpad + l;
+      float v = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < S) v += cluster.map_shared_rank(Xs, r)[idx[u]];
+      d[u] = -2.0f * v + 2.0f * rowTt[p] * PsT[l * Ppad + p];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (t0 + u * static_cast<int>(blockDim.x) < total) Xs[idx[u]] = d[u];
+  }
+  K5_STAMP(7);
+  cluster.sync();  // no rank reads another's shared memory after this
+  K5_STAMP(8);
+
+  // col2im of this rank's channels: each pixel gathers the patch elements
+  // that read it, through tables (in the Z stages' space, where they fit)
+  // of the patch rows and filter rows that cover each image row, and the
+  // same for columns.
+  const bool tables = (H + W) * (f + 1) <= 2 * kStage;
+  int* ytab = reinterpret_cast<int*>(Zs);  // [H][f]: oy Wout Lpad + fy f C
+  int* xtab = ytab + H * f;                // [W][f]: ox Lpad + fx C
+  int* ycnt = xtab + W * f;                // [H]
+  int* xcnt = ycnt + H;                    // [W]
+  if (tables) {
+    for (int t = tid; t < H + W; t += blockDim.x) {
+      const bool row = t < H;
+      const int v = row ? t : t - H;
+      const int lim = row ? Hout : Wout;
+      int* tab = (row ? ytab : xtab) + v * f;
+      int cnt = 0;
+      for (int k = 0; k < f; ++k) {
+        const int rv = v - k * dilation;
+        if (rv < 0) break;
+        if (rv % stride) continue;
+        const int o = rv / stride;
+        if (o >= lim) continue;
+        tab[cnt++] = row ? o * Wout * Lpad + k * f * C : o * Lpad + k * C;
+      }
+      if (row) ycnt[v] = cnt; else xcnt[v] = cnt;
+    }
+    __syncthreads();
+  }
   float* di = dimg + static_cast<size_t>(n) * HWC;
-  for (int t = tid; t < HWC; t += blockDim.x) {
-    const int c = t % C, xx = (t / C) % W, yy = t / (W * C);
+  for (int t = tid; t < H * W * nch; t += blockDim.x) {
+    const int pix = t / nch;
+    const int c = rank + S * (t - pix * nch);
+    const int xx = pix % W, yy = pix / W;
     float s = 0.0f;
-    for (int fy = 0; fy < f; ++fy) {
-      const int ry = yy - fy * dilation;
-      if (ry < 0) break;
-      if (ry % stride) continue;
-      const int oy = ry / stride;
-      if (oy >= Hout) continue;
-      for (int fx = 0; fx < f; ++fx) {
-        const int rx = xx - fx * dilation;
-        if (rx < 0) break;
-        if (rx % stride) continue;
-        const int ox = rx / stride;
-        if (ox >= Wout) continue;
-        s += Xs[(oy * Wout + ox) * Lpad + (fy * f + fx) * C + c];
+    if (tables) {
+      for (int a = 0; a < ycnt[yy]; ++a) {
+        const float* row = Xs + ytab[yy * f + a] + c;
+        for (int b = 0; b < xcnt[xx]; ++b) s += row[xtab[xx * f + b]];
+      }
+    } else {
+      for (int fy = 0; fy < f; ++fy) {
+        const int ry = yy - fy * dilation;
+        if (ry < 0) break;
+        if (ry % stride) continue;
+        const int oy = ry / stride;
+        if (oy >= Hout) continue;
+        for (int fx = 0; fx < f; ++fx) {
+          const int rx = xx - fx * dilation;
+          if (rx < 0) break;
+          if (rx % stride) continue;
+          const int ox = rx / stride;
+          if (ox >= Wout) continue;
+          s += Xs[(oy * Wout + ox) * Lpad + (fy * f + fx) * C + c];
+        }
       }
     }
-    di[t] = s;
+    di[pix * C + c] = s;
   }
 
+  K5_STAMP(9);
   dvar_acc = warp_sum(dvar_acc);
   dgam_acc = warp_sum(dgam_acc);
   if (lane == 0) {
@@ -345,10 +554,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) bwd_image_kernel(
     red[kMaxWarps + w] = dgam_acc;
   }
   __syncthreads();
-  const int nw = blockDim.x / 32;
   if (tid == 0) {
     float s1 = 0.0f, s2 = 0.0f;
-    for (int i = 0; i < nw; ++i) {
+    for (int i = 0; i < nwarps; ++i) {
       s1 += red[i];
       s2 += red[kMaxWarps + i];
     }
@@ -358,6 +566,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) bwd_image_kernel(
   for (int p = tid; p < P; p += blockDim.x)
     part[pbase + P + p] = 2.0f * dd * inv_p2 * dws[p];
 }
+
 
 __global__ void __launch_bounds__(kZThreads) bwd_z_kernel(
     const float* __restrict__ img, const float* __restrict__ Z,
@@ -450,21 +659,60 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t* opted) {
   return err;
 }
 
-template <int NLT>
+template <int NLT, bool WIDE>
 int launch_image(const float* img, const float* Zt, const float* Zp,
-                 const float* scal, const float* u, const float* wkd,
+                 const float* zn, const float* scal, const float* u, const float* wkd,
                  const float* dkzx, const float* dkd, float* Tg, float* part,
                  float* dimg, int N, int H, int W, int C, int f, int stride,
                  int dilation, int Hout, int Wout, int M, int Mpad,
-                 int with_kdiag, size_t smem, cudaStream_t stream) {
+                 int with_kdiag, size_t smem, long long* trace,
+                 cudaStream_t stream) {
   static size_t opted[kMaxDevices] = {};
-  cudaError_t err = opt_in(bwd_image_kernel<NLT>, smem, opted);
+  cudaError_t err = opt_in(bwd_image_kernel<NLT, WIDE>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps = padded_rows(Hout * Wout) / kRows;
-  bwd_image_kernel<NLT><<<N, 32 * warps, smem, stream>>>(
-      img, Zt, Zp, scal, u, wkd, dkzx, dkd, Tg, part, dimg, H, W, C, f,
-      stride, dilation, Hout, Wout, M, Mpad, with_kdiag);
+  const int S = image_cluster(Mpad);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N * S);
+  cfg.blockDim = dim3(64 * (padded_rows(Hout * Wout) / kRows));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_image_kernel<NLT, WIDE>, img, Zt, Zp,
+                           zn, scal, u, wkd, dkzx, dkd, Tg, part, dimg, H, W, C,
+                           f, stride, dilation, Hout, Wout, M, Mpad,
+                           with_kdiag, trace);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the image side the card holds at once at this geometry, or
+// minus the CUDA error.
+template <int NLT, bool WIDE>
+int max_clusters(int P, int S, size_t smem) {
+  static size_t opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(bwd_image_kernel<NLT, WIDE>, smem, opted);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S);
+  cfg.blockDim = dim3(64 * (padded_rows(P) / kRows));
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, bwd_image_kernel<NLT, WIDE>,
+                                       &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
 }
 
 void out_dims(int H, int W, int f, int stride, int dilation, int* Hout,
@@ -481,9 +729,28 @@ void out_dims(int H, int W, int f, int stride, int dilation, int* Hout,
 extern "C" size_t conv_rbf_cross_bwd_image_smem_bytes(int P, int L) {
   const size_t Ppad = padded_rows(P);
   const size_t Lpad = (L + kMT - 1) / kMT * kMT;
-  const size_t floats = L * Ppad + Ppad * Lpad + kMT * Ppad +
-                        Ppad * (Ppad + 1) + 3 * Ppad + kMT + 2 * kMaxWarps;
+  const size_t tiles = kMT * Ppad > Ppad * Lpad ? kMT * Ppad : Ppad * Lpad;
+  const size_t floats = L * Ppad + tiles + 2 * kStage + Ppad * (Ppad + 1) +
+                        8 * Ppad + 2 * kMaxWarps;
   return floats * sizeof(float);
+}
+
+// Image-side clusters of S = min(Mpad / 128, 8) blocks
+// resident on the card at once for patch count P and length L (P <= 64,
+// L <= 512), or minus the CUDA error.
+extern "C" int conv_rbf_cross_bwd_image_max_clusters(int P, int L, int Mpad) {
+  const size_t smem = conv_rbf_cross_bwd_image_smem_bytes(P, L);
+  const int S = image_cluster(Mpad);
+  const int nlt = (L + kMT - 1) / kMT;
+  if (!image_wide(P, L))
+    return nlt == 1 ? max_clusters<1, false>(P, S, smem)
+                    : max_clusters<2, false>(P, S, smem);
+  switch (nlt) {
+    case 1: return max_clusters<1, true>(P, S, smem);
+    case 2: return max_clusters<2, true>(P, S, smem);
+    case 3: return max_clusters<3, true>(P, S, smem);
+    default: return max_clusters<4, true>(P, S, smem);
+  }
 }
 
 extern "C" size_t conv_rbf_cross_bwd_z_smem_bytes(int P) {
@@ -493,37 +760,68 @@ extern "C" size_t conv_rbf_cross_bwd_z_smem_bytes(int P) {
 }
 
 // Image side.  img [N, H, W, C]; Zt [L, Mpad] = Z^T and Zp [Mpad, Lpad] = Z,
-// both zero-padded (Mpad a multiple of 128, Lpad = 128 ceil(L / 128));
+// both zero-padded (Mpad a multiple of 128, Lpad = 128 ceil(L / 128)), and
+// zn [Mpad] the squared norms of Z's rows;
 // scal [2] = (variance, gamma); u, wkd [P] in TF patch order; dkzx [N, M];
-// dkd [N] (read only when with_kdiag).  Writes T into Tg [N, P, Mpad],
-// the per-image partials part [N, 2P + 2] = (du [P], dwkd [P], dvar,
-// dgamma) and dimg [N, H, W, C].  Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
+// dkd [N] (read only when with_kdiag).  Writes T into Tg [N, P, Mpad], the
+// partials part [N, S, 2P + 2] = (du [P], dwkd [P], dvar, dgamma) of each
+// image's S = min(Mpad / 128, 8) blocks, and dimg
+// [N, H, W, C].  Launches on `stream`, allocates nothing, returns the
+// first CUDA error.  The traced form also writes clock64() at ten phase
+// boundaries of the middle block's thread 0 into trace [10].
+static int image_side(
+    const float* img, const float* Zt, const float* Zp, const float* zn,
+    const float* scal,
+    const float* u, const float* wkd, const float* dkzx, const float* dkd,
+    float* Tg, float* part, float* dimg, int N, int H, int W, int C, int f,
+    int stride, int dilation, int M, int Mpad, int with_kdiag,
+    long long* trace, void* stream) {
+  int Hout, Wout;
+  out_dims(H, W, f, stride, dilation, &Hout, &Wout);
+  const int P = Hout * Wout;
+  const int L = f * f * C;
+  if (P < 1 || padded_rows(P) > kRows * kMaxWarps / 2 || L > 4 * kMT ||
+      Mpad % kMT || Mpad < M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = conv_rbf_cross_bwd_image_smem_bytes(P, L);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nlt = (L + kMT - 1) / kMT;
+#define K5_IMAGE(NLT, WIDE)                                                  \
+  launch_image<NLT, WIDE>(img, Zt, Zp, zn, scal, u, wkd, dkzx, dkd, Tg, part, \
+                            dimg, N, H, W, C, f, stride, dilation, Hout,    \
+                            Wout, M, Mpad, with_kdiag, smem, trace, s)
+  if (!image_wide(P, L))
+    return nlt == 1 ? K5_IMAGE(1, false) : K5_IMAGE(2, false);
+  switch (nlt) {
+    case 1: return K5_IMAGE(1, true);
+    case 2: return K5_IMAGE(2, true);
+    case 3: return K5_IMAGE(3, true);
+    default: return K5_IMAGE(4, true);
+  }
+#undef K5_IMAGE
+}
+
 extern "C" int conv_rbf_cross_bwd_image(
-    const float* img, const float* Zt, const float* Zp, const float* scal,
+    const float* img, const float* Zt, const float* Zp, const float* zn,
+    const float* scal,
     const float* u, const float* wkd, const float* dkzx, const float* dkd,
     float* Tg, float* part, float* dimg, int N, int H, int W, int C, int f,
     int stride, int dilation, int M, int Mpad, int with_kdiag, void* stream) {
-  int Hout, Wout;
-  out_dims(H, W, f, stride, dilation, &Hout, &Wout);
-  const int L = f * f * C;
-  const size_t smem = conv_rbf_cross_bwd_image_smem_bytes(Hout * Wout, L);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((L + kMT - 1) / kMT) {
-    case 1: return launch_image<1>(img, Zt, Zp, scal, u, wkd, dkzx, dkd, Tg,
-                                   part, dimg, N, H, W, C, f, stride, dilation,
-                                   Hout, Wout, M, Mpad, with_kdiag, smem, s);
-    case 2: return launch_image<2>(img, Zt, Zp, scal, u, wkd, dkzx, dkd, Tg,
-                                   part, dimg, N, H, W, C, f, stride, dilation,
-                                   Hout, Wout, M, Mpad, with_kdiag, smem, s);
-    case 3: return launch_image<3>(img, Zt, Zp, scal, u, wkd, dkzx, dkd, Tg,
-                                   part, dimg, N, H, W, C, f, stride, dilation,
-                                   Hout, Wout, M, Mpad, with_kdiag, smem, s);
-    case 4: return launch_image<4>(img, Zt, Zp, scal, u, wkd, dkzx, dkd, Tg,
-                                   part, dimg, N, H, W, C, f, stride, dilation,
-                                   Hout, Wout, M, Mpad, with_kdiag, smem, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return image_side(img, Zt, Zp, zn, scal, u, wkd, dkzx, dkd, Tg, part, dimg, N,
+                    H, W, C, f, stride, dilation, M, Mpad, with_kdiag, nullptr,
+                    stream);
+}
+
+extern "C" int conv_rbf_cross_bwd_image_traced(
+    const float* img, const float* Zt, const float* Zp, const float* zn,
+    const float* scal,
+    const float* u, const float* wkd, const float* dkzx, const float* dkd,
+    float* Tg, float* part, float* dimg, int N, int H, int W, int C, int f,
+    int stride, int dilation, int M, int Mpad, int with_kdiag,
+    long long* trace, void* stream) {
+  return image_side(img, Zt, Zp, zn, scal, u, wkd, dkzx, dkd, Tg, part, dimg, N,
+                    H, W, C, f, stride, dilation, M, Mpad, with_kdiag, trace,
+                    stream);
 }
 
 // Z side.  img [N, H, W, C]; Z [M, L]; Tg from the image side.  Zeroes and

@@ -5,7 +5,8 @@ Counterpart of ``deepcgp_tpu/ops/pallas_cross.py``: (Kzx [N, M], Kdiag
 [N]) of a patch-sum kernel with a scalar-lengthscale RBF base over a
 FullView, straight from the images, in one launch of
 ``csrc/conv_rbf_cross.cu`` (K4); its gradients in two launches of
-``csrc/conv_rbf_cross_bwd.cu`` (K5, image side and Z side).  The [N, P, L]
+``csrc/conv_rbf_cross_bwd.cu`` (K5, image side -- one thread-block
+cluster per image -- and Z side).  The [N, P, L]
 patch tensor never reaches device memory; the backward keeps one [N, P, M]
 intermediate there (see the source).  :func:`fused_conv_rbf_cross` is the
 ``torch.autograd.Function`` that ties the two together, as JAX's custom
@@ -25,10 +26,13 @@ from deepcgp_tpu_torch.ops.patches import extract_patches, out_size, pixel_index
 SMEM_LIMIT = 232448
 # Inducing columns per kernel tile (kMT in the sources).
 _MT = 128
-# The backward's image-side block: one warp per 8 patch rows, at most 8
-# warps; its dpatches accumulators cover at most 4 column tiles.
+# The backward's image side: a cluster of blocks per image, one per column
+# tile of M (at most a portable cluster's 8), each with one or two warps
+# per 8 patch rows (P <= 64) and dpatches accumulators over at most 4
+# column tiles of L.
 BWD_MAX_P = 64
 BWD_MAX_L = 4 * _MT
+BWD_MAX_CLUSTER = 8
 # Blocks the backward's Z side aims to put on the card (132 SMs x 4).
 _Z_SIDE_BLOCKS = 528
 
@@ -44,12 +48,30 @@ def smem_bytes(P: int, L: int) -> int:
 
 def bwd_smem_bytes(P: int, L: int) -> int:
     """Shared memory of one image-side backward block (mirror of
-    ``conv_rbf_cross_bwd_image_smem_bytes``): the patches in two layouts,
-    one column tile of T, the gram's S and small buffers."""
+    ``conv_rbf_cross_bwd_image_smem_bytes``): the transposed patches, one
+    column tile of T sharing its space with the block's part of dpatches,
+    two 2048-float stages of Z, the gram's S on the rank's own pairs, and
+    small buffers."""
     Ppad = -(-P // 8) * 8
     Lpad = -(-L // _MT) * _MT
-    return 4 * (L * Ppad + Ppad * Lpad + _MT * Ppad + Ppad * (Ppad + 1)
-                + 3 * Ppad + _MT + 16)
+    return 4 * (L * Ppad + max(_MT * Ppad, Ppad * Lpad) + 2 * 2048
+                + Ppad * (Ppad + 1) + 8 * Ppad + 32)
+
+
+def bwd_cluster(M: int) -> int:
+    """Blocks a cluster of the image-side backward takes per image: one per
+    128-column tile of M, at most BWD_MAX_CLUSTER (mirror of
+    ``image_cluster`` in the source)."""
+    return min(-(-M // _MT), BWD_MAX_CLUSTER)
+
+
+def sum_bwd_partials(part: torch.Tensor, P: int):
+    """The image side's partials part [N, S, 2P + 2] -- per image and
+    cluster rank: du [P] (over the rank's columns of M), dwkd [P] (over
+    its gram pairs), dvar, dgamma -- summed into (dvar, dgamma, du,
+    dwkd)."""
+    sums = part.reshape(-1, 2 * P + 2).sum(0)
+    return sums[2 * P], sums[2 * P + 1], sums[:P], sums[P:2 * P]
 
 
 def _geometry(NHWC_X, filter_size, stride, dilation):
@@ -173,6 +195,17 @@ def _padded_z(Z):
     return _cached('zp', Z, build)
 
 
+def _padded_zn(Z):
+    """The squared norms of Z's rows [Mpad], zero-padded: the backward's
+    image side reads them instead of summing them in every block."""
+    def build(Z):
+        zn = torch.zeros(-(-Z.shape[0] // _MT) * _MT, dtype=Z.dtype,
+                         device=Z.device)
+        zn[:Z.shape[0]] = Z.detach().square().sum(1)
+        return zn
+    return _cached('zn', Z, build)
+
+
 def _check_cuda(name, tensors: dict, device):
     for key, t in tensors.items():
         if t.device != device:
@@ -248,19 +281,20 @@ def _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
     N, H, W, C = NHWC_X.shape
     M, L = Z.shape
     P = u.shape[0]
-    Zt, Zp = _padded_zt(Z), _padded_z(Z)
+    Zt, Zp, zn = _padded_zt(Z), _padded_z(Z), _padded_zn(Z)
     Mpad = Zt.shape[1]
     dev = Z.device
     T = torch.empty(N, P, Mpad, dtype=Z.dtype, device=dev)
-    part = torch.empty(N, 2 * P + 2, dtype=Z.dtype, device=dev)
+    part = torch.empty(N, bwd_cluster(M), 2 * P + 2, dtype=Z.dtype,
+                       device=dev)
     dimg = torch.empty_like(NHWC_X)
     dZ = torch.empty_like(Z)
     stream = torch.cuda.current_stream(dev).cuda_stream
     image = cuda_build.function(
         'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image',
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     cuda_build.check(image(NHWC_X.data_ptr(), Zt.data_ptr(), Zp.data_ptr(),
-                           scal.data_ptr(), u.data_ptr(), wkd.data_ptr(),
+                           zn.data_ptr(), scal.data_ptr(), u.data_ptr(), wkd.data_ptr(),
                            dkzx.data_ptr(), dkd.data_ptr(), T.data_ptr(),
                            part.data_ptr(), dimg.data_ptr(), N, H, W, C,
                            filter_size, stride, dilation, M, Mpad,
@@ -277,8 +311,8 @@ def _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
                            dilation, M, Mpad, chunk, stream),
                      'conv_rbf_cross_bwd_z')
     conv_rbf_cross_bwd.launches += 1
-    sums = part.sum(0)
-    return dimg, dZ, sums[2 * P], sums[2 * P + 1], sums[:P], sums[P:2 * P]
+    dvar, dgamma, du, dwkd = sum_bwd_partials(part, P)
+    return dimg, dZ, dvar, dgamma, du, dwkd
 
 
 def conv_rbf_cross_bwd(NHWC_X, Z, variance, gamma, u, wkd, filter_size,

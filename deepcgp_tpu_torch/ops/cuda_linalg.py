@@ -12,16 +12,20 @@ Counterpart of ``deepcgp_tpu/ops/pallas_linalg.py``.  Three kernels:
   taking K1's diagonal-block inverses where it has them;
 * K2 (``csrc/chol_inv.cu``, :func:`chol_inv_base_upper`): upper factor
   R (R R^T = D) and its inverse of [b, P, P] blocks, P <= 128, under the
-  NatGrad drivers :func:`chol_inv_batched_upper` and
-  :func:`chol_right_solve_upper`.
+  NatGrad panel drivers :func:`chol_inv_batched_upper_panels` and
+  :func:`chol_right_solve_upper_panels`, for M above K1's largest.
 
 The JAX package's names keep their signatures: :func:`chol_inv_base` and
 :func:`chol_inv_batched` run K1 then K3, :func:`chol_factor_batched` K1,
 :func:`tri_inv_base` and :func:`tri_inv_doubling` K3 -- no Python panel
-loop on the card.  On a CPU tensor each runs the kernels' plain versions,
-which follow the kernels' block order step for step.  The K2 drivers'
-panel solves, trailing downdates and block substitutions are full-f32
-matrix products (TF32 is off, see ``config``).
+loop on the card.  The upper drivers :func:`chol_inv_batched_upper` and
+:func:`chol_right_solve_upper` run K1 then K3 on the index-reversed
+matrix where K1 takes M (J the reversal, Lf = chol(J A J): R = J Lf J is
+A's upper factor), and the K2 panel drivers above that, as
+:func:`upper_route` says.  On a CPU tensor each runs the kernels' plain
+versions, which follow the kernels' block order step for step.  The K2
+drivers' panel solves, trailing downdates and block substitutions are
+full-f32 matrix products (TF32 is off, see ``config``).
 
 A non-PD batch element gives NaN in its factor and inverse and leaves the
 others untouched, as ``torch.linalg.cholesky`` in JAX's NaN convention
@@ -184,10 +188,30 @@ def chol_factor_blocked_plain(A: torch.Tensor, w: int | None = None):
     return L, Dinv
 
 
-def _cluster(M: int) -> int:
+_MAX_CLUSTERS: dict = {}
+
+
+def _max_clusters(M: int, cluster: int) -> int:
+    """How many ``cluster``-block clusters of K1 at M the current card holds
+    at once (``chol_factor_max_clusters``), asked once per device."""
+    key = (torch.cuda.current_device(), M, cluster)
+    if key not in _MAX_CLUSTERS:
+        fn = cuda_build.function('chol_inv', 'chol_factor_max_clusters',
+                                 [ctypes.c_int] * 2)
+        _MAX_CLUSTERS[key] = fn(M, cluster)
+    return _MAX_CLUSTERS[key]
+
+
+def _cluster(M: int, B: int = 1) -> int:
     """K1's blocks per matrix: 16 (non-portable) from M = 512 up, where a
-    matrix has enough tiles to share, else 8."""
-    return 16 if M >= 512 else 8
+    matrix has enough tiles to share, else 8; halved, down to 4, while the
+    card cannot hold all B clusters at once, so a batch runs in one wave
+    (the NatGrad solve's [20, 384, 384] and [10, 1024, 1024]).  The Kuu
+    shapes ([3, 384, 384], [1, 1024, 1024]) fit at the first size."""
+    cluster = 16 if M >= 512 else 8
+    while cluster > 4 and B > _max_clusters(M, cluster):
+        cluster //= 2
+    return cluster
 
 
 def chol_factor_blocked(A: torch.Tensor):
@@ -208,7 +232,7 @@ def chol_factor_blocked(A: torch.Tensor):
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(A.device).cuda_stream
     cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, M,
-                        _cluster(M), stream), 'chol_factor_blocked')
+                        _cluster(M, B), stream), 'chol_factor_blocked')
     chol_inv_base.launches += 1
     return L, Dinv
 
@@ -330,10 +354,11 @@ def _factor_blocks_upper(A: torch.Tensor, P: int):
     return Rb, Dinv, Rcols
 
 
-def chol_inv_batched_upper(A: torch.Tensor, panel: int = PANEL):
-    """Upper mirror of :func:`chol_inv_batched`: A [B, M, M] SPD (lower
-    triangle read) -> (R, R^-1) with R upper, R R^T = A.  The inverse by
-    block back substitution, a block row per product pair from the bottom:
+def chol_inv_batched_upper_panels(A: torch.Tensor, panel: int = PANEL):
+    """The K2 panel driver of :func:`chol_inv_batched_upper`, for any M that
+    is a multiple of P = min(panel, M): A [B, M, M] SPD (lower triangle
+    read) -> (R, R^-1).  The inverse by block back substitution, a block
+    row per product pair from the bottom:
     X_kk = R_kk^-1,  X_i,i+1: = -R_ii^-1 (R_i,i+1: X_i+1:,i+1:)."""
     P = _panel('chol_inv_batched_upper', A, panel)
     M = A.shape[-1]
@@ -353,17 +378,17 @@ def chol_inv_batched_upper(A: torch.Tensor, panel: int = PANEL):
     return R, X
 
 
-def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
-                           panel: int = PANEL) -> torch.Tensor:
-    """A [B, M, M] SPD (lower triangle read), X [B, N, M] -> Y = X R^-T
-    where R is the upper factor (R R^T = A), without forming R^-1: block
-    back substitution on Y R^T = X in right-looking form, at step
-    k = n-1 .. 0
+def chol_right_solve_upper_panels(A: torch.Tensor, X: torch.Tensor,
+                                  panel: int = PANEL) -> torch.Tensor:
+    """The K2 panel driver of :func:`chol_right_solve_upper`: A [B, M, M]
+    SPD (lower triangle read), X [B, N, M] -> Y = X R^-T, R the upper
+    factor (R R^T = A), without forming R^-1: block back substitution on
+    Y R^T = X in right-looking form, at step k = n-1 .. 0
 
         Y_k = rem_k R_kk^-T;   rem <- rem[:, :, :-P] - Y_k Rcol_k^T
 
-    with Rcol_k the unsplit panel of :func:`_factor_blocks_upper`: 2n
-    products in all."""
+    with Rcol_k the unsplit panel of :func:`_factor_blocks_upper`: n K2
+    launches and 2n products in all."""
     P = _panel('chol_right_solve_upper', A, panel)
     if A.shape[-1] == P:
         _, Dinv0 = chol_inv_base_upper(sym_from_tril(A))
@@ -377,6 +402,86 @@ def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
         rem = rem[:, :, :-P] - Y[k] @ _T(Rcols[k])
     Y[0] = rem @ _T(Dinv[0])
     return torch.cat(Y, dim=2)
+
+
+_LOWER_MASKS: dict = {}
+
+
+def reversed_sym_from_tril(A: torch.Tensor) -> torch.Tensor:
+    """J sym_from_tril(A) J, J the index reversal, from A's lower triangle
+    only: with Af = J A J (whose upper triangle is A's lower one),
+    Gr = where(i >= j, Af^T, Af).  Two passes over [B, M, M] (the flip and
+    the select), and symmetric, as K1 needs for its diagonal sub-blocks."""
+    M = A.shape[-1]
+    key = (M, A.device)
+    mask = _LOWER_MASKS.get(key)
+    if mask is None:
+        mask = torch.ones(M, M, dtype=torch.bool, device=A.device).tril()
+        _LOWER_MASKS[key] = mask
+    Af = A.flip(-1, -2)
+    return torch.where(mask, _T(Af), Af)
+
+
+def upper_route(M: int):
+    """How the upper drivers take [B, M, M], by shape alone (the same on the
+    CPU and the card): ('reversed', None) -- K1 then K3 on the
+    index-reversed matrix, :func:`chol_inv_reversed_upper` -- where K1 and
+    K3 take M (M % 32 == 0, M <= 1024); ('panels', P) -- the K2 panel
+    driver at panel P, 128 from M = 512 where it divides M, else 64 --
+    for the other multiples of 64; None for the rest, where the drivers
+    keep the JAX package's shape contract (M a multiple of
+    min(panel, M)) and raise outside it."""
+    if M % W == 0 and M <= MAX_M:
+        return 'reversed', None
+    P = 128 if M >= 512 and M % 128 == 0 else PANEL
+    return ('panels', P) if M % P == 0 else None
+
+
+def chol_inv_reversed_upper(A: torch.Tensor):
+    """A [B, M, M] SPD (lower triangle read) -> (J Lf J, J Lf^-1 J) with
+    Lf = chol(J A J): R = J Lf J is upper with R R^T = A, and J Lf^-1 J is
+    its inverse.  One K1 and one K3 launch on the card, behind one pass
+    that builds J A J (:func:`reversed_sym_from_tril`); the plain versions
+    of both on the CPU.  Returns (Lf, Lf^-1), unreversed: callers fold the
+    reversal into what they do next."""
+    Lf, Dinv = chol_factor_blocked(reversed_sym_from_tril(A))
+    return Lf, tri_inv_blocked(Lf, Dinv)
+
+
+def chol_right_solve_reversed(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """A [B, M, M] SPD (lower triangle read), X [B, N, M] -> Y = X R^-T,
+    R the upper factor of A, as Y = X (J Lf^-1 J)^T: K1 and K3 on the
+    reversed matrix (:func:`chol_inv_reversed_upper`), one [B, M, M] flip
+    of Lf^-1 and one batched product -- no Python panel loop."""
+    _, Lfinv = chol_inv_reversed_upper(A)
+    return X @ _T(Lfinv.flip(-1, -2))
+
+
+def chol_inv_batched_upper(A: torch.Tensor, panel: int | None = None):
+    """Upper mirror of :func:`chol_inv_batched`: A [B, M, M] SPD (lower
+    triangle read) -> (R, R^-1) with R upper, R R^T = A, by the route of
+    :func:`upper_route`: R = J Lf J and R^-1 = J Lf^-1 J from
+    :func:`chol_inv_reversed_upper` (two launches), or the K2 panel driver
+    :func:`chol_inv_batched_upper_panels` at ``panel`` (default: the
+    route's own, else 64)."""
+    kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
+    if kind == 'reversed':
+        Lf, Lfinv = chol_inv_reversed_upper(A)
+        return Lf.flip(-1, -2), Lfinv.flip(-1, -2)
+    return chol_inv_batched_upper_panels(A, panel or P)
+
+
+def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
+                           panel: int | None = None) -> torch.Tensor:
+    """A [B, M, M] SPD (lower triangle read), X [B, N, M] -> Y = X R^-T
+    where R is the upper factor (R R^T = A), by the route of
+    :func:`upper_route`: :func:`chol_right_solve_reversed`, or the K2 panel
+    driver :func:`chol_right_solve_upper_panels` at ``panel`` (default:
+    the route's own, else 64)."""
+    kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
+    if kind == 'reversed':
+        return chol_right_solve_reversed(A, X)
+    return chol_right_solve_upper_panels(A, X, panel or P)
 
 
 # ------------------------------------------------------------------- K3

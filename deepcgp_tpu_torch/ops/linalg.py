@@ -172,18 +172,22 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
     KL = 0.5 * sum_r [tr(K^-1 S_r) + m_r^T K^-1 m_r - M - logdet(S_r)
                       + logdet(K)].
 
-    float32 arguments are evaluated in float64 and the KL rounded back.
-    With Kuu ill-conditioned (M = 1024, jitter 1e-3) the trace term is a
-    sum of ~1e4-sized products that nearly cancel, and in float32 its
-    rounding reaches the hyperparameters' gradients: cuBLAS's float32
-    products left the card's loss 20x and those gradients 5x farther from
-    float64 than the CPU's, and float64 here brings both to the CPU's
-    level (``tools/torch_grad_witness.py``).  The H100's data-sheet FP64
-    tensor-core peak equals its float32 SIMT peak (67 TFLOP/s)."""
-    if q_mu.dtype == torch.float32:
+    In the factor form a float32 KL evaluates T = sum_r Lq_r Lq_r^T in
+    float64 and rounds it back; the rest runs in float32, as the reference
+    does.  With Kuu ill-conditioned (M = 1024, jitter 1e-3) the trace term
+    is a sum of ~1e4-sized products that nearly cancel, and cuBLAS's
+    float32 T (10 x 1024 terms an entry) left the card's loss 20x and the
+    hyperparameters' gradients 5x farther from float64 than the CPU's;
+    T alone in float64 brings them back to the CPU's distance, W = Lp^-T
+    Lp^-1 or the trace alone in float64 leave them where all-float32 does
+    (``tools/torch_grad_witness.py``).  The other two forms evaluate a
+    float32 KL wholly in float64."""
+    if Lp_inv is not None and Lp is None:
+        raise ValueError('gauss_kl: Lp_inv requires its factor Lp')
+    if q_mu.dtype == torch.float32 and Lp_inv is None:
         up = (lambda x: None if x is None else x.double())
         return _gauss_kl(up(q_mu), up(q_sqrt), up(K), Lp=up(Lp),
-                         Lp_inv=up(Lp_inv)).float()
+                         Lp_inv=None).float()
     return _gauss_kl(q_mu, q_sqrt, K, Lp=Lp, Lp_inv=Lp_inv)
 
 
@@ -195,11 +199,9 @@ def _gauss_kl(q_mu, q_sqrt, K, *, Lp, Lp_inv):
         trace = Lq.square().sum()
         logdet_prior = q_mu.new_zeros(())
     elif Lp_inv is not None:
-        if Lp is None:
-            raise ValueError('gauss_kl: Lp_inv requires its factor Lp')
-        T = syrk_sum(Lq)
-        W = Lp_inv.T @ Lp_inv                                # Lp^-T Lp^-1
-        trace = (W * T).sum()
+        T = syrk_sum(Lq.double() if Lq.dtype == torch.float32 else Lq)
+        W = _T(Lp_inv) @ Lp_inv                              # Lp^-T Lp^-1
+        trace = (W * T.to(W.dtype)).sum()
         alpha = Lp_inv @ q_mu
         logdet_prior = R * 2.0 * tril_logdet(Lp)
     else:

@@ -226,10 +226,15 @@ def _natural_to_meanvarsqrt(theta1, theta2):
     return torch.einsum('rmn,rn->rm', S, theta1), W
 
 
-def _kernel_factor(dtype, M: int) -> bool:
-    """The K2 route of :func:`natgrad_update`: float32 with M a multiple of
-    the panel (the JAX package's Pallas gate without its TPU condition)."""
-    return dtype == torch.float32 and M % cuda_linalg.PANEL == 0
+def natgrad_route(dtype, M: int) -> str:
+    """The route of :func:`natgrad_update`'s solve W R^-T: for float32, the
+    kernel route ``cuda_linalg.upper_route`` gives M -- 'reversed' (K1 and
+    K3 on the index-reversed G, M % 32 == 0 up to 1024) or 'panels' (the
+    K2 panel driver, multiples of 64 above) -- and 'library' for every
+    other dtype or shape: the library factor of the index-reversed G and
+    one triangular solve."""
+    route = cuda_linalg.upper_route(M)
+    return route[0] if dtype == torch.float32 and route else 'library'
 
 
 def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
@@ -243,20 +248,19 @@ def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
     Cholesky factor, R the upper factor of G (R R^T = G);
     mu_new = mu - gamma W_new (W_new^T dmu).
 
-    float32 with M % 64 == 0 builds only G's lower triangle,
-    I + gamma tril(X), and solves W R^-T by the upper driver around K2
-    (panel 128 from M = 512 on, else 64) without forming R^-1.  Every
-    other dtype or shape builds the symmetric G and takes the library
-    factor of the index-reversed G and one triangular solve."""
+    The kernel routes of :func:`natgrad_route` build only G's lower
+    triangle, I + gamma tril(X), and solve W R^-T by
+    ``cuda_linalg.chol_right_solve_upper``, which reads only that
+    triangle.  The library route builds the symmetric G and takes the
+    library factor of the index-reversed G and one triangular solve."""
     mu, W = q_mu.T, torch.tril(q_sqrt)                  # [R, M], [R, M, M]
     dmu, dW = dq_mu.T, torch.tril(dq_sqrt)
     XtW = W.transpose(-1, -2) @ dW
     M = W.shape[-1]
     eye = torch.eye(M, dtype=W.dtype, device=W.device)
-    if _kernel_factor(W.dtype, M):
-        G = gamma * torch.tril(XtW) + eye
-        panel = 128 if M >= 512 else cuda_linalg.PANEL
-        W_new = cuda_linalg.chol_right_solve_upper(G, W, panel=panel)
+    if natgrad_route(W.dtype, M) != 'library':
+        W_new = cuda_linalg.chol_right_solve_upper(
+            gamma * torch.tril(XtW) + eye, W)
     else:
         P = _phi(XtW)
         G = 2.0 * gamma * (0.5 * (P + P.transpose(-1, -2))) + eye

@@ -242,17 +242,27 @@ def test_natgrad_update_f64_matches_jax():
         assert not torch.isfinite(out[1]).all()
 
 
-def test_natgrad_update_f32_kernel_route_matches_jax(monkeypatch):
-    """float32 with M % 64 == 0 takes the K2 route (G's lower triangle into
-    ``chol_right_solve_upper``): against the JAX package forced through its
-    Pallas branch (interpret mode) and against the theta round trip, at the
-    JAX test's 2e-4 relative, 2e-5 absolute.  M = 128 at panel 64: two K2
-    base cases per update."""
+@pytest.mark.parametrize('route', ['reversed', 'panels'])
+def test_natgrad_update_f32_kernel_route_matches_jax(monkeypatch, route):
+    """float32 with M % 32 == 0 takes a kernel route (G's lower triangle
+    into K1 and K3 on the index-reversed G, 'reversed', or into the K2
+    panel driver, 'panels', forced here at M = 128): against the JAX
+    package forced through its Pallas branch (interpret mode) and against
+    the theta round trip, at the JAX test's 2e-4 relative, 2e-5 absolute.
+    M = 128: one K1 and one K3 per update, or two K2 base cases at
+    panel 64."""
     monkeypatch.setenv('DEEPCGP_PALLAS_FORCE', '1')
+    assert optim.natgrad_route(torch.float32, 128) == 'reversed'
+    if route == 'panels':
+        monkeypatch.setattr(cuda_linalg, 'upper_route',
+                            lambda M: ('panels', 64))
     calls = []
-    plain = cuda_linalg.chol_inv_base_upper_plain
-    monkeypatch.setattr(cuda_linalg, 'chol_inv_base_upper_plain',
-                        lambda D: calls.append(tuple(D.shape)) or plain(D))
+    for name in ('chol_inv_base_upper_plain', 'chol_factor_blocked_plain',
+                 'tri_inv_blocked_plain'):
+        monkeypatch.setattr(
+            cuda_linalg, name,
+            lambda D, *a, _f=getattr(cuda_linalg, name), _n=name:
+            calls.append((_n, tuple(D.shape))) or _f(D, *a))
     args = _natgrad_inputs(np.random.RandomState(11), 3, 128, np.float32)
     assert joptim._use_pallas_factor(jnp.float32, 128)
     for gamma in (1e-3, 1e-2):
@@ -265,7 +275,11 @@ def test_natgrad_update_f32_kernel_route_matches_jax(monkeypatch):
         for a, b in ((mu, mu_j), (W, W_j), (mu, mu_t), (W, W_t)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                        atol=2e-5)
-    assert calls == [(3, 64, 64)] * 4
+    if route == 'panels':
+        assert calls == [('chol_inv_base_upper_plain', (3, 64, 64))] * 4
+    else:
+        assert calls == [('chol_factor_blocked_plain', (3, 128, 128)),
+                         ('tri_inv_blocked_plain', (3, 128, 128))] * 2
 
 
 def test_natgrad_kernel_route_non_pd_is_non_finite():

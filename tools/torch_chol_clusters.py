@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K1's cluster size on the card: the blocked Cholesky factor
-(``csrc/chol_inv.cu``) at the route shapes with 4, 8 and 16 blocks a
-matrix, and K3 (``csrc/tri_inv.cu``) beside it, each held against its
-plain version first.
+(``csrc/chol_inv.cu``) at the Kuu route shapes ([3, 384, 384],
+[1, 1024, 1024]) and the NatGrad solve's ([20, 384, 384],
+[10, 1024, 1024]) with 2-16 blocks a matrix, and K3 (``csrc/tri_inv.cu``)
+beside it, each held against its plain version first.
 
     python3 tools/torch_chol_clusters.py
 
@@ -11,7 +12,9 @@ holds at once (``cudaOccupancyMaxActiveClusters``), the profiler's device
 ms per launch and the relative error against the plain version; and for
 the wrapper's own cluster size (``cuda_linalg._cluster``) the first
 cluster's phases of one launch in SM clock cycles (``clock64``), panel by
-panel.  Needs a CUDA card.
+panel (Kuu shapes).  At the NatGrad shapes it also times the pieces of
+the reversed solve ``cuda_linalg.chol_right_solve_upper``: the reversal
+pass, K1, K3 and the product, each by CUDA events.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -46,10 +49,10 @@ def main() -> int:
                                [ctypes.c_int] * 2)
     rng = np.random.RandomState(0)
     dev = torch.device('cuda')
-    for b, M in ((3, 384), (1, 1024)):
+    for b, M in ((3, 384), (1, 1024), (20, 384), (10, 1024)):
         D = cs.spd_batch(torch, rng, b, M, dev)
         Lp, Dp = cl.chol_factor_blocked_plain(D)
-        for cluster in (2, 4, 8, 16):
+        for cluster in (2, 4, 8, 16) if b < 10 else (4, 8, 16):
             L = torch.empty_like(D)
             Dinv = D.new_empty(b, M // cl.W, cl.W, cl.W)
 
@@ -68,6 +71,33 @@ def main() -> int:
                                           'chol_factor_cluster_kernel')}
             print(json.dumps(line), flush=True)
             cs.check(err <= 1e-5, f'K1 [{b},{M},{M}] cluster {cluster}: {err}')
+        if b >= 10:
+            G = torch.tril(D)
+            X = torch.tril(cs.spd_batch(torch, rng, b, M, dev))
+            Gr = cl.reversed_sym_from_tril(G)
+            Lf, Df = cl.chol_factor_blocked(Gr)
+            Lfinv = cl.tri_inv_blocked(Lf, Df)
+            pieces = {
+                'reversal_ms': cs.cuda_ms(
+                    torch, lambda: cl.reversed_sym_from_tril(G), 20),
+                'k1_ms': cs.cuda_ms(torch, lambda: cl.chol_factor_blocked(Gr), 20),
+                'k3_ms': cs.cuda_ms(torch, lambda: cl.tri_inv_blocked(Lf, Df), 20),
+                'product_ms': cs.cuda_ms(
+                    torch, lambda: X @ Lfinv.flip(-1, -2).transpose(-1, -2), 20),
+                'route_ms': cs.cuda_ms(
+                    torch, lambda: cl.chol_right_solve_upper(G, X), 20)}
+            Y = cl.chol_right_solve_upper(G, X)
+            Gd = torch.tril(D).double().cpu()
+            Gd = Gd + torch.tril(Gd, -1).transpose(-1, -2)
+            R = torch.linalg.cholesky(Gd.flip(-1, -2)).flip(-1, -2)
+            Yref = torch.linalg.solve_triangular(
+                R.transpose(-1, -2), X.double().cpu(), upper=False, left=False)
+            err = cs.rel(Y.double().cpu(), Yref)
+            print(json.dumps({'shape': [b, M, M], 'cluster': cl._cluster(M, b),
+                              'solve_rel_err_vs_f64': err,
+                              'solve_pieces': pieces, 'card': card}), flush=True)
+            cs.check(err <= 1e-4, f'solve [{b},{M},{M}]: {err}')
+            continue
         n = M // cl.W
         trace = torch.zeros(8 + 10 * (n - 1), dtype=torch.int64, device=dev)
         traced = cuda_build.function(
@@ -78,7 +108,7 @@ def main() -> int:
         for _ in range(2):
             cuda_build.check(traced(
                 D.data_ptr(), L.data_ptr(), Dinv.data_ptr(), b, M,
-                cl._cluster(M), trace.data_ptr(),
+                cl._cluster(M, b), trace.data_ptr(),
                 torch.cuda.current_stream().cuda_stream), 'traced')
         torch.cuda.synchronize()
         t = trace.cpu().numpy()
@@ -96,7 +126,7 @@ def main() -> int:
             'panel_cycles': np.diff(
                 np.concatenate([at[:, 0], [at[-1, 7]]])).tolist(),
             'total_cycles': int(at[-1, 7] - t[0])}
-        print(json.dumps({'shape': [b, M, M], 'cluster': cl._cluster(M),
+        print(json.dumps({'shape': [b, M, M], 'cluster': cl._cluster(M, b),
                           'trace': phases, 'card': card}), flush=True)
         X = cl.tri_inv_blocked(Lp.contiguous(), Dp.contiguous())
         torch.cuda.synchronize()

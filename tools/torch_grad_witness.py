@@ -3,20 +3,25 @@
 CPU's: witnesses of one Adam step's gradients on the unfused last-layer
 configurations that chip_smoke.py trains.
 
-    python3 tools/torch_grad_witness.py [--seed 0] [--out chiprun_out/grad_witness.jsonl]
+    python3 tools/torch_grad_witness.py [--seed 0] [--configs mnist_conv,m1024]
+        [--variants kernels,kl32,klT64] [--out chiprun_out/grad_witness.jsonl]
 
-For the MNIST single-layer ConvKernel (M=1024) and CIFAR fm32 at the
-builder's default initialisation, at a fresh build and after a run of Adam
-steps, one batch's gradients are taken
+For the MNIST single-layer ConvKernel (M=1024), CIFAR fm32 and the
+M=1024 ARD-RBF configuration at the builder's default initialisation,
+at a fresh build and after a run of Adam steps, one batch's gradients
+are taken
 
 * on the card in float32 through the kernels, and again with one part of
   the computation swapped: every kernel for its plain version (``plain``),
   the Kuu factorization in float64 (``chol64``), the squared distances in
   float64 (``dist64``), the conditional in float64 (``cond64``), the
   ConvKernel's Kdiag gram by the centred self-gram (``selfgram_kdiag``),
-  the KL in float64 (``kl64``; ``ops.linalg.gauss_kl`` now evaluates a
-  float32 KL in float64 itself), the likelihood's expectation in float64
-  (``lik64``), and every ATen matrix product (``mm64``), reduction
+  the whole KL in float64 (``kl64``), the KL's factor-form products all
+  in float32 (``kl32``) or one of them in float64 (``klT64``: T = sum
+  Lq Lq^T, as the port keeps it; ``klW64``: W = Lp^-T Lp^-1;
+  ``kltrace64``: sum(W * T)), the
+  likelihood's expectation in float64 (``lik64``), and every ATen matrix
+  product (``mm64``), reduction
   (``sum64``) or transcendental function (``transc64``), or all three
   (``all64``), in float64 by a dispatch mode;
 * on the CPU in float32 with the same swaps, and at parameters one rounding
@@ -47,8 +52,13 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 VARIANTS = ('kernels', 'plain', 'chol64', 'dist64', 'cond64',
-            'selfgram_kdiag', 'kl64', 'lik64', 'mm64', 'sum64', 'transc64',
-            'all64')
+            'selfgram_kdiag', 'kl64', 'kl32', 'klT64', 'klW64', 'kltrace64',
+            'lik64', 'mm64', 'sum64', 'transc64', 'all64')
+# The KL variants of factor_kl: the products of the factor-form KL
+# evaluated in float64, the rest in float32.
+KL_PRODUCTS = {'kl32': (), 'klT64': ('T',), 'klW64': ('W',),
+               'kltrace64': ('trace',)}
+CONFIGS = ('mnist_conv', 'fm32', 'm1024')
 # ATen operators that the *64 dispatch variants run in float64: matrix
 # products, reductions, transcendental functions.
 OPS64 = {'mm64': ('mm', 'bmm', 'addmm', 'baddbmm', 'addbmm', 'dot', 'mv',
@@ -83,6 +93,33 @@ def upcast_mode(names):
     return Upcast()
 
 
+def factor_kl(products):
+    """``ops.linalg.gauss_kl`` whose float32 factor form (``Lp_inv`` given)
+    evaluates the products named in ``products`` -- 'T' = sum_r Lq_r
+    Lq_r^T, 'W' = Lp^-T Lp^-1, 'trace' = sum(W * T) -- in float64, each
+    rounded back, and the rest in float32; the other forms unchanged."""
+    import torch
+    from deepcgp_tpu_torch.ops import linalg
+    kl = linalg.gauss_kl
+
+    def at(name, x):
+        return x.double() if name in products else x
+
+    def gauss_kl(q_mu, q_sqrt, K=None, *, Lp=None, Lp_inv=None):
+        if Lp_inv is None or q_mu.dtype != torch.float32:
+            return kl(q_mu, q_sqrt, K, Lp=Lp, Lp_inv=Lp_inv)
+        M, R = q_mu.shape
+        T = linalg.syrk_sum(at('T', torch.tril(q_sqrt))).float()
+        Wp = at('W', Lp_inv)
+        W = (Wp.T @ Wp).float()
+        trace = (at('trace', W) * at('trace', T)).sum().float()
+        alpha = Lp_inv @ q_mu
+        return 0.5 * (trace + alpha.square().sum() - M * R
+                      - 2.0 * linalg.tril_logdet(q_sqrt)
+                      + R * 2.0 * linalg.tril_logdet(Lp))
+    return gauss_kl
+
+
 @contextlib.contextmanager
 def swapped(variant: str):
     """The port with one part of the computation swapped (see module doc)."""
@@ -100,7 +137,9 @@ def swapped(variant: str):
         with upcast_mode(OPS64[variant]):
             yield
         return
-    if variant == 'kl64':
+    if variant in KL_PRODUCTS:
+        put(linalg, 'gauss_kl', factor_kl(KL_PRODUCTS[variant]))
+    elif variant == 'kl64':
         kl = linalg.gauss_kl
 
         def gauss_kl(q_mu, q_sqrt, K=None, *, Lp=None, Lp_inv=None):
@@ -206,7 +245,7 @@ def perturbed(torch, model, seed: int):
     return nearby
 
 
-def witness(torch, label, state, config, Xd, Yd, dev, rng, emit):
+def witness(torch, label, state, config, Xd, Yd, dev, rng, emit, variants):
     model = state.model
     B = config.batch_size
     noise = [rng.randn(model.num_samples, B, layer.num_outputs)
@@ -218,7 +257,7 @@ def witness(torch, label, state, config, Xd, Yd, dev, rng, emit):
     line = {'state': label, 'step': int(state.step), 'loss_f64': loss64,
             'clamped_f64': counts64,
             'g64_max': {k: float(g.abs().max()) for k, g in g64.items()}}
-    runs = [(f'{where} {v}', v, d, None) for v in VARIANTS
+    runs = [(f'{where} {v}', v, d, None) for v in variants
             for where, d in (('card', dev), ('cpu', cpu))]
     runs += [(f'cpu perturbed {i}', 'kernels', cpu, i) for i in (1, 2)]
     for name, variant, device, seed in runs:
@@ -246,6 +285,10 @@ def main() -> int:
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--steps', type=int, default=135)
     ap.add_argument('--device', default='cuda')
+    ap.add_argument('--configs', default='mnist_conv,fm32',
+                    help=f'comma-separated, of {CONFIGS}')
+    ap.add_argument('--variants', default=','.join(VARIANTS),
+                    help='comma-separated, of the module docstring\'s')
     ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out',
                                                   'grad_witness.jsonl'))
     args = ap.parse_args()
@@ -272,14 +315,21 @@ def main() -> int:
           'float32_matmul_precision': torch.get_float32_matmul_precision(),
           'matmul_allow_tf32': torch.backends.cuda.matmul.allow_tf32})
     rng = np.random.RandomState(args.seed)
-    configs = (('mnist_conv', cs.MNIST_CONV, cs.MNIST_IMAGE),
-               ('fm32', cs.FM32, cs.IMAGE))
+    variants = args.variants.split(',')
+    if set(variants) - set(VARIANTS):
+        raise SystemExit(f'unknown variants {set(variants) - set(VARIANTS)}')
+    # (flags, image, batch) per configuration; small shapes for --device cpu.
+    table = {'mnist_conv': (cs.MNIST_CONV, cs.MNIST_IMAGE, cs.TRAIN_BATCH),
+             'fm32': (cs.FM32, cs.IMAGE, cs.TRAIN_BATCH),
+             'm1024': (cs.M1024, cs.M1024_IMAGE, cs.M1024_BATCH)}
     images = cs.TRAIN_IMAGES
     if small:
         images = 64
-        configs = (('mnist_conv', dict(cs.MNIST_CONV, M='128'), (14, 14, 1)),
-                   ('fm32', dict(cs.FM32, M='64,64'), (20, 20, 3)))
-    for label, flags, image in configs:
+        table = {'mnist_conv': (dict(cs.MNIST_CONV, M='128'), (14, 14, 1), 8),
+                 'fm32': (dict(cs.FM32, M='64,64'), (20, 20, 3), 8),
+                 'm1024': (dict(cs.M1024, M='128'), (14, 14, 1), 8)}
+    for label in args.configs.split(','):
+        flags, image, batch = table[label]
         cs.TRAIN_IMAGES = images
         X, Y = cs.learnable_data(rng, image)
         model = mbuilder.build_model(
@@ -288,14 +338,15 @@ def main() -> int:
             image, None, images=X,
             generator=torch.Generator().manual_seed(args.seed), device=dev)
         config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
-                                     batch_size=8 if small else cs.TRAIN_BATCH)
+                                     batch_size=batch)
         state = trainer.init_state(model, config, seed=args.seed)
         Xd = torch.as_tensor(X.reshape(len(X), -1), device=dev)
         Yd = torch.as_tensor(Y, device=dev)
-        witness(torch, f'{label} fresh', state, config, Xd, Yd, dev, rng, emit)
+        witness(torch, f'{label} fresh', state, config, Xd, Yd, dev, rng, emit,
+                variants)
         trainer.run_chunk(state, config, Xd, Yd, 3 if small else args.steps)
         witness(torch, f'{label} trained', state, config, Xd, Yd, dev, rng,
-                emit)
+                emit, variants)
     out.close()
     return 0
 

@@ -11,11 +11,13 @@ factor-plus-inverse in two launches -- at the old base shapes, the two
 Kuu route shapes [3, 384, 384] and [1, 1024, 1024] and the NatGrad
 solve's [20, 384, 384] and [10, 1024, 1024], K2 (the upper
 Cholesky-with-inverse base case of NatGrad's panel driver), K4 (fused
-extraction -> RBF cross-covariance) and K5 (its backward, the image side
-one thread-block cluster per image).  Then it drives the main paths of
-the flagship CIFAR-shaped 2-layer conv-GP (M=384,384, 10 feature maps,
-filters 5,5, strides 3,1, ConvKernel last layer; random weights or data
-from the seed):
+extraction -> RBF cross-covariance, its products on the tensor cores in
+split TF32) and K5 (its backward: the image side one thread-block cluster
+per image, the Z side in split TF32), each with its distance from a
+float64 evaluation beside the plain float32 version's.  Then it drives
+the main paths of the flagship CIFAR-shaped 2-layer conv-GP (M=384,384,
+10 feature maps, filters 5,5, strides 3,1, ConvKernel last layer; random
+weights or data from the seed):
 
 * serving, through ``Predictor.from_run_dir`` (the last layer's
   lengthscale is 25, not the initial 5: its 250-element input patches
@@ -70,9 +72,11 @@ import types
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the tensor
-# cores.
+# cores, TF32 on them.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Dense TF32 on the tensor cores; a split-TF32 product takes three passes.
+TF32_OPS_PER_S = 495e12
 
 FLAGSHIP = dict(M='384,384', feature_maps='10', filter_sizes='5,5',
                 strides='3,1', base_kernel='rbf', last_kernel='conv',
@@ -209,25 +213,57 @@ def kernel_ms(torch, fn, kernel: str, iters: int = 50,
                        f'of {rounds * iters} launches of {kernel}')
 
 
-def profile_device(torch, fn):
+# The device kernels each launch counter counts, by name in the profiler.
+KERNEL_NAMES = {'chol_inv_base': ('chol_factor_cluster_kernel',),
+                'chol_inv_base_upper': ('chol_inv_upper_kernel',),
+                'tri_inv_base': ('tri_inv_strip_kernel',),
+                'conv_rbf_cross': ('conv_rbf_cross_kernel',),
+                'conv_rbf_cross_bwd': ('bwd_image_kernel', 'bwd_z_kernel'),
+                'extract_patches_transposed': ('extract_transposed_kernel',),
+                'col2im_transposed': ('col2im_transposed_kernel',)}
+PROFILE_ROUNDS = 4
+
+
+def profile_device(torch, fn, reset_counts, read_counts):
     """Run fn() under the profiler: (wall ms, device busy ms, the 12
-    device entries with the most time as [name, count, ms])."""
+    device entries with the most time as [name, count, ms], rounds).
+
+    The profiler may lose a round's device events, and the busy time would
+    then read low.  So each round's launches of the port's kernels, as the
+    profiler recorded them, are held against the launch counters for the
+    same calls: a round that recorded fewer is profiled again, up to
+    PROFILE_ROUNDS; more (another kernel matched) or every round short
+    fails."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    # Device-side entries only (kernels, copies): an operator's entry
-    # repeats the time of the kernels it launched.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    return wall_ms, busy_ms, [[e.key[:90], e.count,
-                               e.self_device_time_total / 1e3] for e in top]
+    recorded = {}
+    for rounds in range(1, PROFILE_ROUNDS + 1):
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        made = read_counts()
+        # Device-side entries only (kernels, copies): an operator's entry
+        # repeats the time of the kernels it launched.
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        recorded = {name: sum(e.count for e in device
+                              if any(k in e.key for k in KERNEL_NAMES[name]))
+                    for name in made}
+        check(all(recorded[n] <= made[n] for n in made),
+              f'profiler recorded {recorded} for launches {made}')
+        if recorded == made:
+            events = [e for e in device if e.self_device_time_total > 0]
+            busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+            return wall_ms, busy_ms, [[e.key[:90], e.count,
+                                       e.self_device_time_total / 1e3]
+                                      for e in top], rounds
+    raise RuntimeError(f'chip_smoke check failed: in {PROFILE_ROUNDS} '
+                       f'profiled rounds the profiler recorded {recorded} '
+                       f'of launches {made}')
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -817,6 +853,39 @@ def m1024_adam(torch, model, seed: int, rng, dev, card: dict, reset_counts,
     return launches
 
 
+def k4_trace(torch, img, Z, variance, gamma, u, wkd, f, s, d,
+             with_kdiag) -> dict:
+    """SM clock cycles of K4's setup, k-loop and epilogue in the middle
+    block of each item kind (a 128-column tile of M, or the Kdiag gram)
+    (``conv_rbf_cross_traced``), the second of two launches."""
+    from deepcgp_tpu_torch.ops import cuda_build, cuda_cross
+    N, H, W, C = img.shape
+    M = Z.shape[0]
+    Zp = cuda_cross._padded_z(Z)
+    Mpad, Lpad = Zp.shape
+    kzx = torch.empty(N, M, device=img.device)
+    kd = torch.empty(N, device=img.device)
+    scal = torch.stack([variance, gamma]).float()
+    trace = torch.zeros(32, dtype=torch.int64, device=img.device)
+    fn = cuda_build.function(
+        'conv_rbf_cross', 'conv_rbf_cross_traced',
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
+    for _ in range(2):
+        trace.zero_()
+        cuda_build.check(fn(
+            img.data_ptr(), Zp.data_ptr(), scal.data_ptr(), u.data_ptr(),
+            wkd.data_ptr(), kzx.data_ptr(), kd.data_ptr(), N, H, W, C, f, s,
+            d, M, Mpad, Lpad, cuda_cross.fwd_group(u.shape[0]),
+            int(with_kdiag), trace.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), 'traced')
+    torch.cuda.synchronize()
+    t = trace.cpu().tolist()
+    items = cuda_cross.fwd_grid(N, u.shape[0], M, with_kdiag)[1]
+    return {('gram' if with_kdiag and y == items - 1 else f'columns {y}'):
+            dict(zip(('setup', 'loop', 'epilogue'), t[3 * y:3 * y + 3]))
+            for y in range(min(items, 8))}
+
+
 K5_PHASES = ('setup', 'gram', 'cross', 'T', 'TZ', 'cluster_sync_1',
              'reduce', 'cluster_sync_2', 'col2im')
 
@@ -1025,11 +1094,13 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
           'elbo_last': float(trace[-1]),
           'max_memory_allocated_bytes': peak, **fields})
     check(failure is None, f'{label} {failure}')
-    wall_ms, busy_ms, top = profile_device(
-        torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16))
+    wall_ms, busy_ms, top, rounds = profile_device(
+        torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16),
+        reset_counts, read_counts)
     emit({'phase': f'adam training profile {label}', **card, 'steps': 16,
           'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
-          'device_busy_share': busy_ms / wall_ms, 'top_device_ms': top})
+          'device_busy_share': busy_ms / wall_ms, 'profile_rounds': rounds,
+          'top_device_ms': top})
     return state, launches
 
 
@@ -1151,6 +1222,7 @@ def main() -> int:
     from deepcgp_tpu_torch.ops import (cuda_build, cuda_cross, cuda_linalg,
                                        cuda_patches)
     from deepcgp_tpu_torch.ops.linalg import add_jitter
+    from deepcgp_tpu_torch.ops.patches import extract_patches
     from deepcgp_tpu_torch.serving import Predictor
 
     counters = {'chol_inv_base': cuda_linalg.chol_inv_base,
@@ -1236,44 +1308,78 @@ def main() -> int:
         (BATCH * SAMPLES, 10, 10, 10, 5, 1, 384, True),   # flagship last layer
         (256, 15, 13, 10, 3, 2, 200, True),
         (256, 15, 13, 10, 3, 2, 200, False),
+        # The training batch, and L = 300 and 400 (BASELINE.md's CIFAR
+        # fm16): the shapes K5 is held at, forward.
+        (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 10, 5, 1, 384, True),
+        (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 12, 5, 1, 384, True),
+        (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 16, 5, 1, 384, True),
+        # Past the fused route but within K4's envelope: the MNIST
+        # ConvKernel geometry (P = 576), one image a block in row tiles.
+        (TRAIN_BATCH, 28, 28, 1, 5, 1, 1024, True),
     ]
+    # The rows added with the tensor-core K4 draw from a generator of their
+    # own, so that every earlier check keeps its inputs.
+    k4rng = np.random.RandomState(args.seed + 2)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          'float32 products would run in TF32')
     k4 = None
-    for N, H, W, C, f, s, M, kd_on in geoms:
-        img = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
+    for i, (N, H, W, C, f, s, M, kd_on) in enumerate(geoms):
+        g = rng if i < 3 else k4rng
+        img = torch.as_tensor(g.randn(N, H, W, C), dtype=torch.float32,
                               device=dev)
-        Z = torch.as_tensor(patches_of(rng, rng.randn(32, H, W, C), M, f),
+        Z = torch.as_tensor(patches_of(g, g.randn(32, H, W, C), M, f),
                             dtype=torch.float32, device=dev)
         Pn = ((H - f) // s + 1) * ((W - f) // s + 1)
-        w = torch.as_tensor(rng.rand(Pn) + 0.5, dtype=torch.float32, device=dev)
+        w = torch.as_tensor(g.rand(Pn) + 0.5, dtype=torch.float32, device=dev)
         a = (img, Z, var, gamma, w / Pn, w, f, s, 1, kd_on)
         kzx, kd = cuda_cross.conv_rbf_cross(*a)
         torch.cuda.synchronize()
         kzx_p, kd_p = cuda_cross.conv_rbf_cross_plain(*a)
+        kzx_64, kd_64 = cuda_cross.conv_rbf_cross_plain(
+            *(t.double() for t in a[:6]), *a[6:])
         atol = 1e-6 * float(var)
         ok = (bool(torch.allclose(kzx, kzx_p, rtol=1e-5, atol=atol))
               and bool(torch.allclose(kd, kd_p, rtol=1e-5, atol=atol)))
         err = float(max((kzx - kzx_p).abs().max(), (kd - kd_p).abs().max()))
+        L4 = f * f * C
+        # Cross products 2NPML; the symmetric Kdiag gram NP(P+1)L.
+        ops = 2 * N * Pn * M * L4 + (N * Pn * (Pn + 1) * L4 if kd_on else 0)
+        ms = kernel_ms(torch, lambda: cuda_cross.conv_rbf_cross(*a),
+                       'conv_rbf_cross_kernel')
         line = {'phase': 'K4 conv_rbf_cross', **card,
                 'geometry': dict(N=N, H=H, W=W, C=C, f=f, stride=s, M=M,
                                  with_kdiag=kd_on),
                 'max_abs_err': err, 'kzx_max': float(kzx_p.abs().max()),
-                'tolerance': f'rtol 1e-5, atol {atol}'}
+                'tolerance': f'rtol 1e-5, atol {atol}',
+                'max_abs_dist_f64': {
+                    'kernel': float(max((kzx.double() - kzx_64).abs().max(),
+                                        (kd.double() - kd_64).abs().max())),
+                    'plain': float(max((kzx_p.double() - kzx_64).abs().max(),
+                                       (kd_p.double() - kd_64).abs().max()))},
+                'ms': ms, 'achieved_tflops': ops / ms / 1e9,
+                'tc_bound_ms': 3 * ops / TF32_OPS_PER_S * 1e3}
         check(ok, f'K4 {line["geometry"]}: max abs err {err}')
         if k4 is None:
-            L4 = f * f * C
-            # Cross products 2NPML; the symmetric Kdiag gram NP(P+1)L.
-            ops = 2 * N * Pn * M * L4 + (N * Pn * (Pn + 1) * L4 if kd_on else 0)
             nbytes = 4 * (N * H * W * C + M * L4 + 2 * Pn + 2 + N * M + N)
             k4_bound, k4_by = bound_ms(nbytes, ops)
-            ms = kernel_ms(torch, lambda: cuda_cross.conv_rbf_cross(*a),
-                           'conv_rbf_cross_kernel')
             call = cuda_ms(torch, lambda: cuda_cross.conv_rbf_cross(*a), 50)
             plain = cuda_ms(torch, lambda: cuda_cross.conv_rbf_cross_plain(*a), 10)
-            line.update(ms=ms, call_ms=call, plain_ms=plain, library_ms=None,
+            # cuBLAS's float32 product alone (TF32 off), on patches
+            # extracted beforehand: a yardstick of the GEMM core only.
+            flat = extract_patches(img, f, s, 1).reshape(N * Pn, L4)
+            product = cuda_ms(torch, lambda: flat @ Z.T, 50)
+            line.update(call_ms=call, plain_ms=plain, library_ms=None,
                         library_note='no single PyTorch call computes the '
                         'weighted patch-sum RBF cross-covariance',
+                        product_library_ms=product,
+                        product_library_note='torch.matmul [N P, L] x [L, M] '
+                        'in float32, TF32 off, on pre-extracted patches',
                         bound_ms=k4_bound, bound_by=k4_by,
-                        gflop=ops / 1e9, achieved_tflops=ops / ms / 1e9)
+                        target_ms=0.12, gflop=ops / 1e9,
+                        fwd_grid=list(cuda_cross.fwd_grid(N, Pn, M, kd_on)),
+                        dynamic_smem_bytes=cuda_cross.FWD_SMEM,
+                        ptxas=report.get('conv_rbf_cross', {}).get('ptxas'),
+                        trace_cycles=k4_trace(torch, *a))
             k4 = {'name': 'conv_rbf_cross', 'route': 'cuda',
                   'source': 'deepcgp_tpu_torch/csrc/conv_rbf_cross.cu',
                   'replaces': 'deepcgp_tpu/ops/pallas_cross.py:165',
@@ -1309,7 +1415,11 @@ def main() -> int:
         a = (img, Z, var, gamma, w / Pn, w, f, s, 1, kd_on, dkzx, dkd)
         out = cuda_cross.conv_rbf_cross_bwd(*a)
         torch.cuda.synchronize()
+        again = cuda_cross.conv_rbf_cross_bwd(*a)
         ref = cuda_cross.conv_rbf_cross_bwd_plain(*a)
+        ref64 = cuda_cross.conv_rbf_cross_bwd_plain(
+            *(t.double() for t in a[:6]), *a[6:10],
+            *(t.double() for t in a[10:]))
         errs = {n: rel(o, r) for n, o, r in zip(grad_names, out, ref)}
         line = {'phase': 'K5 conv_rbf_cross_bwd', **card,
                 'geometry': dict(N=N, H=H, W=W, C=C, f=f, stride=s, M=M,
@@ -1317,13 +1427,32 @@ def main() -> int:
                 'rel_err': errs,
                 'tolerance': 'each gradient within 1e-3 of its largest '
                              'magnitude: float32 sums of up to N P M terms '
-                             'in other orders, the Z side by atomics'}
+                             'in other orders',
+                'rel_dist_f64': {
+                    'kernel': {n: rel(o.double(), r)
+                               for n, o, r in zip(grad_names, out, ref64)},
+                    'plain': {n: rel(o.double(), r)
+                              for n, o, r in zip(grad_names, ref, ref64)}},
+                'dz_bit_equal_run_to_run': bool(torch.equal(out[1], again[1])),
+                'dimg_bit_equal_run_to_run': bool(torch.equal(out[0], again[0]))}
         check(max(errs.values()) <= 1e-3,
               f'K5 {line["geometry"]}: relative errors {errs}')
         fn = lambda: cuda_cross.conv_rbf_cross_bwd(*a)  # noqa: E731
         ms_image = kernel_ms(torch, fn, 'bwd_image_kernel')
         ms_z = kernel_ms(torch, fn, 'bwd_z_kernel')
-        line.update(ms_image_side=ms_image, ms_z_side=ms_z)
+        # The Z side's T^T patches: 2NPML products, reading T [N P, Mpad].
+        ops_z = 2 * N * Pn * M * L5
+        Mpad = -(-M // 128) * 128
+        z_bound, z_by = bound_ms(4 * (N * Pn * Mpad + N * H * W * C
+                                      + 2 * M * L5), ops_z)
+        line.update(ms_image_side=ms_image, ms_z_side=ms_z, z_side_ms=ms_z,
+                    z_side_bound_ms=z_bound, z_side_bound_by=z_by,
+                    z_side_tc_bound_ms=3 * ops_z / TF32_OPS_PER_S * 1e3,
+                    z_side_bytes_ms=4 * N * Pn * Mpad / HBM_BYTES_PER_S * 1e3,
+                    z_side_cluster=cuda_cross.z_side_cluster(
+                        N, Pn, M, L5, torch.cuda.get_device_properties(0)
+                        .multi_processor_count),
+                    z_side_tflops=ops_z / ms_z / 1e9)
         if k5 is None:
             # Recomputed cross products, T Z and T^T patches: 3 x 2NPML;
             # the symmetric Kdiag gram NP(P+1)L and its product 2NP^2L.
@@ -1338,10 +1467,13 @@ def main() -> int:
             plain = cuda_ms(
                 torch, lambda: cuda_cross.conv_rbf_cross_bwd_plain(*a), 10)
             err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+            # cuBLAS's float32 T^T patches alone (TF32 off), on patches
+            # extracted beforehand: a yardstick of the Z side's GEMM core.
+            flat = extract_patches(img, f, s, 1).reshape(N * Pn, L5)
+            Tm = torch.randn(N * Pn, Mpad, device=dev)
+            product = cuda_ms(torch, lambda: Tm.T @ flat, 50)
             # Image side: the cross products and T Z (2 x 2NPML) and the
             # gram; Z side: T^T patches (2NPML).
-            ops_z = 2 * N * Pn * M * L5
-            Mpad = -(-M // 128) * 128
             clusters = cuda_build.function(
                 'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image_max_clusters',
                 [ctypes.c_int] * 3)(Pn, L5, Mpad)
@@ -1353,7 +1485,11 @@ def main() -> int:
                         bound_ms=k5_bound, bound_by=k5_by, gflop=ops / 1e9,
                         achieved_tflops=ops / ms / 1e9,
                         image_side_tflops=(ops - ops_z) / ms_image / 1e9,
-                        z_side_tflops=ops_z / ms_z / 1e9,
+                        z_side_target_ms=0.06,
+                        product_library_ms=product,
+                        product_library_note='the Z side\'s product alone: '
+                        'torch.matmul T^T [Mpad, N P] x [N P, L] in float32, '
+                        'TF32 off, on pre-extracted patches',
                         image_side_target_ms=0.43,
                         image_side={
                             'cluster_blocks': S5, 'blocks': N * S5,
@@ -1363,6 +1499,7 @@ def main() -> int:
                             'resident_warps_per_sm': clusters * S5 * threads
                             / 32 / torch.cuda.get_device_properties(0)
                             .multi_processor_count},
+                        z_side_dynamic_smem_bytes=cuda_cross.Z_SMEM,
                         ptxas=report.get('conv_rbf_cross_bwd', {}).get('ptxas'),
                         image_side_trace_cycles=k5_image_trace(torch, *a))
             k5 = {'name': 'conv_rbf_cross_bwd', 'route': 'cuda',
@@ -1464,12 +1601,14 @@ def main() -> int:
 
         # Where a request's time goes: 16 batch-sized requests under the
         # profiler, device time by kernel and the device's busy share.
-        wall_ms, busy_ms, top = profile_device(torch, lambda: [
-            pred.predict_proba(X[BATCH * r:][:BATCH]) for r in range(16)])
+        wall_ms, busy_ms, top, rounds = profile_device(torch, lambda: [
+            pred.predict_proba(X[BATCH * r:][:BATCH]) for r in range(16)],
+            reset_counts, read_counts)
         emit({'phase': 'profile', **card, 'requests': 16,
               'request_rows': BATCH,
               'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
-              'device_busy_share': busy_ms / wall_ms, 'top_device_ms': top})
+              'device_busy_share': busy_ms / wall_ms,
+              'profile_rounds': rounds, 'top_device_ms': top})
 
     # -- training: the flagship's Adam steps from a fresh build -------------
     from deepcgp_tpu_torch.models import builder as mbuilder
@@ -1543,11 +1682,13 @@ def main() -> int:
           'max_memory_allocated_bytes': peak, **fields})
     check(failure is None, f'flagship {failure}')
 
-    wall_ms, busy_ms, top = profile_device(
-        torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16))
+    wall_ms, busy_ms, top, rounds = profile_device(
+        torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16),
+        reset_counts, read_counts)
     emit({'phase': 'training profile', **card, 'steps': 16,
           'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
-          'device_busy_share': busy_ms / wall_ms, 'top_device_ms': top})
+          'device_busy_share': busy_ms / wall_ms, 'profile_rounds': rounds,
+          'top_device_ms': top})
 
     # -- the trained model as a snapshot, served ----------------------------
     # Each snapshot's served answers must be the model's own on the same
@@ -1598,11 +1739,13 @@ def main() -> int:
 
     def natgrad_profile(label):
         # One 16-step chunk (its terminal ELBO included) under the profiler.
-        wall_ms, busy_ms, top = profile_device(
-            torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16))
+        wall_ms, busy_ms, top, rounds = profile_device(
+            torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16),
+            reset_counts, read_counts)
         emit({'phase': f'natgrad training profile {label}', **card,
               'steps': 16, 'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
-              'device_busy_share': busy_ms / wall_ms, 'top_device_ms': top})
+              'device_busy_share': busy_ms / wall_ms,
+              'profile_rounds': rounds, 'top_device_ms': top})
 
     natgrad_profile('flagship')
     mflags = types.SimpleNamespace(**M1024, num_samples=TRAIN_SAMPLES)

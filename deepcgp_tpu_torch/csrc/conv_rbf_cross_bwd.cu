@@ -27,7 +27,11 @@
 // the flagship training step (N = 320 images of 10x10x10, f = 5, P = 36,
 // L = 250, M = 384) the recomputed cross products, T Z and T^T patches are
 // 3 x 2 N P M L = 6.6 GFLOP, the gram and its product 0.3 GFLOP, against
-// ~4 MB of inputs and outputs.  All float32 FMA, outside the tensor cores.
+// ~4 MB of inputs and outputs.  The image side's products are float32
+// FMA; the Z side's T^T patches (2 N P M L = 2.2 GFLOP: 0.033 ms at the
+// 67 TFLOP/s of float32 FMA, 0.0134 ms as split-TF32 tensor-core products,
+// 3 x 2.2 GFLOP at 495 TFLOP/s; reading T, 17.7 MB, takes 0.0053 ms)
+// run on the tensor cores in split TF32 (see csrc/conv_rbf_cross.cu).
 // The first design (one block of P/8 warps per image) ran the image side
 // at ~5 TFLOP/s: 320 blocks of 5 warps, two an SM by registers (175) and
 // shared memory (109 KB), left a ragged second wave of 56 blocks and 10
@@ -60,14 +64,38 @@
 //     run.  Per-(image, rank) partials of du, dwkd, dvar and dgamma go to
 //     device memory for the wrapper to sum.  conv_rbf_cross_bwd_image_traced
 //     stamps the phases of one block with clock64();
-//  2. Z side, blocks over (64 inducing rows, 128 patch elements, a chunk
-//     of images): dZ = sum T^T (2 Z - 2 patches) with an 8 x 4 register
-//     tile over T and patches staged per image in shared memory, and one
-//     float atomicAdd per output element per block (a few million in all).
-// All float32 FMA: no tensor cores.
+//  2. Z side, dZ = 2 (Z colsum T - T^T patches): a deep-K GEMM
+//     [M, N P] x [N P, L] (K = 11,520 at the flagship) in split-TF32
+//     mma.sync.m16n8k8 (the scheme of csrc/conv_rbf_cross.cu).  A block
+//     computes a 128 x 64 tile of dZ (L in 64-column tiles: 6 padded
+//     columns at L = 250, 20 at 300) over its share of the N P rows; a
+//     thread-block cluster of up to 16 blocks splits those rows
+//     (cuda_cross.z_side_cluster: 12 tiles x 16 = 192 blocks at the
+//     flagship).  8 warps, 4 x 2, each 32 x 32 (2 x 4 m16n8 tiles).  Rows
+//     of T (contiguous in Mpad) stream by 16-byte cp.async through a
+//     four-stage ring, chunk c + 3 issued before chunk c is computed; the
+//     patch elements of chunk c + 2 are loaded into registers after chunk
+//     c's products, a half-warp over 16 consecutive elements of a row (a
+//     first version gathered them by 4-byte cp.async into the ring).  The thread that staged or loaded an element splits it
+//     into (hi, lo) once, into double-buffered float2 tiles, and sums its
+//     T into colsum T on the way; one barrier a chunk.  The blocks of a
+//     cluster sum their parts over distributed shared memory in rank
+//     order, each rank its own rows of the tile, and write dZ: no atomics
+//     and no memset, the same bits every run.
+//     The first Z side (float32 FMA, 528 blocks of 64 rows x 128 columns x
+//     8 images) took two barriers and an unbuffered gather of T and the
+//     patches per image for 36 inner steps, and padded L = 250 to 256 in
+//     128-column tiles: latency-bound at 17.7 TFLOP/s.  What bounds this
+//     one: the tiles re-read their operands from L2 (T by 4 column tiles,
+//     the patches by 3 row tiles: ~106 MB at the flagship, against 17.7 MB
+//     of T), and the split and staging of them, as much as the products.
+//     ptxas (sm_90a): 102 registers, no spills; 88,832 bytes of dynamic
+//     shared memory: two blocks an SM.
+// The image side's products stay float32 FMA.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -80,8 +108,21 @@ constexpr int kMaxWarps = 16;  // 8 row groups (P <= 64) x 2 halves
 constexpr int kMaxCluster = 8; // blocks an image: a portable cluster
 constexpr int kStage = 2048;   // floats of Z a stage holds (8 KB)
 constexpr int kLC = kStage / kMT;  // rows of Z^T a cross-product stage holds
-constexpr int kZRows = 64;     // inducing rows per Z-side block (8 x 8)
+// The Z side: a block is a 128 x 64 tile of dZ over a k-range of the
+// flattened (image, patch) rows, 8 warps; a cluster splits the rows.
+constexpr int kZTM = 128;      // rows of Z a tile
+constexpr int kZTL = 64;       // patch elements a tile
+constexpr int kZKC = 16;       // (image, patch) rows a k-chunk
+constexpr int kZStages = 4;    // cp.async ring depth
 constexpr int kZThreads = 256;
+constexpr int kZLdT = kZTM + 4;  // split tiles (float2): conflict-free fragments
+constexpr int kZLdX = kZTL + 4;
+constexpr int kZLdR = kZTL + 4;
+constexpr int kZMaxCluster = 16;  // above 8: a non-portable cluster size
+constexpr int kZPipeFloats =
+    kZStages * kZKC * kZTM + 2 * kZKC * kZLdT * 2 + 2 * kZKC * kZLdX * 2;
+static_assert(kZPipeFloats >= kZTM * kZLdR, "the reduction tile aliases the ring");
+constexpr int kZSmemFloats = kZPipeFloats + kZTM + 8 * kZTM + kZTL;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kMaxDevices = 64;
 
@@ -115,6 +156,48 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 16 bytes, zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16z(float* smem, const float* gmem,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// (hi, lo) of a float32 x for the split-TF32 products: hi is x rounded to
+// TF32, to nearest with ties away from zero as cvt.rna.tf32.f32 rounds a
+// finite x, by two integer operations on the full-rate pipe (the
+// conversion instruction runs at a fraction of its rate); lo = x - hi is
+// exact, and the tensor cores read it truncated to TF32.  A NaN survives
+// in lo.
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const float hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+  return make_float2(hi, x - hi);
+}
+
+// The (hi, lo) of four values, stored as four float2.
+__device__ __forceinline__ void split_store4(float2* dst, float4 v) {
+  const float2 a = split_tf32(v.x), b = split_tf32(v.y), c = split_tf32(v.z),
+               d = split_tf32(v.w);
+  float4* o = reinterpret_cast<float4*>(dst);
+  o[0] = make_float4(a.x, a.y, b.x, b.y);
+  o[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// d += a b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Stage rows row0 .. row0 + rows - 1 of the first `width` columns of a
@@ -568,80 +651,234 @@ __global__ void __launch_bounds__(WIDE ? 512 : 320, WIDE ? 1 : 2)
 }
 
 
+// The Z side's k-chunk: 16 rows of the flattened (image, patch) axis.
+// A block's tile is 128 rows of Z by 64 patch elements; 8 warps, 4 x 2,
+// each 32 x 32 (2 x 4 mma tiles).  T [k][m] and the gathered patches
+// [k][l] stream through a three-stage cp.async ring and are split once,
+// by the thread that staged them, into double-buffered float2 tiles.
 __global__ void __launch_bounds__(kZThreads) bwd_z_kernel(
     const float* __restrict__ img, const float* __restrict__ Z,
     const float* __restrict__ Tg, float* __restrict__ dZ, int N, int H,
     int W, int C, int f, int stride, int dilation, int Hout, int Wout, int M,
-    int Mpad, int chunk) {
+    int Mpad) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  float* Traw = smem;                                  // [kZStages][kZKC][kZTM]
+  float2* Ts = reinterpret_cast<float2*>(Traw + kZStages * kZKC * kZTM);
+                                                       // [2][kZKC][kZLdT]
+  float2* Xs = Ts + 2 * kZKC * kZLdT;                  // [2][kZKC][kZLdX]
+  float* Rt = smem;                                    // [kZTM][kZLdR]: the
+                                                       //   block's T^T patches
+  float* csum = smem + kZPipeFloats;                   // [kZTM]: its colsum T
+  float* cpart = csum + kZTM;                          // [8][kZTM]
+  int* loffs = reinterpret_cast<int*>(cpart + 8 * kZTM);  // [kZTL]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int P = Hout * Wout;
   const int L = f * f * C;
-  const int Ppad = padded_rows(P);
-  float* Ts = smem;                                   // [Ppad][kZRows]
-  float* Xc = Ts + Ppad * kZRows;                     // [Ppad][kMT]
-  int* loff = reinterpret_cast<int*>(Xc + Ppad * kMT);  // [kMT]
-  int* poff = loff + kMT;                             // [Ppad]
+  const int HWC = H * W * C;
+  const int mt = Mpad / kZTM;
+  const int tile = blockIdx.x / S;
+  const int m0 = (tile % mt) * kZTM, l0 = (tile / mt) * kZTL;
+  const int K = N * P;   // rows of T [N P, Mpad]: far below 2^31
+  const int nkc = (K + kZKC - 1) / kZKC;
+  const int cpr = (nkc + S - 1) / S;
+  const int c0 = rank * cpr;
+  const int nk = max(0, min(nkc, c0 + cpr) - c0);
 
   const int tid = threadIdx.x;
-  const int w = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * kZRows, l0 = blockIdx.y * kMT;
-  const int n0 = blockIdx.z * chunk, n1 = min(N, n0 + chunk);
-  for (int t = tid; t < kMT; t += blockDim.x) {
-    const int l = l0 + t;
-    loff[t] = l < L ? patch_offset(l, f, C, W, dilation) : -1;
-  }
-  for (int p = tid; p < P; p += blockDim.x) {
-    const int oy = p / Wout, ox = p % Wout;
-    poff[p] = ((oy * stride) * W + ox * stride) * C;
-  }
+  const int w = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wr = w >> 1, wc = w & 1;           // 32 rows of Z, 32 columns
+  const int tk = tid >> 5, tm = 4 * (tid & 31);  // T: rows tk, tk + 8
+  const int xk = tid >> 4, xl = tid & 15;  // patches: row xk, columns
+                                           //   xl + 16 j
 
-  float acc[kRows][4], tsum[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    tsum[r] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+  for (int t = tid; t < kZTL; t += kZThreads) {
+    const int l = l0 + t;
+    loffs[t] = l < L ? patch_offset(l, f, C, W, dilation) : -1;
   }
-  const int HWC = H * W * C;
-  for (int n = n0; n < n1; ++n) {
-    __syncthreads();  // the tables are written; the previous image is used
-    for (int t = tid; t < P * kZRows; t += blockDim.x) {
-      const int p = t / kZRows, mm = t % kZRows;
-      Ts[t] = Tg[(static_cast<size_t>(n) * P + p) * Mpad + m0 + mm];
-    }
-    const float* x = img + static_cast<size_t>(n) * HWC;
-    for (int t = tid; t < P * kMT; t += blockDim.x) {
-      const int p = t / kMT, lo = loff[t % kMT];
-      Xc[t] = lo >= 0 ? x[poff[p] + lo] : 0.0f;
-    }
-    __syncthreads();
-    for (int p = 0; p < P; ++p) {
-      const float4 t0 = *reinterpret_cast<const float4*>(Ts + p * kZRows + 8 * w);
-      const float4 t1 = *reinterpret_cast<const float4*>(Ts + p * kZRows + 8 * w + 4);
-      const float4 xv = *reinterpret_cast<const float4*>(Xc + p * kMT + 4 * lane);
-      const float tr[kRows] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+  __syncthreads();
+
+  // Issue the rows of T of k-chunk c into ring slot c % kZStages, 16
+  // bytes a copy, as one group.
+  auto stage = [&](int c) {
+    float* Tr = Traw + (c % kZStages) * kZKC * kZTM;
+    const int kb = (c0 + c) * kZKC;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        tsum[r] += tr[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] += tr[r] * xs[j];
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int k = kb + tk + 8 * h;
+      cp_async16z(Tr + (tk + 8 * h) * kZTM + tm,
+                  k < K ? Tg + static_cast<size_t>(k) * Mpad + m0 + tm : Tg,
+                  k < K);
     }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int m = m0 + 8 * w + r;
-    if (m >= M) continue;
+    cp_async_commit();
+  };
+
+  // Load this thread's patch elements of k-chunk c into registers: a
+  // half-warp reads 16 consecutive elements of one patch row (runs of
+  // f C contiguous floats in the image).  Loads, not 4-byte cp.async:
+  // those made the gather the Z side's largest cost.
+  float xv[4];
+  auto load_x = [&](int c) {
+    const int k = (c0 + c) * kZKC + xk;
+    long long base = -1;
+    if (k < K) {
+      const int n = k / P, p = k - n * P;
+      const int oy = p / Wout, ox = p - oy * Wout;
+      base = static_cast<long long>(n) * HWC + (oy * stride * W + ox * stride) * C;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int l = l0 + 4 * lane + j;
-      if (l >= L) continue;
+      const int lo = loffs[xl + 16 * j];
+      xv[j] = base >= 0 && lo >= 0 ? __ldg(img + base + lo) : 0.0f;
+    }
+  };
+
+  // Split this thread's own elements of chunk c -- its staged T, whose
+  // values it adds into colsum T, and its loaded patch elements -- into
+  // the float2 tiles [c & 1].
+  float cs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  auto convert = [&](int c) {
+    const float* Tr = Traw + (c % kZStages) * kZKC * kZTM;
+    float2* Td = Ts + (c & 1) * kZKC * kZLdT;
+    float2* Xd = Xs + (c & 1) * kZKC * kZLdX;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(Tr + (tk + 8 * h) * kZTM + tm);
+      cs[0] += v.x;
+      cs[1] += v.y;
+      cs[2] += v.z;
+      cs[3] += v.w;
+      split_store4(Td + (tk + 8 * h) * kZLdT + tm, v);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      Xd[xk * kZLdX + xl + 16 * j] = split_tf32(xv[j]);
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // The ring: T of chunk c + kZStages - 1 is issued before chunk c is
+  // computed, chunk c + 1 is awaited and split after it, so three chunks
+  // of products cover each copy's latency; one barrier a chunk.
+  if (nk > 0) {
+#pragma unroll
+    for (int c = 0; c < kZStages - 1; ++c) {
+      if (c < nk) {
+        stage(c);
+      } else {
+        cp_async_commit();
+      }
+    }
+    load_x(0);
+    cp_async_wait<kZStages - 2>();
+    convert(0);
+    if (nk > 1) load_x(1);
+    __syncthreads();
+    for (int c = 0; c < nk; ++c) {
+      if (c + kZStages - 1 < nk) {
+        stage(c + kZStages - 1);
+      } else {
+        cp_async_commit();
+      }
+      const float2* A = Ts + (c & 1) * kZKC * kZLdT;  // A[m][k] = T[k][m]
+      const float2* B = Xs + (c & 1) * kZKC * kZLdX;  // B[k][l]
+#pragma unroll
+      for (int ks = 0; ks < kZKC; ks += 8) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2* a = A + (ks + t4) * kZLdT + wr * 32 + i * 16 + g8;
+          const float2 x0 = a[0], x1 = a[8], x2 = a[4 * kZLdT], x3 = a[4 * kZLdT + 8];
+          ah[i][0] = __float_as_uint(x0.x);
+          al[i][0] = __float_as_uint(x0.y);
+          ah[i][1] = __float_as_uint(x1.x);
+          al[i][1] = __float_as_uint(x1.y);
+          ah[i][2] = __float_as_uint(x2.x);
+          al[i][2] = __float_as_uint(x2.y);
+          ah[i][3] = __float_as_uint(x3.x);
+          al[i][3] = __float_as_uint(x3.y);
+        }
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2* b = B + (ks + t4) * kZLdX + wc * 32 + j * 8 + g8;
+          const float2 b0 = b[0], b1 = b[4 * kZLdX];
+          bh[j][0] = __float_as_uint(b0.x);
+          bl[j][0] = __float_as_uint(b0.y);
+          bh[j][1] = __float_as_uint(b1.x);
+          bl[j][1] = __float_as_uint(b1.y);
+        }
+        // The three passes over the eight tiles one after another, so
+        // that no mma waits on the one before it.
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const uint32_t(&a)[4] = pass == 0 ? al[i] : ah[i];
+              const uint32_t(&b)[2] = pass == 1 ? bl[j] : bh[j];
+              mma_tf32(acc[i][j], a, b[0], b[1]);
+            }
+      }
+      cp_async_wait<kZStages - 2>();  // this thread's copies of chunk c + 1
+      if (c + 1 < nk) convert(c + 1);
+      if (c + 2 < nk) load_x(c + 2);   // a whole chunk covers their latency
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    __syncthreads();               // every copy has landed: Rt aliases the ring
+  }
+
+  // The block's part: T^T patches into Rt, colsum T over its rows.
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wr * 32 + i * 16 + g8 + 8 * h;
+        const int l = wc * 32 + j * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(Rt + m * kZLdR + l) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cpart[tk * kZTM + tm + j] = cs[j];
+  __syncthreads();
+  if (tid < kZTM) {
+    float s = 0.0f;
+    for (int q = 0; q < 8; ++q) s += cpart[q * kZTM + tid];
+    csum[tid] = s;
+  }
+  cluster.sync();                  // every rank's part is written
+
+  // Rank r sums the rows m = r, r + S, ... of the tile over the cluster,
+  // in rank order, and writes them: dZ = 2 (Z colsum T - T^T patches).
+  const int own = (kZTM - rank + S - 1) / S;
+  for (int e = tid; e < own * kZTL; e += kZThreads) {
+    const int mm = rank + S * (e / kZTL), ll = e % kZTL;
+    float v = 0.0f, c = 0.0f;
+    for (int q = 0; q < S; ++q) {
+      v += cluster.map_shared_rank(Rt, q)[mm * kZLdR + ll];
+      c += cluster.map_shared_rank(csum, q)[mm];
+    }
+    const int m = m0 + mm, l = l0 + ll;
+    if (m < M && l < L) {
       const size_t i = static_cast<size_t>(m) * L + l;
-      atomicAdd(dZ + i, 2.0f * (Z[i] * tsum[r] - acc[r][j]));
+      dZ[i] = 2.0f * (Z[i] * c - v);
     }
   }
+  cluster.sync();                  // no rank reads another's memory after this
 }
 
 // Opt in to more dynamic shared memory than a launch gets by default, once
@@ -753,10 +990,8 @@ extern "C" int conv_rbf_cross_bwd_image_max_clusters(int P, int L, int Mpad) {
   }
 }
 
-extern "C" size_t conv_rbf_cross_bwd_z_smem_bytes(int P) {
-  const size_t Ppad = padded_rows(P);
-  return (Ppad * kZRows + Ppad * kMT) * sizeof(float) +
-         (kMT + Ppad) * sizeof(int);
+extern "C" size_t conv_rbf_cross_bwd_z_smem_bytes() {
+  return kZSmemFloats * sizeof(float);
 }
 
 // Image side.  img [N, H, W, C]; Zt [L, Mpad] = Z^T and Zp [Mpad, Lpad] = Z,
@@ -824,28 +1059,47 @@ extern "C" int conv_rbf_cross_bwd_image_traced(
                     stream);
 }
 
-// Z side.  img [N, H, W, C]; Z [M, L]; Tg from the image side.  Zeroes and
-// writes dZ [M, L], one block per (64 rows of Z, 128 patch elements,
-// `chunk` images).  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// Z side.  img [N, H, W, C]; Z [M, L]; Tg [N, P, Mpad] from the image
+// side (Mpad a multiple of 128).  Writes dZ [M, L]: a cluster of `cluster`
+// blocks (1-16) per 128 x 64 tile, each over its share of the N P rows,
+// summed over distributed shared memory in rank order, so dZ is the same
+// bits every run.  Launches on `stream`, allocates nothing, returns the
+// first CUDA error.
 extern "C" int conv_rbf_cross_bwd_z(const float* img, const float* Z,
                                     const float* Tg, float* dZ, int N, int H,
                                     int W, int C, int f, int stride,
-                                    int dilation, int M, int Mpad, int chunk,
+                                    int dilation, int M, int Mpad, int cluster,
                                     void* stream) {
   int Hout, Wout;
   out_dims(H, W, f, stride, dilation, &Hout, &Wout);
   const int L = f * f * C;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(dZ, 0, sizeof(float) * M * L, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = conv_rbf_cross_bwd_z_smem_bytes(Hout * Wout);
+  if (N < 1 || Hout < 1 || Wout < 1 || Mpad % kZTM || Mpad < M ||
+      cluster < 1 || cluster > kZMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = conv_rbf_cross_bwd_z_smem_bytes();
   static size_t opted[kMaxDevices] = {};
-  err = opt_in(bwd_z_kernel, smem, opted);
+  cudaError_t err = opt_in(bwd_z_kernel, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Mpad / kZRows, (L + kMT - 1) / kMT, (N + chunk - 1) / chunk);
-  bwd_z_kernel<<<grid, kZThreads, smem, s>>>(img, Z, Tg, dZ, N, H, W, C, f,
-                                             stride, dilation, Hout, Wout, M,
-                                             Mpad, chunk);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(bwd_z_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tiles = (Mpad / kZTM) * ((L + kZTL - 1) / kZTL);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * cluster);
+  cfg.blockDim = dim3(kZThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_z_kernel, img, Z, Tg, dZ, N, H, W, C, f,
+                           stride, dilation, Hout, Wout, M, Mpad);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,14 @@ patch tensor never reaches device memory; the backward keeps one [N, P, M]
 intermediate there (see the source).  :func:`fused_conv_rbf_cross` is the
 ``torch.autograd.Function`` that ties the two together, as JAX's custom
 VJP does: its forward saves only (images, Z, variance, gamma, u, wkd).
+
+K4 and K5's Z side run their products on the tensor cores in split TF32
+(3xTF32): each float32 operand x is split into hi = tf32(x) and
+lo = x - hi (which the tensor cores read truncated to TF32), and a
+product takes hi*hi + hi*lo + lo*hi with float32 accumulation.
+:func:`tf32_round`, :func:`matmul_3xtf32`, :func:`conv_rbf_cross_3xtf32`
+and :func:`bwd_dz_3xtf32` emulate that scheme in plain PyTorch, for the
+tests; nothing on a model's path calls them.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from deepcgp_tpu_torch.ops.patches import extract_patches, out_size, pixel_index
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
-# Inducing columns per kernel tile (kMT in the sources).
+# Inducing columns per tile of the backward's image side (kMT there).
 _MT = 128
 # The backward's image side: a cluster of blocks per image, one per column
 # tile of M (at most a portable cluster's 8), each with one or two warps
@@ -33,17 +41,63 @@ _MT = 128
 BWD_MAX_P = 64
 BWD_MAX_L = 4 * _MT
 BWD_MAX_CLUSTER = 8
-# Blocks the backward's Z side aims to put on the card (132 SMs x 4).
-_Z_SIDE_BLOCKS = 528
+# The forward (K4): a block computes a tile of 128 (image, patch) rows by
+# 128 inducing columns (or by the same 128 rows, for the Kdiag gram) over
+# k-chunks of 16 patch elements; its shared memory is the same at every
+# geometry (mirror of conv_rbf_cross_smem_bytes).
+FWD_ROWS = 128
+FWD_COLS = 128
+_FWD_KC, _FWD_STAGES = 16, 3
+FWD_SMEM = 4 * (_FWD_STAGES * FWD_ROWS * (_FWD_KC + 4)      # A, raw
+                + _FWD_STAGES * FWD_COLS * _FWD_KC          # B, raw
+                + 2 * FWD_COLS * (_FWD_KC + 4) * 2          # B, split
+                + FWD_COLS + 2 * FWD_ROWS                   # norms, row sums
+                + 4 * FWD_ROWS)                             # row tables
+# The backward's Z side: a block computes a tile of 128 inducing rows by 64
+# patch elements over k-chunks of 16 (image, patch) rows; a cluster of
+# blocks splits one tile's rows (mirror of conv_rbf_cross_bwd_z_smem_bytes).
+Z_TILE_M = 128
+Z_TILE_L = 64
+Z_KC = 16
+Z_MAX_CLUSTER = 16
+Z_SMEM = 4 * (4 * Z_KC * Z_TILE_M                           # T: raw ring
+              + 2 * Z_KC * (Z_TILE_M + 4) * 2               # T: split
+              + 2 * Z_KC * (Z_TILE_L + 4) * 2               # patches: split
+              + Z_TILE_M + 8 * Z_TILE_M + Z_TILE_L)         # colsums, offsets
 
 
-def smem_bytes(P: int, L: int) -> int:
-    """Shared memory of one forward block: the transposed patch matrix
-    [L, Ppad] plus norm and reduction buffers (mirror of
-    ``conv_rbf_cross_smem_bytes`` in the source)."""
+def envelope_bytes(P: int, L: int) -> int:
+    """The fused route's geometry envelope: the bytes of one image's patch
+    matrix [L, Ppad] with its norm and reduction buffers, which must fit
+    one block's shared memory (the rule the route has had since its first
+    forward kernel, the counterpart of the JAX gate's VMEM check).  The
+    tensor-core forward itself takes FWD_SMEM at every geometry."""
     Ppad = -(-P // 8) * 8
     warps = min(Ppad // 8, 8)
     return 4 * (L * Ppad + Ppad + _MT + warps * _MT)
+
+
+def fwd_group(P: int) -> int:
+    """Whole images a forward block takes: as many as fill its 128 rows
+    (P <= 128), else one image in row tiles of 128."""
+    return FWD_ROWS // P if P <= FWD_ROWS else 1
+
+
+def fwd_grid(N: int, P: int, M: int, with_kdiag: bool) -> tuple:
+    """(blocks along the images, blocks per image group) of a forward
+    launch: one block per 128-column tile of M, plus one for the Kdiag
+    gram."""
+    return -(-N // fwd_group(P)), -(-M // FWD_COLS) + int(with_kdiag)
+
+
+def z_side_cluster(N: int, P: int, M: int, L: int, sms: int = 132) -> int:
+    """Blocks of the backward's Z side that split one [128, 64] tile of dZ
+    along the N P (image, patch) rows, as one thread-block cluster: enough
+    to put two blocks on each SM, at most 16 (a non-portable cluster size
+    above 8) and at most one per k-chunk of 16 rows."""
+    tiles = (-(-M // _MT) * _MT // Z_TILE_M) * -(-L // Z_TILE_L)
+    chunks = -(-N * P // Z_KC)
+    return max(1, min(Z_MAX_CLUSTER, -(-2 * sms // tiles), chunks))
 
 
 def bwd_smem_bytes(P: int, L: int) -> int:
@@ -82,20 +136,23 @@ def _geometry(NHWC_X, filter_size, stride, dilation):
 
 
 def conv_rbf_cross_plain(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
-                         stride=1, dilation=1, with_kdiag=True):
+                         stride=1, dilation=1, with_kdiag=True,
+                         matmul=torch.matmul):
     """Plain PyTorch version of the forward kernel: im2col, distances, exp
     and the patch sums, materialized.  ``u`` and ``wkd`` are [P] in TF
-    patch order; Kdiag is zeros unless ``with_kdiag``."""
+    patch order; Kdiag is zeros unless ``with_kdiag``.  ``matmul`` forms
+    the two products (:func:`conv_rbf_cross_3xtf32` passes the split-TF32
+    emulation)."""
     patches = extract_patches(NHWC_X, filter_size, stride, dilation)  # [N,P,L]
     P = patches.shape[1]
     pn = patches.square().sum(-1)                                     # [N, P]
     zn = Z.square().sum(-1)                                           # [M]
-    D = pn[:, :, None] + zn - 2.0 * (patches @ Z.T)
+    D = pn[:, :, None] + zn - 2.0 * matmul(patches, Z.T)
     K = variance * torch.exp(gamma * D.clamp_min(0.0))
     kzx = torch.einsum('npm,p->nm', K, u)
     if not with_kdiag:
         return kzx, torch.zeros_like(kzx[:, 0])
-    G = patches @ patches.transpose(1, 2)
+    G = matmul(patches, patches.transpose(1, 2))
     E = pn[:, :, None] + pn[:, None, :] - 2.0 * G
     Kd = variance * torch.exp(gamma * E.clamp_min(0.0))
     W2 = wkd[:, None] * wkd[None, :] / (P * P)
@@ -157,6 +214,60 @@ def conv_rbf_cross_bwd_plain(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
     return dimg, dZ, dvar, dgamma, du, dwkd
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does; the result is float32
+    with its 13 low mantissa bits zero.  Subnormals round the same way;
+    +-inf and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) as the kernels split x: hi = :func:`tf32_round` (x); lo =
+    x - hi, exact in float32, as the tensor cores read it: truncated to
+    TF32.  hi + lo carries x to within 2^-21 of |x|."""
+    hi = tf32_round(x)
+    lo = x - hi
+    return hi, (lo.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32 as the kernels' split-TF32 tensor-core products
+    form it: lo*hi + hi*lo, then + hi*hi (each product of two TF32 values
+    is exact in float32; lo*lo, below 2^-21 of the terms, is dropped)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def conv_rbf_cross_3xtf32(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
+                          stride=1, dilation=1, with_kdiag=True):
+    """:func:`conv_rbf_cross_plain` with its two products (patches Z^T and
+    the Kdiag gram) in split TF32, as K4 forms them: the emulation the
+    tests hold against the float32 and float64 references."""
+    return conv_rbf_cross_plain(NHWC_X, Z, variance, gamma, u, wkd,
+                                filter_size, stride, dilation, with_kdiag,
+                                matmul_3xtf32)
+
+
+def bwd_dz_3xtf32(NHWC_X, Z, variance, gamma, u, filter_size, stride,
+                  dilation, dkzx):
+    """dZ of :func:`conv_rbf_cross_bwd_plain` with T^T patches in split
+    TF32, as K5's Z side forms it from the float32 T of the image side."""
+    patches = extract_patches(NHWC_X, filter_size, stride, dilation)  # [N,P,L]
+    N, P, L = patches.shape
+    pn = patches.square().sum(-1)
+    zn = Z.square().sum(-1)
+    D = pn[:, :, None] + zn - 2.0 * (patches @ Z.T)
+    K = variance * torch.exp(gamma * D.clamp_min(0.0))
+    T = (u[None, :, None] * dkzx[:, None, :] * K) * gamma * (D > 0).to(K.dtype)
+    T2 = T.reshape(N * P, -1)
+    return (-2.0 * matmul_3xtf32(T2.T, patches.reshape(N * P, L))
+            + 2.0 * Z * T2.sum(0)[:, None])
+
+
 # Per kind, (Z, Z._version, padded copy) of the last inducing matrix: a
 # served model passes the same Z on every call, and a training step reads
 # the same Z in its forward and backward, so each copy is built once.
@@ -184,8 +295,8 @@ def _padded_zt(Z):
 
 
 def _padded_z(Z):
-    """Z [Mpad, Lpad], zero-padded to whole tiles both ways (the backward's
-    image side reads its rows as float4s)."""
+    """Z [Mpad, Lpad], zero-padded to whole tiles both ways (the forward
+    and the backward's image side read its rows as float4s)."""
     def build(Z):
         M, L = Z.shape
         Zp = torch.zeros(-(-M // _MT) * _MT, -(-L // _MT) * _MT,
@@ -220,18 +331,20 @@ def _launch(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
             with_kdiag):
     N, H, W, C = NHWC_X.shape
     M = Z.shape[0]
-    Zt = _padded_zt(Z)
-    Mpad = Zt.shape[1]
+    Zp = _padded_z(Z)
+    Mpad, Lpad = Zp.shape
     kzx = torch.empty(N, M, dtype=Z.dtype, device=Z.device)
     kd = torch.empty(N, dtype=Z.dtype, device=Z.device)
     fn = cuda_build.function(
         'conv_rbf_cross', 'conv_rbf_cross',
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(Z.device).cuda_stream
-    cuda_build.check(fn(NHWC_X.data_ptr(), Zt.data_ptr(), scal.data_ptr(),
+    P = u.shape[0]
+    cuda_build.check(fn(NHWC_X.data_ptr(), Zp.data_ptr(), scal.data_ptr(),
                         u.data_ptr(), wkd.data_ptr(), kzx.data_ptr(),
                         kd.data_ptr(), N, H, W, C, filter_size, stride,
-                        dilation, M, Mpad, int(with_kdiag), stream),
+                        dilation, M, Mpad, Lpad, fwd_group(P),
+                        int(with_kdiag), stream),
                      'conv_rbf_cross')
     conv_rbf_cross.launches += 1
     return kzx, kd
@@ -245,7 +358,7 @@ def conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
     ``wkd`` = w are [P] in TF patch order.
 
     CUDA tensors launch the kernel (float32, contiguous, geometry within
-    one block's shared memory) or raise; CPU tensors take
+    :func:`envelope_bytes`) or raise; CPU tensors take
     :func:`conv_rbf_cross_plain`."""
     if NHWC_X.device.type == 'cpu':
         return conv_rbf_cross_plain(NHWC_X, Z, variance, gamma, u, wkd,
@@ -259,8 +372,9 @@ def conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
         raise ValueError(
             f'conv_rbf_cross: Z {tuple(Z.shape)}, u {tuple(u.shape)}, wkd '
             f'{tuple(wkd.shape)} do not fit P={P}, L={L}')
-    if P < 1 or smem_bytes(P, L) > SMEM_LIMIT:
-        raise ValueError(f'conv_rbf_cross: P={P}, L={L} does not fit one block')
+    if P < 1 or envelope_bytes(P, L) > SMEM_LIMIT:
+        raise ValueError(f'conv_rbf_cross: P={P}, L={L} is outside the '
+                         'fused route\'s envelope')
     scal = torch.stack([variance, gamma]).to(Z.device, torch.float32)
     return _launch(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
                    with_kdiag)
@@ -301,14 +415,14 @@ def _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
                            int(with_kdiag), stream),
                      'conv_rbf_cross_bwd_image')
     conv_rbf_cross_bwd.launches += 1
-    tiles = (Mpad // 64) * (-(-L // _MT))
-    chunk = -(-N // max(1, min(N, _Z_SIDE_BLOCKS // tiles)))
+    cluster = z_side_cluster(
+        N, P, M, L, torch.cuda.get_device_properties(dev).multi_processor_count)
     zside = cuda_build.function(
         'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_z',
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     cuda_build.check(zside(NHWC_X.data_ptr(), Z.data_ptr(), T.data_ptr(),
                            dZ.data_ptr(), N, H, W, C, filter_size, stride,
-                           dilation, M, Mpad, chunk, stream),
+                           dilation, M, Mpad, cluster, stream),
                      'conv_rbf_cross_bwd_z')
     conv_rbf_cross_bwd.launches += 1
     dvar, dgamma, du, dwkd = sum_bwd_partials(part, P)
@@ -390,8 +504,8 @@ def fused_conv_rbf_cross(NHWC_X, Z, variance, gamma, u, wkd, filter_size,
 
 def supported(kernel) -> bool:
     """Whether ``kernel`` (a patch-sum kernel) evaluates through the fused
-    path: scalar-lengthscale RBF base over a FullView whose patches fit one
-    forward block's shared memory.  Mirrors ``pallas_cross.kernel_supported``;
+    path: scalar-lengthscale RBF base over a FullView whose geometry lies
+    within :func:`envelope_bytes`.  Mirrors ``pallas_cross.kernel_supported``;
     the CUDA kernel takes any batch size, so there is no block rule.  The
     backward's narrower envelope is :func:`bwd_fits`."""
     from deepcgp_tpu_torch.models.base_kernels import RBF
@@ -403,7 +517,8 @@ def supported(kernel) -> bool:
     base = kernel.base_kernel
     return (isinstance(view, FullView) and isinstance(base, RBF)
             and base.raw_lengthscales.ndim == 0
-            and smem_bytes(view.patch_count, view.patch_length) <= SMEM_LIMIT)
+            and envelope_bytes(view.patch_count, view.patch_length)
+            <= SMEM_LIMIT)
 
 
 def fused_fits(kernel) -> bool:
@@ -429,7 +544,7 @@ def kzx_and_kdiag(kernel, Z, ND_X):
     if not supported(kernel):
         raise NotImplementedError(
             'the fused cross-covariance takes a scalar-lengthscale RBF over a '
-            'FullView that fits shared memory; evaluate other kernels through '
+            'FullView within its envelope; evaluate other kernels through '
             'kernel.Kzx_NM_and_Kdiag, which routes them unfused')
     view = kernel.view
     base = kernel.base_kernel

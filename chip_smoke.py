@@ -923,14 +923,41 @@ def k5_image_trace(torch, img, Z, variance, gamma, u, wkd, f, s, d,
     return {name: t[i + 1] - t[i] for i, name in enumerate(K5_PHASES)}
 
 
-def patches_phases(torch, dev, card: dict, rng) -> list:
+# K6's split as the launcher computes it (csrc/patches.cu
+# ``extract_patches_plan``), in the order of its plan[10].
+K6_PLAN_KEYS = ('sms', 'vec', 'kc', 'kr', 'tasks_y', 'tasks_per_image', 'bh',
+                'bw', 'staged', 'tasks')
+
+
+def k6_plan_on_card(img, out, f, s, d, grid) -> dict:
+    """K6's split for these tensors, from the library itself."""
+    from deepcgp_tpu_torch.ops import cuda_build
+    fn = cuda_build.function('patches', 'extract_patches_plan',
+                             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                             + [ctypes.c_void_p])
+    plan = (ctypes.c_longlong * len(K6_PLAN_KEYS))()
+    cuda_build.check(fn(img.data_ptr(), out.data_ptr(), img.shape[0],
+                        *img.shape[1:], f, s, d, *grid, plan),
+                     'extract_patches_plan')
+    return dict(zip(K6_PLAN_KEYS, plan))
+
+
+def patches_phases(torch, dev, card: dict, rng, new_rng) -> list:
     """K6 and K7 against their plain versions on the card, at the MNIST
     last layer ([32, 28, 28, 1], f5 s1 -> [32, 576, 25]), the CIFAR fm32
     last layer ([320, 10, 10, 32], f5 s1 -> [320, 36, 800]) and an odd
-    shape with stride and dilation 2 ([7, 9, 11, 3], f3).  K6 must equal
-    its plain version bit for bit (it moves values untouched), K7 lie
-    within 1e-6 of the largest magnitude (float32 sums in another order).
-    Each is timed by the profiler beside its plain version, its bytes
+    shape with stride and dilation 2 ([7, 9, 11, 3], f3), then, from
+    ``new_rng`` so that every earlier check keeps its inputs, the CIFAR
+    strides 2,1 last layer ([320, 14, 14, 10] -> [320, 100, 250]), MNIST
+    serving ([128, 28, 28, 1]), an image beyond a block's shared memory
+    ([4, 40, 40, 40], 256 KB) and fm32's geometry at N = 64 with both
+    tensors one float past 16-byte alignment (the kernels then move single
+    floats).  K6 must equal its plain version bit for bit (it moves values
+    untouched), K7 lie within 1e-6 of the largest magnitude (float32 sums
+    in another order) and give the same bits in two launches; K6's split,
+    as the launcher computes it, must equal ``cuda_patches.extract_plan``.
+    Each is timed by the profiler, back to back and with the L2
+    overwritten before each launch, beside its plain version, its bytes
     bound and the nearest library route: ``F.unfold`` / ``F.fold`` with
     the permutes that make their result equal to K6's / K7's (several
     calls, not one).  Returns the kernels-line entries of K6 and K7, at
@@ -940,7 +967,13 @@ def patches_phases(torch, dev, card: dict, rng) -> list:
     from deepcgp_tpu_torch.ops.patches import out_size
     shapes = (('mnist', 32, 28, 28, 1, 5, 1, 1),
               ('fm32', 320, 10, 10, 32, 5, 1, 1),
-              ('odd', 7, 9, 11, 3, 3, 2, 2))
+              ('odd', 7, 9, 11, 3, 3, 2, 2),
+              ('strides21', 320, 14, 14, 10, 5, 1, 1),
+              ('mnist serving', 128, 28, 28, 1, 5, 1, 1),
+              ('beyond smem', 4, 40, 40, 40, 5, 1, 1),
+              ('unaligned', 64, 10, 10, 32, 5, 1, 1))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush = torch.empty(2 ** 25, dtype=torch.float32, device=dev)  # 128 MiB
     k6 = {'name': 'extract_patches_transposed', 'route': 'cuda',
           'source': 'deepcgp_tpu_torch/csrc/patches.cu',
           'replaces': 'deepcgp_tpu/ops/pallas_patches.py:67',
@@ -949,21 +982,32 @@ def patches_phases(torch, dev, card: dict, rng) -> list:
           'source': 'deepcgp_tpu_torch/csrc/patches.cu',
           'replaces': 'deepcgp_tpu/ops/pallas_patches.py:201',
           'max_abs_err': 0.0}
-    for label, N, H, W, C, f, s, d in shapes:
+    for i, (label, N, H, W, C, f, s, d) in enumerate(shapes):
+        g_rng = rng if i < 3 else new_rng
         Hout, Wout = out_size(H, f, s, d), out_size(W, f, s, d)
         P, L = Hout * Wout, f * f * C
-        img = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
-                              device=dev)
-        g = torch.as_tensor(rng.randn(N, P, L), dtype=torch.float32,
-                            device=dev)
+        lead = 1 if label == 'unaligned' else 0
+
+        def tensor(*shape, g_rng=g_rng, lead=lead):
+            flat = torch.as_tensor(g_rng.randn(lead + int(np.prod(shape))),
+                                   dtype=torch.float32, device=dev)
+            return flat[lead:].view(*shape)
+
+        img, g = tensor(N, H, W, C), tensor(N, P, L)
         a6, a7 = (img, f, s, d), (g, (H, W, C), f, s, d)
         out = cp.extract_patches_transposed(*a6)
         back = cp.col2im_transposed(*a7)
+        again = cp.col2im_transposed(*a7)
         torch.cuda.synchronize()
         out_p = cp.extract_patches_transposed_plain(*a6)
         back_p = cp.col2im_transposed_plain(*a7)
         k6_equal = bool(torch.equal(out, out_p))
         k7_err = rel(back, back_p)
+        k7_same = bool(torch.equal(again, back))
+        plan = k6_plan_on_card(img, out, f, s, d, (Hout, Wout))
+        model = cp.extract_plan(N, (H, W, C), f, s, d, sms, cp.vector_width(
+            C, img.data_ptr(), out.data_ptr()))
+        plan_equal = all(plan[k] == model[k] for k in K6_PLAN_KEYS)
 
         def unfold(img=img, f=f, s=s, d=d, N=N, C=C, Hout=Hout, Wout=Wout):
             cols = F.unfold(img.permute(0, 3, 1, 2), f, dilation=d, stride=s)
@@ -979,32 +1023,53 @@ def patches_phases(torch, dev, card: dict, rng) -> list:
 
         lib_equal = bool(torch.equal(unfold(), out_p))
         lib_err = rel(fold(), back_p)
-        check(k6_equal and k7_err <= 1e-6 and lib_equal and lib_err <= 1e-6,
+        check(k6_equal and k7_err <= 1e-6 and k7_same and plan_equal
+              and lib_equal and lib_err <= 1e-6,
               f'K6/K7 {label}: K6 bit-equal {k6_equal}, K7 rel err {k7_err}, '
-              f'unfold route equal {lib_equal}, fold route rel err {lib_err}')
+              f'K7 bit-equal in two launches {k7_same}, K6 split {plan} vs '
+              f'the model {model}, unfold route equal {lib_equal}, fold '
+              f'route rel err {lib_err}')
         nbytes = 4 * (N * H * W * C + N * P * L)
         b6 = bound_ms(nbytes, 0)
         b7 = bound_ms(nbytes, N * P * L)          # one add per element
+        k6_ms = kernel_ms(torch, lambda: cp.extract_patches_transposed(*a6),
+                          'extract_transposed_kernel')
+        k7_ms = kernel_ms(torch, lambda: cp.col2im_transposed(*a7),
+                          'col2im_transposed_kernel')
+        # The same with the 50 MB L2 overwritten before every launch: fm32's
+        # and strides 2,1's working sets fit in it, so back-to-back launches
+        # read part of their input from L2.
+        k6_cold = kernel_ms(torch, lambda: (
+            flush.zero_(), cp.extract_patches_transposed(*a6)),
+            'extract_transposed_kernel')
+        k7_cold = kernel_ms(torch, lambda: (
+            flush.zero_(), cp.col2im_transposed(*a7)),
+            'col2im_transposed_kernel')
         line = {'phase': f'K6/K7 patches {label}', **card,
                 'geometry': dict(N=N, H=H, W=W, C=C, f=f, stride=s,
                                  dilation=d, P=P, L=L),
+                'unaligned_by_bytes': 4 * lead,
+                'k6_split': plan,
                 'k6_bit_equal': k6_equal,
                 'k7_max_rel_err': k7_err,
                 'k7_max_abs_err': float((back - back_p).abs().max()),
-                'tolerance': 'K6 bit-equal; K7 within 1e-6 of max|.|',
-                'k6_ms': kernel_ms(
-                    torch, lambda: cp.extract_patches_transposed(*a6),
-                    'extract_transposed_kernel'),
+                'k7_bit_equal_two_launches': k7_same,
+                'tolerance': 'K6 bit-equal; K7 within 1e-6 of max|.| and '
+                             'bit-equal run to run',
+                'k6_ms': k6_ms,
                 'k6_plain_ms': cuda_ms(
                     torch, lambda: cp.extract_patches_transposed_plain(*a6), 20),
                 'k6_library_ms': cuda_ms(torch, unfold, 20),
                 'k6_bound_ms': b6[0], 'k6_bound_by': b6[1],
-                'k7_ms': kernel_ms(torch, lambda: cp.col2im_transposed(*a7),
-                                   'col2im_transposed_kernel'),
+                'k6_fraction_of_bound': b6[0] / k6_ms,
+                'k6_cold_l2_ms': k6_cold,
+                'k7_ms': k7_ms,
                 'k7_plain_ms': cuda_ms(
                     torch, lambda: cp.col2im_transposed_plain(*a7), 20),
                 'k7_library_ms': cuda_ms(torch, fold, 20),
                 'k7_bound_ms': b7[0], 'k7_bound_by': b7[1],
+                'k7_fraction_of_bound': b7[0] / k7_ms,
+                'k7_cold_l2_ms': k7_cold,
                 'library_call': 'F.unfold + permute (K6), permute + F.fold + '
                                 'permute (K7): several calls, not one'}
         emit(line)
@@ -1512,7 +1577,9 @@ def main() -> int:
     kernels.append(k5)
 
     # -- K6 and K7: the unfused route's extraction and its col2im -----------
-    kernels += patches_phases(torch, dev, card, rng)
+    # The rows added with the staged K6 draw from a generator of their own.
+    kernels += patches_phases(torch, dev, card, rng,
+                              np.random.RandomState(args.seed + 3))
 
     # -- serving: the flagship through Predictor.from_run_dir ---------------
     with tempfile.TemporaryDirectory() as root:

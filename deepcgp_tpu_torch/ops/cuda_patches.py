@@ -9,6 +9,10 @@ Counterpart of ``deepcgp_tpu/ops/pallas_patches.py``.  Two kernels of
   patch in TF order (dy, dx, c);
 * :func:`col2im_transposed` (K7): its adjoint, [N, P, L] -> [N, H, W, C].
 
+K6 stages the band of pixels each block's piece of the output reads and
+streams the piece out in vectors; :func:`extract_plan` is its split of the
+work, in Python, for the tests and the card's check of the launcher's own.
+
 Only the patch order differs from ``ops.patches.extract_patches``: the
 [L]-indexed parameters (inducing patches Z, ARD lengthscales) need no
 permutation, and a [P]-indexed one (patch weights) is gathered with
@@ -54,6 +58,67 @@ def col2im_transposed_plain(g, image_shape, filter_size, stride=1,
     out = g.new_zeros(N, H * W * C)
     out.index_add_(1, idx, g.reshape(N, -1))
     return out.reshape(N, H, W, C)
+
+
+# K6's launch constants (csrc/patches.cu): threads a block, the most a
+# block stages, and the tasks an SM it aims for.
+THREADS = 256
+BAND_BYTES = 48 * 1024
+TASKS_PER_SM = 4
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def vector_width(C, *addresses):
+    """Floats a vector in K6 and K7: the largest of 4, 2, 1 that divides C
+    and the byte alignment of every address."""
+    for v in (4, 2):
+        if C % v == 0 and all(a % (4 * v) == 0 for a in addresses):
+            return v
+    return 1
+
+
+def extract_plan(N, image_shape, filter_size, stride, dilation, sms, vec):
+    """K6's split of N images (csrc/patches.cu ``extract_plan``): a task
+    is ``kc`` output columns (with ``kr`` = Hout) or ``kr`` rows of one
+    column (``kc`` = 1), task r of image n writing the output piece from
+    patch (r // tasks_y * kc) * Hout + r % tasks_y * kr; ``bh`` x ``bw``
+    is its staged band (``staged`` 0: read from the image instead), and
+    ``step`` the (ox, oy, dy, dx, c) that one pass of THREADS vectors adds."""
+    H, W, C = image_shape
+    f, s, d = filter_size, stride, dilation
+    Hout, Wout = _out_grid(image_shape, f, s, d)
+    reach = (f - 1) * d + 1
+
+    def band_bytes(kc, kr):
+        return ((kr - 1) * s + reach) * ((kc - 1) * s + reach) * C * 4
+
+    want = _ceil_div(TASKS_PER_SM * sms, N)
+    if want <= Wout:
+        kc, kr = _ceil_div(Wout, want), Hout
+    else:
+        kc, kr = 1, _ceil_div(Hout, min(Hout, _ceil_div(want, Wout)))
+    sc, sr = kc, kr
+    while band_bytes(sc, sr) > BAND_BYTES and (sc > 1 or sr > 1):
+        if sc > 1:
+            sc = (sc + 1) // 2
+        else:
+            sr = (sr + 1) // 2
+    staged = band_bytes(sc, sr) <= BAND_BYTES
+    bh = bw = 0
+    if staged:
+        kc, kr = sc, sr
+        bh, bw = (kr - 1) * s + reach, (kc - 1) * s + reach
+    tasks_y = _ceil_div(Hout, kr)
+    Cv = C // vec
+    dp, dl = divmod(THREADS, f * f * Cv)
+    return dict(sms=sms, vec=vec, kc=kc, kr=kr, tasks_y=tasks_y,
+                tasks_per_image=_ceil_div(Wout, kc) * tasks_y, bh=bh, bw=bw,
+                staged=int(staged), tasks=N * _ceil_div(Wout, kc) * tasks_y,
+                step=(dp // Hout, dp % Hout, dl // (f * Cv), dl % (f * Cv) // Cv,
+                      dl % Cv))
 
 
 def _check(what, x, ndim):

@@ -23,6 +23,8 @@ SHAPES = [
     (9, 11, 3, 3, 2, 2),     # odd sizes, stride+dilation
     (32, 32, 3, 5, 3, 1),    # CIFAR first layer
     (6, 6, 1, 3, 1, 2),      # dilation-only
+    (14, 14, 10, 5, 1, 1),   # CIFAR strides 2,1 last layer (C = 10)
+    (9, 8, 10, 3, 2, 1),     # C = 10, stride 2
 ]
 N = 3
 

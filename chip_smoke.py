@@ -9,8 +9,9 @@ Cholesky factor of a batch, one thread-block cluster a matrix) and K3 (the
 whole triangular inverse, by column strips) -- together the port's
 factor-plus-inverse in two launches -- at the old base shapes, the two
 Kuu route shapes [3, 384, 384] and [1, 1024, 1024] and the NatGrad
-solve's [20, 384, 384] and [10, 1024, 1024], K2 (the upper
-Cholesky-with-inverse base case of NatGrad's panel driver), K4 (fused
+solve's [20, 384, 384] and [10, 1024, 1024], K2 (the whole upper
+Cholesky factor of the NatGrad G, one cluster a matrix, read from G's
+lower triangle) at the solve's shapes up to [2, 2048, 2048], K4 (fused
 extraction -> RBF cross-covariance, its products on the tensor cores in
 split TF32) and K5 (its backward: the image side one thread-block cluster
 per image, the Z side in split TF32), each with its distance from a
@@ -28,16 +29,16 @@ weights or data from the seed):
   CIFAR-shaped data, as bench.py drives the JAX package, then the trained
   model saved as a snapshot and served;
 * NatGrad training of the same configuration (natural gradient on q_mu
-  and q_sqrt, its solve by K1 and K3 on the index-reversed G, Adam on the
+  and q_sqrt, its solve by K2 and K3 on G's lower triangle, Adam on the
   rest, gamma 0.001);
 
 and of the M=1024 MNIST-shaped configuration (28x28x1, no hidden layer, an
 ARD-RBF last layer over the 784 pixels, M=1024, batch 128, S=10, k-means++
-inducing points): NatGrad training through K1 and K3 at M = 1024 (Kuu and
-the solve), a short Adam run through the bf16 stochastic-rounding moment
-store, and five NatGrad steps at M = 1088, above K1's largest matrix,
-where the solve takes the K2 panel driver, and one step of it against the
-CPU.
+inducing points): NatGrad training through K1 and K3 at M = 1024 (Kuu)
+and K2 and K3 (the solve), a short Adam run through the bf16
+stochastic-rounding moment store, and five NatGrad steps at M = 1088,
+above K1's largest matrix, where the solve takes K2 on the whole G, one
+step of it against the CPU and 16 under the profiler.
 
 Then the unfused last-layer route, whose geometries the fused K4/K5 pair
 does not take: K6 (patch extraction in transposed order) and K7 (its
@@ -98,24 +99,24 @@ M1024 = dict(M='1024', feature_maps='', filter_sizes='5', strides='1',
 M1024_IMAGE, M1024_BATCH = (28, 28, 1), 128
 # Launches per NatGrad step and per run_chunk call (the terminal ELBO that
 # verifies a chunk's last commit), by kernel counter.
-# The NatGrad solve runs K1 and K3 on the index-reversed G (one each per
-# step) where K1 takes M, so K2 launches only above M = 1024: 17 a step at
-# M = 1088 (panel 64), where Kuu takes the library route.
+# The NatGrad solve runs K2 and K3 on G's lower triangle (one each per
+# step) at every M % 32 == 0 up to 2048; Kuu takes K1 and K3 up to
+# M = 1024 and the library route at M = 1088.
 NATGRAD_PER_STEP = {
-    'flagship': {'chol_inv_base': 2, 'chol_inv_base_upper': 0,
+    'flagship': {'chol_inv_base': 1, 'chol_inv_base_upper': 1,
                  'tri_inv_base': 2, 'conv_rbf_cross': 1,
                  'conv_rbf_cross_bwd': 2},
-    'm1024': {'chol_inv_base': 2, 'chol_inv_base_upper': 0, 'tri_inv_base': 2,
+    'm1024': {'chol_inv_base': 1, 'chol_inv_base_upper': 1, 'tri_inv_base': 2,
               'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0},
-    'm1088': {'chol_inv_base_upper': 17}}
+    'm1088': {'chol_inv_base_upper': 1, 'tri_inv_base': 1}}
 NATGRAD_PER_CHUNK = {
     'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1},
     'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
     'm1088': {}}
 # NatGrad above K1's largest matrix: the M=1024 configuration at M = 1088.
 # No configuration of the repo goes past M = 1024 (BASELINE.md's sweep ends
-# there); this path drives the K2 panel driver, the NatGrad solve's route
-# above K1's largest matrix, through the trainer.
+# there); this path drives K2 beyond K1's largest matrix through the
+# trainer, and Kuu through the library route.
 M1088 = dict(M1024, M='1088')
 # The unfused route's configurations (examples/mnist_parity.py --m1024, and
 # BASELINE.md's CIFAR fm32 sweep point), their launches per Adam step, and
@@ -215,7 +216,7 @@ def kernel_ms(torch, fn, kernel: str, iters: int = 50,
 
 # The device kernels each launch counter counts, by name in the profiler.
 KERNEL_NAMES = {'chol_inv_base': ('chol_factor_cluster_kernel',),
-                'chol_inv_base_upper': ('chol_inv_upper_kernel',),
+                'chol_inv_base_upper': ('chol_upper_cluster_kernel',),
                 'tri_inv_base': ('tri_inv_strip_kernel',),
                 'conv_rbf_cross': ('conv_rbf_cross_kernel',),
                 'conv_rbf_cross_bwd': ('bwd_image_kernel', 'bwd_z_kernel'),
@@ -270,6 +271,12 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def k2_bound_ms(b: int, M: int):
+    """K2's bound on [b, M, M]: G's lower triangle read once, Lf and Dinv
+    ([b, M/32, 32, 32]) written once, against b M^3 / 3 operations."""
+    return bound_ms(4 * b * (M * (M + 1) // 2 + M * M + M * 32), b * M ** 3 / 3)
 
 
 def rel(a, b) -> float:
@@ -538,31 +545,114 @@ def k1_k3_phases(torch, dev, card: dict, rng, aux, Kuu) -> list:
     return [k1, k3]
 
 
-def base_case_phases(torch, dev, card: dict, rng) -> list:
-    """K2 at [20, 64, 64] and [10, 128, 128] against its plain version
-    (float32, 1e-5 of the largest magnitude), its non-PD element NaN in
-    that element only, timed by the profiler beside the plain version, one
-    library call and its bound.  Then the drivers at the main paths'
-    shapes against float64 references: the NatGrad solve by its reversed
-    route (K1 then K3), the K2 panel driver and two library forms at
-    [20, 384, 384] and [10, 1024, 1024], the panel driver at
-    [2, 1088, 1088], and ``chol_with_inv`` (K1 then K3) at [1024, 1024]
-    and [3, 384, 384], each timed beside the library.
-    Returns the kernels-line entry of K2."""
-    from deepcgp_tpu_torch.ops import cuda_linalg as cl
-    from deepcgp_tpu_torch.ops import linalg
-    tol = 1e-5
-    tolerance = ('relative to max|.|: factor and inverse <= 1e-5 of the '
-                 'plain version, reconstruction <= 5e-6')
+# K2's whole-factor shapes: the NatGrad solve's G on the flagship
+# ([20, 384, 384]), M=1024 ([10, 1024, 1024]) and M=1088 ([10, 1088, 1088])
+# paths, and [2, 1088, 1088] and [2, 2048, 2048] beyond K1's largest
+# matrix (inputs from the ``aux`` generator).
+K2_SHAPES = ((20, 384), (10, 1024), (2, 1088), (10, 1088), (2, 2048))
+K2_TOLERANCE = ('relative to max|.|: factor and Dinv <= 1e-5 of the plain '
+                'version on the same inputs; R R^T against G and the solve '
+                'W R^-T against float64 <= 1e-4; bit-equal with garbage '
+                'above the diagonal, and to K1 on J G J (M <= 1024)')
 
+
+def k2_phases(torch, dev, card: dict, rng, aux) -> list:
+    """K2 (the whole upper factor, one cluster a matrix, from G's lower
+    triangle) at K2_SHAPES: against its plain version and float64, bit-equal
+    with garbage above G's diagonal and to K1 on J G J, a non-PD element NaN
+    in that element only; timed by the profiler beside its plain version,
+    ``torch.linalg.cholesky`` of the flipped matrix and its bound; K3 at
+    [2, 2048, 2048] against its plain version.  Then the upper base case
+    (K2 then K3 on a block, the JAX signature the panel driver calls) at
+    [20, 64, 64] and [10, 128, 128].  Returns the kernels-line entry of K2,
+    at [10, 1024, 1024]."""
+    from deepcgp_tpu_torch.ops import cuda_linalg as cl
     k2 = {'name': 'chol_inv_base_upper', 'route': 'cuda',
           'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
-          'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:135'}
+          'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:135', 'max_abs_err': 0.0}
+    for b, M in K2_SHAPES:
+        D = spd_batch(torch, aux, b, M, dev)
+        G = torch.tril(D)
+        Gg = G + torch.triu(torch.randn(b, M, M, device=dev) * 1e3, 1)
+        X = torch.tril(spd_batch(torch, aux, b, M, dev))
+        Lf, Dv = cl.chol_upper_blocked(G)
+        torch.cuda.synchronize()
+        Lp, Dp = cl.chol_upper_blocked_plain(G)
+        err = {'Lf': rel(Lf, Lp), 'Dinv': rel(Dv, Dp)}
+        garbage = all(torch.equal(a, c) for a, c in zip(
+            cl.chol_upper_blocked(Gg), (Lf, Dv)))
+        k1_equal = None
+        if M <= cl.MAX_M:
+            k1_equal = all(torch.equal(a, c) for a, c in zip(
+                cl.chol_factor_blocked(cl.reversed_sym_from_tril(G)), (Lf, Dv)))
+        R = Lf.double().flip(-1, -2)
+        Dd = D.double().cpu()
+        recon = rel((R @ R.transpose(-1, -2)).cpu(), Dd)
+        Rd = torch.linalg.cholesky(Dd.flip(-1, -2)).flip(-1, -2)
+        Yref = torch.linalg.solve_triangular(Rd.transpose(-1, -2),
+                                             X.double().cpu(), upper=False,
+                                             left=False)
+        solve = rel(cl.chol_right_solve_reversed(G, X).double().cpu(), Yref)
+        pair = G if b > 1 else G.expand(2, M, M)
+        bad = pair.clone()
+        bad[1] = -torch.eye(M, device=dev)
+        Lb, Db = cl.chol_upper_blocked(bad)
+        rest = [i for i in range(bad.shape[0]) if i != 1]
+        alone = Lf if b > 1 else Lf.expand(2, M, M)
+        nan_ok = (not finite(torch, Lb[1]) and not finite(torch, Db[1])
+                  and bool(torch.equal(Lb[rest], alone[rest])))
+        check(max(err.values()) <= 1e-5 and recon <= 1e-4 and solve <= 1e-4
+              and garbage and k1_equal in (None, True) and nan_ok,
+              f'K2 [{b},{M},{M}]: vs plain {err}, R R^T vs float64 {recon}, '
+              f'solve vs float64 {solve}, garbage above the diagonal '
+              f'changes nothing {garbage}, equal to K1 on J G J {k1_equal}, '
+              f'non-PD NaN in its element only {nan_ok}')
+        Gf = D.flip(-1, -2)
+        bnd, by = k2_bound_ms(b, M)
+        line = {'phase': 'K2 chol_upper_blocked', **card, 'shape': [b, M, M],
+                'cluster_blocks': cl._upper_cluster(M, b),
+                'smem_bytes': cl.upper_plan(
+                    M, cl._upper_cluster(M, b))['smem_bytes'],
+                'rel_err_vs_plain': err, 'recon_rel_err_vs_f64': recon,
+                'solve_rel_err_vs_f64': solve,
+                'garbage_above_diagonal_bit_equal': garbage,
+                'bit_equal_to_k1_on_reversed': k1_equal,
+                'non_pd_gives_nan': nan_ok, 'tolerance': K2_TOLERANCE,
+                'ms': kernel_ms(torch, lambda: cl.chol_upper_blocked(G),
+                                'chol_upper_cluster_kernel'),
+                'call_ms': cuda_ms(torch, lambda: cl.chol_upper_blocked(G), 20),
+                'plain_ms': cuda_ms(
+                    torch, lambda: cl.chol_upper_blocked_plain(G), 2),
+                'library_ms': cuda_ms(
+                    torch, lambda: torch.linalg.cholesky(Gf), 20),
+                'library_call': 'torch.linalg.cholesky of the flipped matrix',
+                'bound_ms': bnd, 'bound_by': by}
+        if (b, M) == (2, 2048):
+            # K3 at its new largest matrix, with and without K2's Dinv.
+            Xi, X0 = cl.tri_inv_blocked(Lf, Dv), cl.tri_inv_blocked(Lf)
+            torch.cuda.synchronize()
+            k3_err = {'X': rel(Xi, cl.tri_inv_blocked_plain(Lf, Dv)),
+                      'X_without_Dinv': rel(X0, cl.tri_inv_blocked_plain(Lf))}
+            check(max(k3_err.values()) <= 1e-5, f'K3 [2,2048,2048]: {k3_err}')
+            line.update(k3_rel_err_vs_plain=k3_err, k3_ms=kernel_ms(
+                torch, lambda: cl.tri_inv_blocked(Lf, Dv),
+                'tri_inv_strip_kernel'))
+        emit(line)
+        k2['max_abs_err'] = max(k2['max_abs_err'], float(max(
+            (Lf - Lp).abs().max(), (Dv - Dp).abs().max())))
+        if (b, M) == (10, 1024):
+            k2.update({key: line[key] for key in (
+                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')},
+                shape=[b, M, M])
+
+    # The upper base case of the JAX signature, [b, P, P] -> (R, R^-1):
+    # K2 then K3 on the block, at the old base shapes.
     for b, P in ((20, 64), (10, 128)):
         D = spd_batch(torch, rng, b, P, dev)
         R, Ri = cl.chol_inv_base_upper(D)
         torch.cuda.synchronize()
-        Rp, Rip = cl.chol_inv_base_upper_plain(D)
+        Lp, Dp = cl.chol_upper_blocked_plain(D)
+        Rp, Rip = Lp.flip(-1, -2), cl.tri_inv_blocked_plain(Lp, Dp).flip(-1, -2)
         eR, eRi = rel(R, Rp), rel(Ri, Rip)
         recon = float(torch.linalg.matrix_norm(R @ R.transpose(1, 2) - D).max()
                       / torch.linalg.matrix_norm(D).min())
@@ -574,47 +664,50 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
         rest = [i for i in range(b) if i != 1]
         nan_ok = (not finite(torch, Rb[1]) and not finite(torch, Rib[1])
                   and finite(torch, Rb[rest]) and finite(torch, Rib[rest]))
-        check(eR <= tol and eRi <= tol and recon <= 5e-6 and upper and nan_ok,
-              f'K2 [{b},{P},{P}]: dR {eR}, dRinv {eRi}, recon {recon}, '
-              f'upper {upper}, non-PD NaN in its element only {nan_ok}')
+        check(eR <= 1e-5 and eRi <= 1e-5 and recon <= 5e-6 and upper and nan_ok,
+              f'K2 + K3 base [{b},{P},{P}]: dR {eR}, dRinv {eRi}, recon '
+              f'{recon}, upper {upper}, non-PD NaN in its element only {nan_ok}')
         Df = D.flip(-1, -2)
         eyeb = torch.eye(P, device=dev).expand(b, P, P)
-        err = float(max((R - Rp).abs().max(), (Ri - Rip).abs().max()))
-        bnd, by = bound_ms(3 * 4 * b * P * P, b * 2 * P ** 3 / 3)
-        line = {'phase': 'K2 chol_inv_base_upper', **card, 'shape': [b, P, P],
-                'max_rel_err_R': eR, 'max_rel_err_Rinv': eRi,
-                'recon_rel_err': recon, 'non_pd_gives_nan': nan_ok,
-                'tolerance': tolerance,
-                'ms': kernel_ms(torch, lambda: cl.chol_inv_base_upper(D),
-                                'chol_inv_upper_kernel'),
-                'call_ms': cuda_ms(torch, lambda: cl.chol_inv_base_upper(D), 200),
-                'plain_ms': cuda_ms(torch, lambda: cl.chol_inv_base_upper_plain(D), 5),
-                'library_ms': cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-                    torch.linalg.cholesky(Df), eyeb, upper=False), 50),
-                'library_call': 'torch.linalg.cholesky of the index-reversed '
-                                'matrix + solve_triangular',
-                'bound_ms': bnd, 'bound_by': by}
-        emit(line)
-        if 'ms' not in k2:
-            k2.update({key: line[key] for key in ('shape', 'ms', 'plain_ms',
-                                                   'bound_ms', 'bound_by',
-                                                   'library_ms')},
-                      max_abs_err=err)
-        k2['max_abs_err'] = max(k2['max_abs_err'], err)
+        bnd, by = k2_bound_ms(b, P)        # 'ms' times K2 alone
+        emit({'phase': 'K2 chol_inv_base_upper', **card, 'shape': [b, P, P],
+              'max_rel_err_R': eR, 'max_rel_err_Rinv': eRi,
+              'recon_rel_err': recon, 'non_pd_gives_nan': nan_ok,
+              'tolerance': 'relative to max|.|: R and R^-1 <= 1e-5 of the '
+                           'plain versions, reconstruction <= 5e-6',
+              'ms': kernel_ms(torch, lambda: cl.chol_upper_blocked(D),
+                              'chol_upper_cluster_kernel'),
+              'call_ms': cuda_ms(torch, lambda: cl.chol_inv_base_upper(D), 200),
+              'plain_ms': cuda_ms(
+                  torch, lambda: cl.chol_upper_blocked_plain(D), 5),
+              'library_ms': cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+                  torch.linalg.cholesky(Df), eyeb, upper=False), 50),
+              'library_call': 'torch.linalg.cholesky of the index-reversed '
+                              'matrix + solve_triangular (call_ms: K2 + K3)',
+              'bound_ms': bnd, 'bound_by': by})
+    return [k2]
 
-    # The NatGrad solve Y = W R^-T at the main paths' shapes ([20, 384, 384]
-    # flagship, [10, 1024, 1024] M=1024), against float64: the reversed
-    # route (K1 and K3 on J G J, one product), the K2 panel driver called
-    # explicitly, and the library in two forms, all in the same call.  G is
-    # passed as natgrad_update builds it (its lower triangle, zeros above)
-    # and with garbage above the diagonal: the kernel routes must not see
-    # the difference.  Then the panel driver above K1's largest matrix.
+
+def driver_phases(torch, dev, card: dict, rng, aux) -> None:
+    """The NatGrad solve W R^-T against float64 at the main paths' shapes
+    ([20, 384, 384] flagship, [10, 1024, 1024] M=1024) and beyond K1's
+    largest matrix ([2, 1088, 1088], [2, 2048, 2048], and [1, 3072, 3072]
+    beyond K2's, by the panel driver at panel 1024): by its route, by the
+    other kernel routes where they take the shape (K1 on J G J, the panel
+    driver called explicitly) and by two library forms, each timed in
+    turns (forward, then backward) in the same call; G passed as its lower
+    triangle and with garbage above the diagonal.  Then ``chol_with_inv``
+    (K1 then K3) at [1024, 1024] and [3, 384, 384] beside the library."""
+    from deepcgp_tpu_torch.ops import cuda_linalg as cl
+    from deepcgp_tpu_torch.ops import linalg
     drivers = {}
-    for b, M, panel in ((20, 384, 64), (10, 1024, 128), (2, 1088, 64)):
-        G = spd_batch(torch, rng, b, M, dev)
+    for b, M, panel, gen in ((20, 384, 64, rng), (10, 1024, 128, rng),
+                             (2, 1088, 64, rng), (2, 2048, None, aux),
+                             (1, 3072, 1024, aux)):
+        G = spd_batch(torch, gen, b, M, dev)
         Gt = torch.tril(G)
         Gg = Gt + torch.triu(torch.randn(b, M, M, device=dev) * 1e3, 1)
-        W = torch.tril(spd_batch(torch, rng, b, M, dev))
+        W = torch.tril(spd_batch(torch, gen, b, M, dev))
         Gd, Wd = G.double().cpu(), W.double().cpu()
         Rd = torch.linalg.cholesky(Gd.flip(-1, -2)).flip(-1, -2)
         Yref = torch.linalg.solve_triangular(Rd.transpose(-1, -2), Wd,
@@ -622,8 +715,15 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
         Gf = G.flip(-1, -2)
         eyeM = torch.eye(M, device=dev).expand(b, M, M)
 
+        def route(G=Gt, W=W):
+            return cl.chol_right_solve_upper(G, W)
+
         def reversed_route(G=Gt, W=W):
-            return cl.chol_right_solve_reversed(G, W)
+            # The route up to M = 1024 before K2 took the whole matrix:
+            # J G J built first, then K1, K3 and the product.
+            Lf, Dinv = cl.chol_factor_blocked(cl.reversed_sym_from_tril(G))
+            Lfinv = cl.tri_inv_blocked(Lf, Dinv)
+            return W @ Lfinv.flip(-1, -2).transpose(-1, -2)
 
         def panels(G=Gt, W=W, p=panel):
             return cl.chol_right_solve_upper_panels(G, W, panel=p)
@@ -637,12 +737,16 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
             Lf = torch.linalg.cholesky(Gf)          # R^T = J Lf^T J, lower
             return torch.linalg.solve_triangular(
                 Lf.transpose(-1, -2).flip(-1, -2), W, upper=False, left=False)
-        forms = {'panels': panels, 'library_inverse': library_inverse,
-                 'library_solve': library_solve}
+        kind = cl.upper_route(M)[0]
+        forms = {kind: route}
         if M <= cl.MAX_M:
-            forms = {'reversed': reversed_route, **forms}
-        entry = {'shape': [b, M, M], 'panel': panel, 'rel_err_vs_f64': {},
-                 'launches_per_call': {}, 'tril_only_equals_garbage': {}}
+            forms['reversed'] = reversed_route
+        if panel and kind != 'panels':
+            forms['panels'] = panels
+        forms.update(library_inverse=library_inverse, library_solve=library_solve)
+        entry = {'shape': [b, M, M], 'route': kind, 'panel': panel,
+                 'rel_err_vs_f64': {}, 'launches_per_call': {},
+                 'tril_only_equals_garbage': {}}
         for name, fn in forms.items():
             before = (cl.chol_inv_base.launches, cl.tri_inv_base.launches,
                       cl.chol_inv_base_upper.launches)
@@ -653,23 +757,34 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
             entry['launches_per_call'][name] = dict(zip(
                 ('K1', 'K3', 'K2'), (a - b0 for a, b0 in zip(after, before))))
             entry['rel_err_vs_f64'][name] = rel(Y.double().cpu(), Yref)
-            if name in ('reversed', 'panels'):
+            if not name.startswith('library'):
                 entry['tril_only_equals_garbage'][name] = bool(torch.equal(
                     fn(G=Gg), Y))
-        for name, fn in forms.items():
-            entry[f'{name}_ms'] = cuda_ms(torch, fn, 10 if M < 1024 else 5)
+        # Each form timed twice, in turns: forward order, then backward.
+        iters = 10 if M < 1024 else 5
+        order = list(forms)
+        for name in order + order[::-1]:
+            entry.setdefault(f'{name}_ms_runs', []).append(
+                cuda_ms(torch, forms[name], iters))
+        for name in order:
+            entry[f'{name}_ms'] = float(np.mean(entry[f'{name}_ms_runs']))
         entry['library_ms'] = min(entry['library_inverse_ms'],
                                   entry['library_solve_ms'])
-        # What the function needs: the factor B M^3 / 3 and the solve
-        # B N M^2 (N = M), each input read and the output written once.
-        entry['bound_ms'], entry['bound_by'] = bound_ms(
-            4 * 3 * b * M * M, b * M ** 3 / 3 + b * M ** 3)
+        entry['route_over_library'] = entry[f'{kind}_ms'] / entry['library_ms']
         if 'reversed' in forms:
-            entry['route_over_library'] = entry['reversed_ms'] / entry['library_ms']
+            entry['route_over_reversed'] = (entry[f'{kind}_ms']
+                                            / entry['reversed_ms'])
+        # What the function needs: the factor B M^3 / 3 and the solve
+        # B N M^2 (N = M); G's lower triangle and W read once, the output
+        # written once.
+        entry['bound_ms'], entry['bound_by'] = bound_ms(
+            4 * b * (M * (M + 1) // 2 + 2 * M * M), b * M ** 3 / 3 + b * M ** 3)
         label = f'natgrad solve {b}x{M}'
         drivers[label] = entry
-        expected = {'reversed': {'K1': 1, 'K3': 1, 'K2': 0},
-                    'panels': {'K1': 0, 'K3': 0, 'K2': M // panel}}
+        expected = {'upper': {'K1': 0, 'K3': 1, 'K2': 1},
+                    'reversed': {'K1': 1, 'K3': 1, 'K2': 0},
+                    'panels': {'K1': 0, 'K3': M // (panel or M),
+                               'K2': M // (panel or M)}}
         check(max(entry['rel_err_vs_f64'].values()) <= 1e-4
               and all(entry['tril_only_equals_garbage'].values())
               and all(entry['launches_per_call'][k] == v
@@ -697,12 +812,12 @@ def base_case_phases(torch, dev, card: dict, rng) -> list:
           'tolerance': 'relative to max|.| of the float64 result: 1e-4; '
                        'the kernel routes bit-equal with G tril-only and '
                        'with garbage above the diagonal; launches per call '
-                       'exactly 1 K1 + 1 K3 (reversed), M/panel K2 (panels)',
+                       'exactly 1 K2 + 1 K3 (upper), 1 K1 + 1 K3 '
+                       '(reversed), M/panel K2 and K3 (panels)',
           'library_call': 'torch.linalg.cholesky of J G J, then '
                           'solve_triangular(L, I) and the product W R^-T '
                           '(library_inverse) or solve_triangular on W '
                           '(library_solve); library_ms is the faster'})
-    return [k2]
 
 
 def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
@@ -1332,6 +1447,8 @@ def main() -> int:
     # generator of their own, so that every other check keeps the inputs
     # that the seed's stream gave it before they were added.
     aux = np.random.RandomState(args.seed + 1)
+    # And those of K2's whole-factor shapes and the solve beyond M = 1088.
+    k2_rng = np.random.RandomState(args.seed + 2)
     rbfs = [RBF.create(5.0, ls, device=dev) for ls in LENGTHSCALES]
     snapshot = flagship_snapshot(args.seed)
     Zs = [torch.as_tensor(snapshot[f'DGP/layers/{i}/feature/Z'],
@@ -1363,8 +1480,9 @@ def main() -> int:
                        'solve_triangular: dL <= 2e-5, dLinv <= 6e-5; '
                        'reconstruction <= 1e-5'})
 
-    # -- K2 and the drivers around it ------------------------------------------
-    kernels += base_case_phases(torch, dev, card, rng)
+    # -- K2, the whole upper factor, and the NatGrad solve's routes ---------
+    kernels += k2_phases(torch, dev, card, rng, k2_rng)
+    driver_phases(torch, dev, card, rng, k2_rng)
 
     # -- K4: fused extraction -> RBF cross-covariance ------------------------
     var = rbfs[1].variance
@@ -1825,15 +1943,19 @@ def main() -> int:
     path_launches['m1024_adam'] = m1024_adam(torch, fresh, args.seed, rng, dev,
                                              card, reset_counts, read_counts)
     del fresh
-    # NatGrad above K1's largest matrix (M = 1088): the solve takes the K2
-    # panel driver, Kuu the library; two warm-up steps and one 3-step chunk.
-    check(optim.natgrad_route(torch.float32, 1088) == 'panels',
-          'M = 1088 does not take the K2 panel driver')
-    path_launches['m1088_natgrad'] = natgrad_training(
+    # NatGrad above K1's largest matrix (M = 1088): the solve takes K2 on
+    # the whole G, Kuu the library; two warm-up steps and one 3-step chunk,
+    # then 16 steps under the profiler.
+    check(optim.natgrad_route(torch.float32, 1088) == 'upper',
+          'M = 1088 does not take K2')
+    state, config, Xd, Yd, launches, _ = natgrad_training(
         torch, 'm1088',
         types.SimpleNamespace(**M1088, num_samples=TRAIN_SAMPLES), M1024_IMAGE,
         M1024_BATCH, args.seed, rng, dev, card, reset_counts, read_counts,
-        2, 3, 0.0, noise_rng=aux)[4]
+        2, 3, 0.0, noise_rng=aux)
+    path_launches['m1088_natgrad'] = launches
+    natgrad_profile('m1088')
+    del state, Xd, Yd
 
     # -- the unfused route: MNIST's single-layer ConvKernel, CIFAR fm32 -----
     state, launches = unfused_adam(torch, 'mnist_conv', MNIST_CONV,

@@ -2,15 +2,20 @@
 //   chol_factor_blocked:  A [b, M, M] SPD -> L lower (L L^T = A) and the
 //                         inverses of its M/32 diagonal 32x32 blocks, for
 //                         M % 32 == 0 and M <= 1024 (K1);
-//   chol_inv_base_upper:  D [b, P, P] SPD -> (R, R^-1), R upper, R R^T = D,
-//                         P <= 128 (K2).
+//   chol_upper_blocked:   G [b, M, M] SPD, lower triangle read -> Lf lower
+//                         with Lf Lf^T = J G J (J the index reversal, so
+//                         R = J Lf J is G's upper factor, R R^T = G) and
+//                         the inverses of Lf's diagonal 32x32 blocks, for
+//                         M % 32 == 0 and M <= 2048 (K2).
 //
 // K1 replaces the TPU kernel `_chol_inv_base_kernel` together with the
 // blocked drivers around it (`chol_inv_batched`, `chol_factor_batched`) in
 // deepcgp_tpu/ops/pallas_linalg.py: the whole right-looking factorization
-// of a matrix is one launch.  K2 replaces `_chol_inv_base_kernel_upper`, the
-// base case of the NatGrad drivers `chol_inv_batched_upper` /
-// `chol_right_solve_upper`.
+// of a matrix is one launch.  K2 replaces `_chol_inv_base_kernel_upper`
+// (the Cholesky of the index-reversed matrix, without materializing the
+// reverses) together with the NatGrad drivers around it
+// (`chol_inv_batched_upper`, `chol_right_solve_upper`): K2 then K3
+// (tri_inv.cu) give R^-1 = J Lf^-1 J.
 //
 // K1, panel k = 0 .. M/32 - 1 over the working matrix W (= A, then its
 // Schur complements), in 32x32 tiles:
@@ -61,14 +66,36 @@
 // chain's phases with clock64().  Full float32 FMA throughout; nothing
 // uses the tensor cores.
 //
-// K2 (unchanged): one thread block per matrix keeps its whole [P, 2P]
-// working matrix in shared memory (32 KB at P = 64, 128 KB at P = 128) and
-// runs the elimination from the bottom-right corner, j = P-1 .. 0: column j
-// of R = W[:j+1, j] * rsq, row j of R^-1 = W[j, P:] * rsq, and the rows
-// i < j update over the live columns (leading left k < j, right k >= j).
-// It reads the whole of D, as the TPU kernel does.  Its bound is the
-// P-step chain: one 1024-thread barrier and at most P/8 dependent
-// shared-memory updates per thread a step.
+// K2 runs K1's arithmetic, step for step, on J G J read from G's lower
+// triangle: entry (r, c) of J G J is G[M-1-min(r,c)][M-1-max(r,c)], read
+// tile by tile through shared memory (a warp stages the mirrored source
+// tile and writes it out reversed), so nothing above G's diagonal is ever
+// used and no reversed copy is made first.  Its output is bit-equal to
+// K1's on J sym(G) J.  What changes is where the panel lives: K1 stages
+// the whole current panel in every block (144 (M + 512) bytes, which ends
+// at M = 1088), K2 spreads it over the cluster.
+// * tile row i >= 1 belongs to worker block 1 + (i - 1) % (cluster - 1)
+//   (cuda_linalg.upper_plan states the same ownership and budget); the
+//   owner downdates every tile (i, j) of its rows and solves its column
+//   tiles, so its rows' panel tiles stay in its own shared memory, in two
+//   buffers by panel parity: a column tile (i, k+1) is downdated and
+//   solved in place in the buffer of panel k+1 while panel k is read from
+//   the other, so no panel is staged from global memory and the one
+//   cluster barrier a panel also publishes the next one;
+// * a warp reads the panel row j of a tile (i, j) from its owner through
+//   distributed shared memory, copied once into the warp's own buffer for
+//   a run of tiles of the same column (each block takes its triangle
+//   column by column, in contiguous runs balanced over its warps);
+// * the chain of diagonal tiles, the downdate micro-kernel, the tile
+//   copies, the panel solve and the diagonal inverses are K1's functions.
+// Shared memory: (2 ceil((M/32 - 1) / (cluster - 1)) + 17) * 4,608 bytes
+// (124,416 at M = 2048 with 16 blocks a matrix, 161,280 with 8).  What
+// bounds it is what bounds K1: in the first panels the workers'
+// downdates (the 4x8 micro-kernel reads three 16-byte words of shared
+// memory per 32 FMAs), in the last ones the chain (the diagonal tile's
+// downdate, factor and publication, the column solves, the barrier);
+// the copy of J G J into L takes ~3% (tools/torch_chol_clusters.py
+// --k2-only stamps the phases).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -337,6 +364,56 @@ __device__ __forceinline__ const float* warp_fetch_ldiag(const int* ready,
   return local;
 }
 
+// The first block's share of panel k: its warp 0 downdates the diagonal
+// tile d = k+1 with L_dk (read from L into `pbuf`), factors it in
+// registers, publishes L_dd^T to the cluster and stores L_dd; its warps
+// 1-7 then write L_dd^-1.  The chain of the factorization: K1 and K2 run
+// it one panel ahead of the other blocks.  `at`: optional clock64() stamps.
+__device__ __forceinline__ void chain_step(float* Lm, float* Dm, int M, int k,
+                                           float* pbuf, float* slot0,
+                                           float* scratch, float* ldiag,
+                                           int* ready, int warp, int lane,
+                                           long long* at) {
+  const int d = k + 1;
+  float* Ldd = Lm + static_cast<size_t>(d) * kW * M + d * kW;
+  if (warp == 0) {
+    if (at && lane == 0) at[0] = clock64();
+    warp_tile_async(Lm + static_cast<size_t>(d) * kW * M + k * kW, M, pbuf,
+                    lane);
+    warp_tile_async(Ldd, M, slot0, lane);
+    cp_async_wait_all();
+    __syncwarp();
+    warp_downdate(slot0, pbuf, pbuf, lane);
+    if (at && lane == 0) at[1] = clock64();
+    warp_factor_tile(slot0, scratch, ldiag, lane);
+    if (at && lane == 0) at[3] = clock64();
+    warp_publish(ready, d + 1, lane);
+    if (at && lane == 0) at[4] = clock64();
+    warp_tile_store(slot0, Ldd, M, lane);
+    if (at && lane == 0) at[2] = clock64();
+  }
+  __syncthreads();
+  if (warp > 0) warps_diag_inverse(slot0, Dm + d * kW * kW, warp, lane);
+}
+
+// The block stages L_00^T from L's tile (0, 0) in `ldiag`, with the
+// diagonal's reciprocals in column 32: panel 0's solve.
+__device__ __forceinline__ void block_stage_ldiag0(const float* Lm, int M,
+                                                   float* ldiag) {
+  for (int e = threadIdx.x; e < kW * 8; e += kThreads) {
+    const int r = e >> 3, c = (e & 7) * 4;
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(Lm + r * M + c));
+    ldiag[c * kLd + r] = v.x;
+    ldiag[(c + 1) * kLd + r] = v.y;
+    ldiag[(c + 2) * kLd + r] = v.z;
+    ldiag[(c + 3) * kLd + r] = v.w;
+  }
+  __syncthreads();
+  if (threadIdx.x < kW)
+    ldiag[threadIdx.x * kLd + kW] = 1.0f / ldiag[threadIdx.x * kLd + threadIdx.x];
+  __syncthreads();
+}
+
 // The row of entry u of a triangle whose row r holds r + 1 entries.
 __device__ __forceinline__ int tri_row(int u) {
   int r = static_cast<int>((sqrtf(8.0f * u + 1.0f) - 1.0f) * 0.5f);
@@ -414,18 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Panel 0's solve, L_i0 = W_i0 L_00^-T, by the other blocks' warps
   // against L_00^T staged from the factor written above.
   if (rank > 0) {
-    for (int e = threadIdx.x; e < kW * 8; e += kThreads) {
-      const int r = e >> 3, c = (e & 7) * 4;
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(Lm + r * M + c));
-      ldiag[c * kLd + r] = v.x;
-      ldiag[(c + 1) * kLd + r] = v.y;
-      ldiag[(c + 2) * kLd + r] = v.z;
-      ldiag[(c + 3) * kLd + r] = v.w;
-    }
-    __syncthreads();
-    if (threadIdx.x < kW)
-      ldiag[threadIdx.x * kLd + kW] = 1.0f / ldiag[threadIdx.x * kLd + threadIdx.x];
-    __syncthreads();
+    block_stage_ldiag0(Lm, M, ldiag);
     for (int t = me; t < n - 1; t += nwork) {
       warp_tile_async(tile(Lm, t + 1, 0), M, slot, lane);
       cp_async_wait_all();
@@ -444,23 +510,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     long long* at = tracer ? trace + 8 + 10 * k : nullptr;
     const int d = k + 1;
     if (rank == 0) {
-      if (warp == 0) {
-        if (at && lane == 0) at[0] = clock64();
-        warp_tile_async(tile(Lm, d, k), M, panel, lane);
-        warp_tile_async(tile(Lm, d, d), M, slot0, lane);
-        cp_async_wait_all();
-        __syncwarp();
-        warp_downdate(slot0, panel, panel, lane);
-        if (at && lane == 0) at[1] = clock64();
-        warp_factor_tile(slot0, scratch, ldiag, lane);
-        if (at && lane == 0) at[3] = clock64();
-        warp_publish(&ready, d + 1, lane);
-        if (at && lane == 0) at[4] = clock64();
-        warp_tile_store(slot0, tile(Lm, d, d), M, lane);
-        if (at && lane == 0) at[2] = clock64();
-      }
-      __syncthreads();
-      if (warp > 0) warps_diag_inverse(slot0, Dm + d * kW * kW, warp, lane);
+      chain_step(Lm, Dm, M, k, panel, slot0, scratch, ldiag, &ready, warp,
+                 lane, at);
     } else {
       const int prow = M - (k + 1) * kW;
       for (int e = threadIdx.x; e < prow * 8; e += kThreads) {
@@ -512,110 +563,332 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------------ K2
 
-constexpr int kBaseThreads = 1024;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxUpperM = 2048;
+constexpr int kTile = kW * kLd;   // floats of a staged tile
+constexpr size_t kMaxSmem = 232448;   // a block's opt-in shared memory
 
-__device__ void load_augmented(const float* __restrict__ Db, float* W, int P) {
-  const int P2 = 2 * P;
-  for (int t = threadIdx.x; t < P * P2; t += blockDim.x) {
-    const int i = t / P2, k = t % P2;
-    W[t] = (k < P) ? Db[i * P + k] : ((k - P) == i ? 1.0f : 0.0f);
-  }
-  __syncthreads();
+// A warp writes into T (row stride kLd) the 32x32 tile (ti, tj), ti >= tj,
+// of J G J from G's lower triangle only: entry (r, c) of J G J is
+// G[M-1-min(r,c)][M-1-max(r,c)].  The source, G's tile (n-1-tj, n-1-ti)
+// on or below its diagonal, is staged in S by 16-byte copies and read
+// back mirrored (lane c writes column c of a row).
+__device__ void warp_tile_reversed(const float* Gm, int M, int ti, int tj,
+                                   float* S, float* T, int lane) {
+  warp_tile_async(Gm + static_cast<size_t>(M - kW * (tj + 1)) * M +
+                      (M - kW * (ti + 1)),
+                  M, S, lane);
+  cp_async_wait_all();
+  __syncwarp();
+  const bool diag = ti == tj;
+  const int c = lane;
+#pragma unroll 4
+  for (int r = 0; r < kW; ++r)
+    T[r * kLd + c] = (diag && r < c) ? S[(kW - 1 - r) * kLd + kW - 1 - c]
+                                     : S[(kW - 1 - c) * kLd + kW - 1 - r];
+  __syncwarp();
 }
 
-__global__ void chol_inv_upper_kernel(const float* __restrict__ D,
-                                      float* __restrict__ R,
-                                      float* __restrict__ Rinv, int P) {
-  extern __shared__ float smem[];
-  const int P2 = 2 * P;
-  float* W = smem;            // [P][2P]
-  float* rsq = smem + P * P2;  // [P]
-  const size_t base = static_cast<size_t>(blockIdx.x) * P * P;
-  load_augmented(D + base, W, P);
+// A warp writes zeros to the 32x32 tile at G (row stride ld).
+__device__ __forceinline__ void warp_tile_zero(float* G, int ld, int lane) {
+#pragma unroll
+  for (int e = lane; e < kW * 8; e += 32) {
+    const int r = e >> 3, c = (e & 7) * 4;
+    __stcg(reinterpret_cast<float4*>(G + static_cast<size_t>(r) * ld + c),
+           make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
 
-  const int c = threadIdx.x % P;
-  const int r0 = threadIdx.x / P;
-  const int rstep = blockDim.x / P;
-  for (int j = P - 1; j >= 0; --j) {
-    const float r = rsqrtf(W[j * P2 + j]);
-    if (threadIdx.x == 0) rsq[j] = r;
-    // Slots c < j are the leading left block (k = c), the other P-j the
-    // live right block (k = P+j .. 2P-1, i.e. k = P + c).
-    const int k = (c < j) ? c : (P + c);
-    const float wjk = W[j * P2 + k];
-    for (int i = r0; i < j; i += rstep) {
-      const float m = (W[i * P2 + j] * r) * r;
-      W[i * P2 + k] -= m * wjk;
+// A warp copies the staged tile at src (row stride kLd; another block's
+// shared memory) into dst, 16 bytes a lane at a time, all loads first.
+__device__ __forceinline__ void warp_tile_copy(const float* src, float* dst,
+                                               int lane) {
+  float4 v[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int e = lane + 32 * t, r = e >> 3, c = (e & 7) * 4;
+    v[t] = *reinterpret_cast<const float4*>(src + r * kLd + c);
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int e = lane + 32 * t, r = e >> 3, c = (e & 7) * 4;
+    *reinterpret_cast<float4*>(dst + r * kLd + c) = v[t];
+  }
+  __syncwarp();
+}
+
+// Worker rb (0-based: cluster rank rb + 1) of nw owns the tile rows
+// rb + 1, rb + 1 + nw, ...: the first of them >= j, and how many lie in
+// [j, n).
+__device__ __forceinline__ int first_owned(int j, int rb, int nw) {
+  return j + ((rb - (j - 1)) % nw + nw) % nw;
+}
+
+__device__ __forceinline__ int owned_from(int j, int n, int rb, int nw) {
+  const int f = first_owned(j, rb, nw);
+  return f < n ? (n - 1 - f) / nw + 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    chol_upper_cluster_kernel(const float* __restrict__ G,
+                              float* __restrict__ L, float* __restrict__ Dinv,
+                              int M, long long* __restrict__ trace) {
+  extern __shared__ __align__(16) float k2_smem[];
+  __shared__ int ready;     // the diagonal tile last published here, + 1
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int mat = blockIdx.x / csize;
+  const int n = M / kW;
+  const int nw = csize - 1, rb = rank - 1;
+  const int rows = (n - 1 + nw - 1) / nw;   // a worker's tile rows, at most
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t base = static_cast<size_t>(mat) * M * M;
+  const float* Gm = G + base;
+  float* Lm = L + base;
+  float* Dm = Dinv + static_cast<size_t>(mat) * n * kW * kW;
+
+  // Two panel buffers of this block's rows (panel k in buffer k & 1), then
+  // two tiles a warp, then L_dd^T.  The first block's warp 0 takes its
+  // slot for the diagonal tile, its rbuf for the factor's scratch.
+  float* panels = k2_smem;
+  float* warps = panels + 2 * rows * kTile;
+  float* slot = warps + warp * 2 * kTile;   // a tile of W in flight
+  float* rbuf = slot + kTile;               // a peer's panel row, or L_dd^T
+  float* ldiag = warps + kWarps * 2 * kTile;
+  float* slot0 = warps;
+  float* scratch = warps + kTile;
+  auto tile = [&](float* P, int i, int j) {
+    return P + static_cast<size_t>(i) * kW * M + j * kW;
+  };
+  auto own = [&](int i) { return (i - 1) / nw * kTile; };
+  // Optional clock64() stamps of the first cluster
+  // (chol_upper_blocked_traced).
+  const bool tracer = trace != nullptr && blockIdx.x < 2;
+  if (threadIdx.x == 0) ready = 0;
+  if (tracer && rank == 0 && threadIdx.x == 0) trace[0] = clock64();
+
+  // Tile (0, 0) of J G J straight into the first block's factor (warp 1's
+  // slot stages its source); meanwhile every warp writes J G J on and
+  // below the diagonal tiles to L, zeros above them.
+  if (rank == 0) {
+    if (warp == 0) {
+      warp_tile_reversed(Gm, M, 0, 0, warps + 2 * kTile, slot0, lane);
+      warp_factor_tile(slot0, scratch, ldiag, lane);
+      warp_tile_store(slot0, Lm, M, lane);
     }
     __syncthreads();
+    if (warp > 0) warps_diag_inverse(slot0, Dm, warp, lane);
+    __syncthreads();
   }
+  for (int t = rank * kWarps + warp; t < n * n; t += csize * kWarps) {
+    const int ti = t / n, tj = t % n;
+    if (tj > ti) {
+      warp_tile_zero(tile(Lm, ti, tj), M, lane);
+    } else if (t > 0) {
+      warp_tile_reversed(Gm, M, ti, tj, slot, rbuf, lane);
+      warp_tile_store(rbuf, tile(Lm, ti, tj), M, lane);
+      __syncwarp();
+    }
+  }
+  cluster_sync();
+  if (tracer && rank == 0 && threadIdx.x == 0) trace[1] = clock64();
+  if (n == 1) return;
 
-  for (int t = threadIdx.x; t < P * P; t += blockDim.x) {
-    const int i = t / P, k = t % P;
-    R[base + t] = (k >= i) ? W[i * P2 + k] * rsq[k] : 0.0f;
-    Rinv[base + t] = (k >= i) ? W[i * P2 + P + k] * rsq[i] : 0.0f;
+  // Panel 0's solve, L_i0 = W_i0 L_00^-T: each worker solves its own rows
+  // into its buffer of panel 0.
+  if (rank > 0) {
+    block_stage_ldiag0(Lm, M, ldiag);
+    for (int c = warp; c < owned_from(1, n, rb, nw); c += kWarps) {
+      const int i = rb + 1 + c * nw;
+      float* S = panels + c * kTile;
+      warp_tile_async(tile(Lm, i, 0), M, S, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      warp_panel_solve(S, ldiag, tile(Lm, i, 0), M, lane);
+    }
+  }
+  cluster_sync();
+  if (tracer && rank == 0 && threadIdx.x == 0) trace[2] = clock64();
+
+  // Panel k: the first block runs the chain (tile d = k+1 downdated,
+  // factored and published); each worker downdates the tiles (i, j),
+  // i >= j > k, of its rows i > k and solves its column tiles (i, d) in
+  // place in its buffer of panel d, all before the one barrier of the
+  // panel.
+  for (int k = 0; k + 1 < n; ++k) {
+    long long* at = tracer ? trace + 8 + 10 * k : nullptr;
+    const int d = k + 1;
+    if (rank == 0) {
+      chain_step(Lm, Dm, M, k, panels, slot0, scratch, ldiag, &ready, warp,
+                 lane, at);
+    } else {
+      const bool stamp = at && warp == 0 && lane == 0;
+      if (stamp) at[9] = clock64();
+      const float* Pk = panels + (k & 1) * rows * kTile;
+      float* Pd = panels + (d & 1) * rows * kTile;
+      // Panel row j of panel k: this block's own, or its owner's copied
+      // once into rbuf for a run of tiles of column j.
+      int copied = -1;
+      auto prow = [&](int j) -> const float* {
+        const int owner = 1 + (j - 1) % nw;
+        const float* p = Pk + own(j);
+        if (owner == rank) return p;
+        if (copied != j) {
+          warp_tile_copy(cluster.map_shared_rank(const_cast<float*>(p), owner),
+                         rbuf, lane);
+          copied = j;
+        }
+        return rbuf;
+      };
+      // The column tiles (i, d), i > d, a warp each in turn; held in place.
+      const int f = first_owned(d + 1, rb, nw);
+      const int ncol = owned_from(d + 1, n, rb, nw);
+      for (int c = warp; c < ncol; c += kWarps) {
+        const int i = f + c * nw;
+        float* S = Pd + own(i);
+        warp_tile_async(tile(Lm, i, d), M, S, lane);
+        warp_downdate(S, Pk + own(i), prow(d), lane);
+      }
+      // The tiles (i, j), d < j <= i, column by column: a warp takes a
+      // contiguous run, as many as the round-robin continuing after the
+      // column tiles would give it.
+      int ntri = 0;
+      for (int j = d + 1; j < n; ++j) ntri += owned_from(j, n, rb, nw);
+      auto share = [&](int w) {
+        return (ncol + ntri - w + kWarps - 1) / kWarps -
+               (ncol - w + kWarps - 1) / kWarps;
+      };
+      int skip = 0;
+      for (int w = 0; w < warp; ++w) skip += share(w);
+      int todo = share(warp);
+      int j = d + 1;
+      while (todo > 0 && skip >= owned_from(j, n, rb, nw)) {
+        skip -= owned_from(j, n, rb, nw);
+        ++j;
+      }
+      int i = first_owned(j, rb, nw) + skip * nw;
+      for (; todo > 0; --todo, i += nw) {
+        while (i >= n) i = first_owned(++j, rb, nw);
+        float* Wij = tile(Lm, i, j);
+        warp_tile_async(Wij, M, slot, lane);
+        warp_downdate(slot, Pk + own(i), prow(j), lane);
+        warp_tile_store(slot, Wij, M, lane);
+        __syncwarp();
+      }
+      if (stamp) at[6] = clock64();
+      if (warp < ncol) {
+        const float* LT = warp_fetch_ldiag(&ready, d + 1, ldiag, rbuf, lane);
+        if (stamp) at[8] = clock64();
+        for (int c = warp; c < ncol; c += kWarps) {
+          const int i = f + c * nw;
+          warp_panel_solve(Pd + own(i), LT, tile(Lm, i, d), M, lane);
+        }
+        if (stamp) at[5] = clock64();
+      }
+    }
+    cluster_sync();
+    if (at && rank == 0 && threadIdx.x == 0) at[7] = clock64();
   }
 }
 
 }  // namespace
 
-// A, L: [b, M, M] and Dinv: [b, M/32, 32, 32], contiguous float32 on the
-// device, M % 32 == 0 and 32 <= M <= 1024; `cluster` blocks a matrix (1-8,
-// or up to 16 where the card allows non-portable clusters).  The panel and
-// the warps' tiles take (M + 512) * 144 bytes of dynamic shared memory
-// (216 KB at M = 1024).  Launches on `stream`, allocates nothing, and
-// returns the first CUDA error.
-static int factor_launch(const float* A, float* L, float* Dinv, int b, int M,
-                         int cluster, long long* trace, void* stream) {
-  if (M % kW || M < kW || M > kMaxM || cluster < 2 || cluster > 16 || b < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(M - kW) + (2 * kWarps + 1) * kW) * kLd;
+using ClusterKernel = void (*)(const float*, float*, float*, int, long long*);
+
+// K1's dynamic shared memory: the panel and the warps' tiles,
+// (M + 512) * 144 bytes (216 KB at M = 1024).
+static size_t factor_smem(int M) {
+  return sizeof(float) *
+         (static_cast<size_t>(M - kW) + (2 * kWarps + 1) * kW) * kLd;
+}
+
+// K2's: two buffers of a worker's tile rows, two tiles a warp and L_dd^T,
+// (2 ceil((M/32 - 1) / (cluster - 1)) + 17) * 4,608 bytes
+// (cuda_linalg.upper_plan).
+static size_t upper_smem(int M, int cluster) {
+  const int rows = (M / kW - 1 + cluster - 2) / (cluster - 1);
+  return sizeof(float) * kTile *
+         (2 * static_cast<size_t>(rows) + 2 * kWarps + 1);
+}
+
+static cudaError_t cluster_attributes(ClusterKernel kernel, size_t smem,
+                                      int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      chol_factor_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(chol_factor_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+static cudaLaunchConfig_t cluster_config(int blocks, size_t smem, int cluster,
+                                         cudaLaunchAttribute* attr,
+                                         void* stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b * cluster);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, chol_factor_cluster_kernel, A, L, Dinv, M,
-                           trace);
+  return cfg;
+}
+
+// One launch of `kernel`, `cluster` blocks a matrix (2-8, or up to 16
+// where the card allows non-portable clusters), on `stream`; returns the
+// first CUDA error.
+static int cluster_launch(ClusterKernel kernel, size_t smem, const float* A,
+                          float* L, float* Dinv, int b, int M, int cluster,
+                          long long* trace, void* stream) {
+  cudaError_t err = cluster_attributes(kernel, smem, cluster);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(b * cluster, smem, cluster, attr, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, A, L, Dinv, M, trace);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D, R, Rinv: [b, P, P] contiguous float32 on the device, 0 < P <= 128; the
-// working matrix (33 KB at P = 64, 129 KB at P = 128) opts in to more than
-// the default 48 KB of dynamic shared memory where it needs to.  R upper
-// with R R^T = D, Rinv = R^-1.  Launches on `stream`, allocates nothing,
-// and returns the first CUDA error.
-extern "C" int chol_inv_base_upper(const float* D, float* R, float* Rinv,
-                                   int b, int P, void* stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(P) * 2 * P + P);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_inv_upper_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = P * (kBaseThreads / P);
-  chol_inv_upper_kernel<<<b, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(D, R, Rinv, P);
-  return static_cast<int>(cudaGetLastError());
+// The number of `cluster`-block clusters of `kernel` the card can hold at
+// once (0: the launch would fail), or minus the CUDA error.
+static int max_clusters(ClusterKernel kernel, size_t smem, int cluster) {
+  cudaError_t err = cluster_attributes(kernel, smem, cluster);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, smem, cluster, attr, nullptr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
+}
+
+// A, L: [b, M, M] and Dinv: [b, M/32, 32, 32], contiguous float32 on the
+// device, M % 32 == 0 and 32 <= M <= 1024.  Allocates nothing.
+static int factor_launch(const float* A, float* L, float* Dinv, int b, int M,
+                         int cluster, long long* trace, void* stream) {
+  if (M % kW || M < kW || M > kMaxM || cluster < 2 || cluster > 16 || b < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_launch(chol_factor_cluster_kernel, factor_smem(M), A, L,
+                        Dinv, b, M, cluster, trace, stream);
+}
+
+// G, L: [b, M, M] and Dinv: [b, M/32, 32, 32], contiguous float32 on the
+// device, M % 32 == 0 and 32 <= M <= 2048, and a cluster whose shared
+// memory fits a block.  Only G's lower triangle is read.  Allocates
+// nothing.
+static int upper_launch(const float* G, float* L, float* Dinv, int b, int M,
+                        int cluster, long long* trace, void* stream) {
+  if (M % kW || M < kW || M > kMaxUpperM || cluster < 2 || cluster > 16 ||
+      b < 1 || upper_smem(M, cluster) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cluster_launch(chol_upper_cluster_kernel, upper_smem(M, cluster), G,
+                        L, Dinv, b, M, cluster, trace, stream);
 }
 
 extern "C" int chol_factor_blocked(const float* A, float* L, float* Dinv,
@@ -636,29 +909,29 @@ extern "C" int chol_factor_blocked_traced(const float* A, float* L,
 // that the card can hold at once (0: the launch would fail), or minus the
 // CUDA error.
 extern "C" int chol_factor_max_clusters(int M, int cluster) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(M - kW) + (2 * kWarps + 1) * kW) * kLd;
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_factor_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(chol_factor_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int count = 0;
-  err = cudaOccupancyMaxActiveClusters(&count, chol_factor_cluster_kernel,
-                                       &cfg);
-  return err == cudaSuccess ? count : -static_cast<int>(err);
+  return max_clusters(chol_factor_cluster_kernel, factor_smem(M), cluster);
+}
+
+extern "C" int chol_upper_blocked(const float* G, float* L, float* Dinv,
+                                  int b, int M, int cluster, void* stream) {
+  return upper_launch(G, L, Dinv, b, M, cluster, nullptr, stream);
+}
+
+// chol_upper_blocked with clock64() stamps of the first cluster's phases
+// written to `trace` (8 + 10 (M/32 - 1) values, K1's layout; the second
+// block's warp 0 stamps a panel's start in slot 9 and the end of its
+// downdates in slot 6).
+extern "C" int chol_upper_blocked_traced(const float* G, float* L,
+                                         float* Dinv, int b, int M,
+                                         int cluster, long long* trace,
+                                         void* stream) {
+  return upper_launch(G, L, Dinv, b, M, cluster, trace, stream);
+}
+
+// The number of `cluster`-block clusters of chol_upper_blocked at this M
+// that the card can hold at once (0: the launch would fail), or minus the
+// CUDA error.
+extern "C" int chol_upper_max_clusters(int M, int cluster) {
+  return max_clusters(chol_upper_cluster_kernel, upper_smem(M, cluster),
+                      cluster);
 }

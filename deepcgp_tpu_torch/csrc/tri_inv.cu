@@ -1,5 +1,5 @@
 // Batched inverse of lower-triangular matrices: L [b, M, M] -> X = L^-1,
-// M % 32 == 0 and M <= 1024, in one launch (K3).
+// M % 32 == 0 and M <= 2048, in one launch (K3).
 //
 // Replaces the TPU kernel `_tri_inv_base_kernel` in
 // deepcgp_tpu/ops/pallas_linalg.py together with the block-doubling driver
@@ -35,7 +35,7 @@ constexpr int kS = 8;        // columns of a strip
 constexpr int kLd = 36;      // row stride of a staged L tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;   // = kW * kS: one thread an entry
-constexpr int kMaxM = 1024;
+constexpr int kMaxM = 2048;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -198,11 +198,12 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // L, X: [b, M, M] contiguous float32 on the device, M % 32 == 0 and
-// 32 <= M <= 1024; Dinv: NULL, or the [b, M/32, 32, 32] inverses of L's
-// diagonal blocks (K1's second output).  The strip of X, the warps' double
-// buffers and the partial sums take (8 M + 21,920) * 4 bytes of dynamic
-// shared memory (118 KB at M = 1024).  Launches on `stream`, allocates
-// nothing, and returns the first CUDA error.
+// 32 <= M <= 2048; Dinv: NULL, or the [b, M/32, 32, 32] inverses of L's
+// diagonal blocks (K1's or K2's second output).  The strip of X, the
+// warps' double buffers and the partial sums take (8 M + 21,920) * 4
+// bytes of dynamic shared memory (118 KB at M = 1024, 153 KB at
+// M = 2048).  Launches on `stream`, allocates nothing, and returns the
+// first CUDA error.
 extern "C" int tri_inv_blocked(const float* L, const float* Dinv, float* X,
                                int b, int M, void* stream) {
   if (M % kW || M < kW || M > kMaxM || b < 1)

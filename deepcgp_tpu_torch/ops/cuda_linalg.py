@@ -7,25 +7,28 @@ Counterpart of ``deepcgp_tpu/ops/pallas_linalg.py``.  Three kernels:
   blocked lower Cholesky factor of a [B, M, M] batch (M % 32 == 0,
   M <= 1024) in one launch, one thread-block cluster a matrix, with the
   inverses of its 32x32 diagonal blocks;
+* K2 (``csrc/chol_inv.cu``, :func:`chol_upper_blocked`): the same for the
+  index-reversed matrix, read from the lower triangle of G [B, M, M]
+  (M % 32 == 0, M <= 2048): Lf = chol(J G J), J the index reversal, so
+  R = J Lf J is G's upper factor (R R^T = G), with its panel spread over
+  the cluster's shared memory (:func:`upper_plan`);
 * K3 (``csrc/tri_inv.cu``, :func:`tri_inv_blocked`): the inverse of a
-  [B, M, M] lower triangle in one launch, by independent column strips,
-  taking K1's diagonal-block inverses where it has them;
-* K2 (``csrc/chol_inv.cu``, :func:`chol_inv_base_upper`): upper factor
-  R (R R^T = D) and its inverse of [b, P, P] blocks, P <= 128, under the
-  NatGrad panel drivers :func:`chol_inv_batched_upper_panels` and
-  :func:`chol_right_solve_upper_panels`, for M above K1's largest.
+  [B, M, M] lower triangle (M <= 2048) in one launch, by independent
+  column strips, taking K1's or K2's diagonal-block inverses where it has
+  them.
 
 The JAX package's names keep their signatures: :func:`chol_inv_base` and
 :func:`chol_inv_batched` run K1 then K3, :func:`chol_factor_batched` K1,
-:func:`tri_inv_base` and :func:`tri_inv_doubling` K3 -- no Python panel
-loop on the card.  The upper drivers :func:`chol_inv_batched_upper` and
-:func:`chol_right_solve_upper` run K1 then K3 on the index-reversed
-matrix where K1 takes M (J the reversal, Lf = chol(J A J): R = J Lf J is
-A's upper factor), and the K2 panel drivers above that, as
-:func:`upper_route` says.  On a CPU tensor each runs the kernels' plain
-versions, which follow the kernels' block order step for step.  The K2
-drivers' panel solves, trailing downdates and block substitutions are
-full-f32 matrix products (TF32 is off, see ``config``).
+:func:`tri_inv_base` and :func:`tri_inv_doubling` K3, and
+:func:`chol_inv_base_upper` K2 then K3 -- no Python panel loop on the
+card.  The upper drivers :func:`chol_inv_batched_upper` and
+:func:`chol_right_solve_upper` take the route :func:`upper_route` gives
+M: K2 then K3 and one product up to M = 2048, and above it the panel
+drivers around :func:`chol_inv_base_upper`.  On a CPU tensor each kernel
+wrapper runs its plain version, which follows the kernel's block order
+step for step.  The panel drivers' panel solves, trailing downdates and
+block substitutions are full-f32 matrix products (TF32 is off, see
+``config``).
 
 A non-PD batch element gives NaN in its factor and inverse and leaves the
 others untouched, as ``torch.linalg.cholesky`` in JAX's NaN convention
@@ -40,16 +43,20 @@ import torch
 
 from deepcgp_tpu_torch.ops import cuda_build
 
-# The NatGrad drivers' default panel (the JAX package's PANEL), and the
-# largest block K2 takes: a [P, 2P] working matrix in shared memory (128 KB
-# at 128).
+# The JAX package's panel (the NatGrad drivers' contract).
 PANEL = 64
-MAX_P = 128
 # K1's panel width and K3's diagonal blocks (one warp, one lane a row), and
-# the largest matrix K1 and K3 take (K1 stages a [M - 32, 32] panel in each
+# the largest matrix K1 takes (it stages a [M - 32, 32] panel in each
 # block's shared memory: 140 KB at 1024).
 W = 32
 MAX_M = 1024
+# The largest matrix K2 and K3 take (K2 spreads its panel over the
+# cluster, :func:`upper_plan`; K3's strip of X takes 8 M floats).
+UPPER_MAX_M = 2048
+# A block's opt-in shared memory on the card, and a staged 32x32 tile
+# (rows of 36 floats) in bytes.
+SMEM_BYTES = 232_448
+TILE_BYTES = 4 * W * 36
 _SUB = 8          # the diagonal factor's column blocks
 
 
@@ -57,8 +64,8 @@ def _T(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(-1, -2)
 
 
-def _check_device(what: str, A: torch.Tensor, multiple: int = 1,
-                  largest: int = MAX_P) -> bool:
+def _check_device(what: str, A: torch.Tensor, multiple: int,
+                  largest: int) -> bool:
     """True for a CPU tensor (the plain version runs); for a CUDA tensor,
     raise on anything the kernel does not take and return False."""
     if A.device.type == 'cpu':
@@ -75,20 +82,6 @@ def _check_device(what: str, A: torch.Tensor, multiple: int = 1,
     if not A.is_contiguous():
         raise ValueError(f'{what}: input must be contiguous')
     return False
-
-
-def _launch(library: str, symbol: str, A: torch.Tensor, n_out: int):
-    """Launch ``symbol`` of ``library`` on A [b, P, P]: (A, out..., b, P,
-    stream); returns the ``n_out`` outputs, allocated like A."""
-    b, P, _ = A.shape
-    outs = [torch.empty_like(A) for _ in range(n_out)]
-    fn = cuda_build.function(
-        library, symbol,
-        [ctypes.c_void_p] * (1 + n_out) + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    cuda_build.check(fn(A.data_ptr(), *[o.data_ptr() for o in outs], b, P,
-                        stream), symbol)
-    return outs
 
 
 def _width(M: int) -> int:
@@ -160,9 +153,9 @@ def chol_inv_base_plain(D: torch.Tensor):
     return L, tri_inv_base_plain(L)
 
 
-def chol_factor_blocked_plain(A: torch.Tensor, w: int | None = None):
-    """Plain PyTorch version of K1, in its block order: the right-looking
-    factor of A [B, M, M] in w-wide panels (w = W by default),
+def _right_looking_plain(A: torch.Tensor, w: int | None = None):
+    """K1's block order: the right-looking factor of A [B, M, M] in w-wide
+    panels (w = W by default),
 
         L_kk, L_kk^-1 = chol_inv_base_plain(rem_kk);
         L_21 = rem_21 L_kk^-T (forward substitution on L_kk);
@@ -188,16 +181,23 @@ def chol_factor_blocked_plain(A: torch.Tensor, w: int | None = None):
     return L, Dinv
 
 
+def chol_factor_blocked_plain(A: torch.Tensor, w: int | None = None):
+    """Plain PyTorch version of K1, in its block order
+    (:func:`_right_looking_plain`): (L, Dinv) of A [B, M, M]."""
+    return _right_looking_plain(A, w)
+
+
 _MAX_CLUSTERS: dict = {}
 
 
-def _max_clusters(M: int, cluster: int) -> int:
-    """How many ``cluster``-block clusters of K1 at M the current card holds
-    at once (``chol_factor_max_clusters``), asked once per device."""
-    key = (torch.cuda.current_device(), M, cluster)
+def _max_clusters(M: int, cluster: int,
+                  symbol: str = 'chol_factor_max_clusters') -> int:
+    """How many ``cluster``-block clusters of K1 (or of K2, ``symbol``
+    ``chol_upper_max_clusters``) at M the current card holds at once,
+    asked once per device."""
+    key = (torch.cuda.current_device(), symbol, M, cluster)
     if key not in _MAX_CLUSTERS:
-        fn = cuda_build.function('chol_inv', 'chol_factor_max_clusters',
-                                 [ctypes.c_int] * 2)
+        fn = cuda_build.function('chol_inv', symbol, [ctypes.c_int] * 2)
         _MAX_CLUSTERS[key] = fn(M, cluster)
     return _MAX_CLUSTERS[key]
 
@@ -242,9 +242,7 @@ def chol_inv_base(D: torch.Tensor):
     (:func:`chol_factor_blocked`, :func:`tri_inv_blocked` with K1's
     diagonal-block inverses), two launches.  The 8x8 sub-blocks on the
     diagonal are read whole (both triangles), as the JAX base kernel reads
-    its whole input, the rest on and below the diagonal: a matrix
-    meaningful in its lower triangle only goes through
-    :func:`sym_from_tril` first.
+    its whole input, the rest on and below the diagonal.
 
     ``chol_inv_base.launches`` counts K1's launches."""
     L, Dinv = chol_factor_blocked(D)
@@ -284,65 +282,129 @@ def chol_factor_batched(A: torch.Tensor, panel: int = 128) -> torch.Tensor:
 # ------------------------------------------------------------------- K2
 
 
-def chol_inv_base_upper_plain(D: torch.Tensor):
-    """Plain PyTorch version of K2, step for step: Gaussian elimination on
-    [D | I] advanced over the whole batch at once, from the bottom-right
-    corner, so the factor comes out upper (R R^T = D)."""
-    b, P, _ = D.shape
-    eye = torch.eye(P, dtype=D.dtype, device=D.device).expand(b, P, P)
-    W = torch.cat([D, eye], dim=2).clone()
-    R = torch.zeros_like(D)
-    Rinv = torch.empty_like(D)
-    for j in range(P - 1, -1, -1):
-        rowj = W[:, j:j + 1, :]                              # [b, 1, 2P]
-        rsq = torch.rsqrt(rowj[:, :, j:j + 1])               # [b, 1, 1]
-        Rinv[:, j:j + 1, :] = rowj[:, :, P:] * rsq
-        cvec = W[:, :j + 1, j:j + 1] * rsq                   # [b, j+1, 1]
-        R[:, :j + 1, j:j + 1] = cvec
-        if j > 0:
-            W[:, :j, :] -= (cvec[:, :j] * rsq) * rowj
-    return R, Rinv
+def upper_plan(M: int, cluster: int) -> dict:
+    """K2's split of one [M, M] matrix over a cluster of ``cluster``
+    blocks, as the kernel follows it: tile row 0 (the first diagonal tile)
+    belongs to the first block, which runs the chain of diagonal tiles;
+    tile row i >= 1 to worker ``owner[i] = 1 + (i - 1) % (cluster - 1)``,
+    at ``slot[i]`` of its panel buffers.  The owner downdates every tile
+    of its rows and keeps their panel tiles in its shared memory, two
+    buffers of ``rows`` tiles (panel k in buffer k % 2); each warp has two
+    tiles more (a tile in flight and a copy of a peer's panel row), and
+    the block L_dd^T: ``smem_bytes`` of dynamic shared memory a block."""
+    n, nw = M // W, cluster - 1
+    rows = -(-(n - 1) // nw)
+    return {'owner': [0] + [1 + (i - 1) % nw for i in range(1, n)],
+            'slot': [0] + [(i - 1) // nw for i in range(1, n)],
+            'rows': rows,
+            'smem_bytes': TILE_BYTES * (2 * rows + 2 * 8 + 1)}
+
+
+def upper_clusters(M: int) -> list:
+    """The cluster sizes K2's launcher may take at M, in the order it
+    tries them (:func:`_upper_cluster`): K1's, 16 from M = 512 up, else 8,
+    halved down to 4, keeping those whose shared memory fits a block."""
+    first = 16 if M >= 512 else 8
+    return [c for c in (16, 8, 4) if c <= first
+            and upper_plan(M, c)['smem_bytes'] <= SMEM_BYTES]
+
+
+def _upper_cluster(M: int, B: int = 1) -> int:
+    """K2's blocks per matrix: the first of :func:`upper_clusters` at
+    which the card holds all B clusters at once, else the last (the batch
+    then runs in waves)."""
+    sizes = upper_clusters(M)
+    for cluster in sizes[:-1]:
+        if B <= _max_clusters(M, cluster, 'chol_upper_max_clusters'):
+            return cluster
+    return sizes[-1]
+
+
+_LOWER_MASKS: dict = {}
+
+
+def reversed_sym_from_tril(A: torch.Tensor) -> torch.Tensor:
+    """J sym(A) J, J the index reversal and sym(A) = tril(A) +
+    tril(A, -1)^T, from A's lower triangle only: with Af = J A J (whose
+    upper triangle is A's lower one), Gr = where(i >= j, Af^T, Af).  Two
+    passes over [B, M, M] (the flip and the select), and symmetric, as K1
+    needs for its diagonal sub-blocks."""
+    M = A.shape[-1]
+    key = (M, A.device)
+    mask = _LOWER_MASKS.get(key)
+    if mask is None:
+        mask = torch.ones(M, M, dtype=torch.bool, device=A.device).tril()
+        _LOWER_MASKS[key] = mask
+    Af = A.flip(-1, -2)
+    return torch.where(mask, _T(Af), Af)
+
+
+def chol_upper_blocked_plain(A: torch.Tensor, w: int | None = None):
+    """Plain PyTorch version of K2: K1's block order
+    (:func:`_right_looking_plain`) on J A J built from A's lower
+    triangle alone (:func:`reversed_sym_from_tril`), the arithmetic K2 runs
+    on its reversed reads.  Returns (Lf, Dinv), Lf = chol(J A J) lower."""
+    return _right_looking_plain(reversed_sym_from_tril(A), w)
+
+
+def chol_upper_blocked(A: torch.Tensor):
+    """K2: A [B, M, M] SPD, lower triangle read -> (Lf, Dinv), Lf lower
+    with Lf Lf^T = J A J (J the index reversal: R = J Lf J is A's upper
+    factor, R R^T = A) and Dinv [B, M/32, 32, 32] the inverses of Lf's
+    diagonal blocks, K1's layout (K3 takes both).
+
+    A CUDA tensor (float32, contiguous, M % 32 == 0, M <= 2048) launches
+    the kernel, one thread-block cluster a matrix, or raises; a CPU tensor
+    takes :func:`chol_upper_blocked_plain`.  Launches count on
+    ``chol_inv_base_upper.launches``."""
+    if _check_device('chol_upper_blocked', A, W, UPPER_MAX_M):
+        return chol_upper_blocked_plain(A)
+    B, M, _ = A.shape
+    L = torch.empty_like(A)
+    Dinv = A.new_empty(B, M // W, W, W)
+    fn = cuda_build.function(
+        'chol_inv', 'chol_upper_blocked',
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, M,
+                        _upper_cluster(M, B), stream), 'chol_upper_blocked')
+    chol_inv_base_upper.launches += 1
+    return L, Dinv
 
 
 def chol_inv_base_upper(D: torch.Tensor):
-    """[b, P, P] symmetric -> (R, R^-1) with R upper, R R^T = D; like K1 it
-    reads both triangles of D.
+    """[b, P, P] SPD, lower triangle read -> (R, R^-1) with R upper,
+    R R^T = D: K2 then K3 (:func:`chol_upper_blocked`,
+    :func:`tri_inv_blocked` with K2's diagonal-block inverses), two
+    launches, R = J Lf J and R^-1 = J Lf^-1 J.  On the card P must be a
+    multiple of 32 up to 2048 (K2's and K3's contract, as K1's
+    :func:`chol_inv_base`): other shapes raise there.
 
-    A CUDA tensor launches K2 (float32, contiguous, P <= 128) or raises; a
-    CPU tensor takes :func:`chol_inv_base_upper_plain`."""
-    if _check_device('chol_inv_base_upper', D):
-        return chol_inv_base_upper_plain(D)
-    R, Rinv = _launch('chol_inv', 'chol_inv_base_upper', D, 2)
-    chol_inv_base_upper.launches += 1
-    return R, Rinv
+    ``chol_inv_base_upper.launches`` counts K2's launches."""
+    Lf, Dinv = chol_upper_blocked(D)
+    return Lf.flip(-1, -2), tri_inv_blocked(Lf, Dinv).flip(-1, -2)
 
 
 chol_inv_base_upper.launches = 0
 
 
-def sym_from_tril(D: torch.Tensor) -> torch.Tensor:
-    """The symmetric matrix of D's lower triangle, tril(D) + tril(D, -1)^T:
-    equal to D when D is symmetric, and it makes the upper drivers below
-    read only the lower triangle of their input."""
-    return torch.tril(D) + _T(torch.tril(D, -1))
-
-
 def _factor_blocks_upper(A: torch.Tensor, P: int):
     """Upper mirror of :func:`chol_factor_blocked_plain`, from the
-    bottom-right corner, in P-wide panels around K2:
+    bottom-right corner, in P-wide panels around
+    :func:`chol_inv_base_upper`:
 
-        R_kk, R_kk^-1 = base(sym(rem_kk));  R_12 = A_21^T R_kk^-T;
+        R_kk, R_kk^-1 = base(rem_kk);  R_12 = A_21^T R_kk^-T;
         rem <- rem_11 - R_12 R_12^T.
 
     Returns ({(i, k): block of R, i <= k}, {k: R_kk^-1}, {k: the unsplit
     [B, kP, P] panel above diagonal block k}).  Reads only the lower
-    triangle of A: panel solves take the lower block row A_21, diagonal
-    blocks are symmetrized from their lower triangle."""
+    triangle of A: the base reads the lower triangle of its block, the
+    panel solves the lower block row A_21."""
     n = A.shape[-1] // P
     Rb, Dinv, Rcols = {}, {}, {}
     rem = A
     for k in range(n - 1, 0, -1):
-        Rkk, Rkkinv = chol_inv_base_upper(sym_from_tril(rem[:, -P:, -P:]))
+        Rkk, Rkkinv = chol_inv_base_upper(rem[:, -P:, -P:].contiguous())
         Rb[(k, k)] = Rkk
         Dinv[k] = Rkkinv
         R12 = _T(rem[:, -P:, :-P]) @ _T(Rkkinv)              # [B, kP, P]
@@ -350,12 +412,12 @@ def _factor_blocks_upper(A: torch.Tensor, P: int):
         Rcols[k] = R12
         for i in range(k):
             Rb[(i, k)] = R12[:, i * P:(i + 1) * P]
-    Rb[(0, 0)], Dinv[0] = chol_inv_base_upper(sym_from_tril(rem))
+    Rb[(0, 0)], Dinv[0] = chol_inv_base_upper(rem.contiguous())
     return Rb, Dinv, Rcols
 
 
 def chol_inv_batched_upper_panels(A: torch.Tensor, panel: int = PANEL):
-    """The K2 panel driver of :func:`chol_inv_batched_upper`, for any M that
+    """The panel driver of :func:`chol_inv_batched_upper`, for any M that
     is a multiple of P = min(panel, M): A [B, M, M] SPD (lower triangle
     read) -> (R, R^-1).  The inverse by block back substitution, a block
     row per product pair from the bottom:
@@ -363,7 +425,7 @@ def chol_inv_batched_upper_panels(A: torch.Tensor, panel: int = PANEL):
     P = _panel('chol_inv_batched_upper', A, panel)
     M = A.shape[-1]
     if M == P:
-        return chol_inv_base_upper(sym_from_tril(A))
+        return chol_inv_base_upper(A.contiguous())
     Rb, Dinv, _ = _factor_blocks_upper(A, P)
     n = M // P
     R = torch.zeros_like(A)
@@ -380,18 +442,18 @@ def chol_inv_batched_upper_panels(A: torch.Tensor, panel: int = PANEL):
 
 def chol_right_solve_upper_panels(A: torch.Tensor, X: torch.Tensor,
                                   panel: int = PANEL) -> torch.Tensor:
-    """The K2 panel driver of :func:`chol_right_solve_upper`: A [B, M, M]
+    """The panel driver of :func:`chol_right_solve_upper`: A [B, M, M]
     SPD (lower triangle read), X [B, N, M] -> Y = X R^-T, R the upper
     factor (R R^T = A), without forming R^-1: block back substitution on
     Y R^T = X in right-looking form, at step k = n-1 .. 0
 
         Y_k = rem_k R_kk^-T;   rem <- rem[:, :, :-P] - Y_k Rcol_k^T
 
-    with Rcol_k the unsplit panel of :func:`_factor_blocks_upper`: n K2
-    launches and 2n products in all."""
+    with Rcol_k the unsplit panel of :func:`_factor_blocks_upper`: n calls
+    of :func:`chol_inv_base_upper` and 2n products in all."""
     P = _panel('chol_right_solve_upper', A, panel)
     if A.shape[-1] == P:
-        _, Dinv0 = chol_inv_base_upper(sym_from_tril(A))
+        _, Dinv0 = chol_inv_base_upper(A.contiguous())
         return X @ _T(Dinv0)
     _, Dinv, Rcols = _factor_blocks_upper(A, P)
     n = A.shape[-1] // P
@@ -404,55 +466,41 @@ def chol_right_solve_upper_panels(A: torch.Tensor, X: torch.Tensor,
     return torch.cat(Y, dim=2)
 
 
-_LOWER_MASKS: dict = {}
-
-
-def reversed_sym_from_tril(A: torch.Tensor) -> torch.Tensor:
-    """J sym_from_tril(A) J, J the index reversal, from A's lower triangle
-    only: with Af = J A J (whose upper triangle is A's lower one),
-    Gr = where(i >= j, Af^T, Af).  Two passes over [B, M, M] (the flip and
-    the select), and symmetric, as K1 needs for its diagonal sub-blocks."""
-    M = A.shape[-1]
-    key = (M, A.device)
-    mask = _LOWER_MASKS.get(key)
-    if mask is None:
-        mask = torch.ones(M, M, dtype=torch.bool, device=A.device).tril()
-        _LOWER_MASKS[key] = mask
-    Af = A.flip(-1, -2)
-    return torch.where(mask, _T(Af), Af)
-
-
 def upper_route(M: int):
     """How the upper drivers take [B, M, M], by shape alone (the same on the
-    CPU and the card): ('reversed', None) -- K1 then K3 on the
-    index-reversed matrix, :func:`chol_inv_reversed_upper` -- where K1 and
-    K3 take M (M % 32 == 0, M <= 1024); ('panels', P) -- the K2 panel
-    driver at panel P, 128 from M = 512 where it divides M, else 64 --
-    for the other multiples of 64; None for the rest, where the drivers
-    keep the JAX package's shape contract (M a multiple of
-    min(panel, M)) and raise outside it."""
-    if M % W == 0 and M <= MAX_M:
-        return 'reversed', None
-    P = 128 if M >= 512 and M % 128 == 0 else PANEL
-    return ('panels', P) if M % P == 0 else None
+    CPU and the card): ('upper', None) -- K2 then K3 and one product,
+    :func:`chol_right_solve_reversed` -- for M % 32 == 0 up to 2048 (at
+    M <= 1024 it is no slower than K1 on J G J built first, PERF.md);
+    ('panels', P) -- the panel driver around
+    :func:`chol_inv_base_upper`, P the largest power of two up to 2048
+    that divides M -- for the multiples of 64 above 2048; None for the
+    rest, where the drivers keep the JAX package's shape contract (M a
+    multiple of min(panel, M)) and raise outside it."""
+    if M % W == 0 and M <= UPPER_MAX_M:
+        return 'upper', None
+    if M % 64 or M < UPPER_MAX_M:
+        return None
+    P = UPPER_MAX_M
+    while M % P:
+        P //= 2
+    return 'panels', P
 
 
 def chol_inv_reversed_upper(A: torch.Tensor):
-    """A [B, M, M] SPD (lower triangle read) -> (J Lf J, J Lf^-1 J) with
+    """A [B, M, M] SPD (lower triangle read) -> (Lf, Lf^-1) with
     Lf = chol(J A J): R = J Lf J is upper with R R^T = A, and J Lf^-1 J is
-    its inverse.  One K1 and one K3 launch on the card, behind one pass
-    that builds J A J (:func:`reversed_sym_from_tril`); the plain versions
-    of both on the CPU.  Returns (Lf, Lf^-1), unreversed: callers fold the
-    reversal into what they do next."""
-    Lf, Dinv = chol_factor_blocked(reversed_sym_from_tril(A))
+    its inverse.  K2 then K3: two launches on the card, the plain versions
+    on the CPU.  Unreversed: callers fold the reversal into what they do
+    next."""
+    Lf, Dinv = chol_upper_blocked(A)
     return Lf, tri_inv_blocked(Lf, Dinv)
 
 
 def chol_right_solve_reversed(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """A [B, M, M] SPD (lower triangle read), X [B, N, M] -> Y = X R^-T,
-    R the upper factor of A, as Y = X (J Lf^-1 J)^T: K1 and K3 on the
-    reversed matrix (:func:`chol_inv_reversed_upper`), one [B, M, M] flip
-    of Lf^-1 and one batched product -- no Python panel loop."""
+    R the upper factor of A, as Y = X (J Lf^-1 J)^T: K2 and K3
+    (:func:`chol_inv_reversed_upper`), one [B, M, M] flip of Lf^-1 and one
+    batched product -- no Python panel loop."""
     _, Lfinv = chol_inv_reversed_upper(A)
     return X @ _T(Lfinv.flip(-1, -2))
 
@@ -461,12 +509,14 @@ def chol_inv_batched_upper(A: torch.Tensor, panel: int | None = None):
     """Upper mirror of :func:`chol_inv_batched`: A [B, M, M] SPD (lower
     triangle read) -> (R, R^-1) with R upper, R R^T = A, by the route of
     :func:`upper_route`: R = J Lf J and R^-1 = J Lf^-1 J from
-    :func:`chol_inv_reversed_upper` (two launches), or the K2 panel driver
+    :func:`chol_inv_reversed_upper` (two launches), or the panel driver
     :func:`chol_inv_batched_upper_panels` at ``panel`` (default: the
-    route's own, else 64)."""
+    route's own, else 64).  On the card the panel driver's base case is
+    :func:`chol_inv_base_upper`, so a block that is not a multiple of 32
+    (M = 48, say) raises there."""
     kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
-    if kind == 'reversed':
-        Lf, Lfinv = chol_inv_reversed_upper(A)
+    if kind == 'upper':
+        Lf, Lfinv = chol_inv_reversed_upper(A.contiguous())
         return Lf.flip(-1, -2), Lfinv.flip(-1, -2)
     return chol_inv_batched_upper_panels(A, panel or P)
 
@@ -475,12 +525,13 @@ def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
                            panel: int | None = None) -> torch.Tensor:
     """A [B, M, M] SPD (lower triangle read), X [B, N, M] -> Y = X R^-T
     where R is the upper factor (R R^T = A), by the route of
-    :func:`upper_route`: :func:`chol_right_solve_reversed`, or the K2 panel
+    :func:`upper_route`: :func:`chol_right_solve_reversed`, or the panel
     driver :func:`chol_right_solve_upper_panels` at ``panel`` (default:
-    the route's own, else 64)."""
+    the route's own, else 64).  As :func:`chol_inv_batched_upper`, a block
+    that is not a multiple of 32 raises on the card."""
     kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
-    if kind == 'reversed':
-        return chol_right_solve_reversed(A, X)
+    if kind == 'upper':
+        return chol_right_solve_reversed(A.contiguous(), X)
     return chol_right_solve_upper_panels(A, X, panel or P)
 
 
@@ -516,13 +567,13 @@ def tri_inv_blocked_plain(L: torch.Tensor, Dinv: torch.Tensor | None = None,
 def tri_inv_blocked(L: torch.Tensor,
                     Dinv: torch.Tensor | None = None) -> torch.Tensor:
     """K3: L [B, M, M] lower-triangular -> L^-1 (the strict upper triangle
-    of L is not read), with K1's diagonal-block inverses ``Dinv`` [B, M/32,
-    32, 32] where given.
+    of L is not read), with K1's or K2's diagonal-block inverses ``Dinv``
+    [B, M/32, 32, 32] where given.
 
-    A CUDA tensor (float32, contiguous, M % 32 == 0, M <= 1024) launches
+    A CUDA tensor (float32, contiguous, M % 32 == 0, M <= 2048) launches
     the kernel or raises; a CPU tensor takes :func:`tri_inv_blocked_plain`.
     Launches count on ``tri_inv_base.launches``."""
-    if _check_device('tri_inv_blocked', L, W, MAX_M):
+    if _check_device('tri_inv_blocked', L, W, UPPER_MAX_M):
         return tri_inv_blocked_plain(L, Dinv)
     B, M, _ = L.shape
     if Dinv is not None and (Dinv.shape != (B, M // W, W, W)

@@ -228,11 +228,11 @@ def _natural_to_meanvarsqrt(theta1, theta2):
 
 def natgrad_route(dtype, M: int) -> str:
     """The route of :func:`natgrad_update`'s solve W R^-T: for float32, the
-    kernel route ``cuda_linalg.upper_route`` gives M -- 'reversed' (K1 and
-    K3 on the index-reversed G, M % 32 == 0 up to 1024) or 'panels' (the
-    K2 panel driver, multiples of 64 above) -- and 'library' for every
-    other dtype or shape: the library factor of the index-reversed G and
-    one triangular solve."""
+    kernel route ``cuda_linalg.upper_route`` gives M -- 'upper' (K2 and K3
+    on G's lower triangle and one product, M % 32 == 0 up to 2048) or
+    'panels' (the panel driver around K2 and K3, multiples of 64 above
+    2048) -- and 'library' for every other dtype or shape: the library
+    factor of the index-reversed G and one triangular solve."""
     route = cuda_linalg.upper_route(M)
     return route[0] if dtype == torch.float32 and route else 'library'
 

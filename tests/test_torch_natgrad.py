@@ -137,8 +137,8 @@ def test_natgrad_f32_step_through_kernel_paths(monkeypatch):
     9x9x3 images, 3x3 patches), the JAX package forced through its Pallas
     kernels (interpret mode: K1, K4, K5 and the K2 driver) and the port
     through their plain versions: one K1 and one K3 call for the M=64
-    gram, one K4, one K5, and one K1 and one K3 more for the [10, 64, 64]
-    update's solve (K1 and K3 on the index-reversed G, no K2).  The ELBO to 3e-4
+    gram, one K4, one K5, and one K2 and one K3 for the [10, 64, 64]
+    update's solve (on G's lower triangle, no K1).  The ELBO to 3e-4
     relative (each float32 ELBO sits up to 2e-4 from the float64 one on
     this k-means-initialised Kuu, rounding in other orders); the
     natural-gradient half -- q_mu and q_sqrt after the step -- to 1e-4 of
@@ -156,7 +156,7 @@ def test_natgrad_f32_step_through_kernel_paths(monkeypatch):
         return wrapped
 
     for mod, attr, name in ((cuda_linalg, 'chol_factor_blocked_plain', 'k1'),
-                            (cuda_linalg, 'chol_inv_base_upper_plain', 'k2'),
+                            (cuda_linalg, 'chol_upper_blocked_plain', 'k2'),
                             (cuda_linalg, 'tri_inv_blocked_plain', 'k3'),
                             (cuda_cross, 'conv_rbf_cross_plain', 'k4'),
                             (cuda_cross, 'conv_rbf_cross_bwd_plain', 'k5')):
@@ -191,7 +191,7 @@ def test_natgrad_f32_step_through_kernel_paths(monkeypatch):
     np.testing.assert_allclose(float(elbo), float(elbo_j), rtol=3e-4)
     natgrad = {k: p for k, p in state.params.items() if k.endswith(('q_mu', 'q_sqrt'))}
     _assert_params_close(natgrad, state_j.model, 0, 1e-4, 'f32 step')
-    assert calls == {'k1': 2, 'k2': 0, 'k3': 2, 'k4': 1, 'k5': 1}
+    assert calls == {'k1': 1, 'k2': 1, 'k3': 2, 'k4': 1, 'k5': 1}
 
 
 def _probe_state(seed=0):

@@ -1,5 +1,5 @@
 """The PyTorch port's NatGrad and M=1024 pieces against the JAX package on
-the CPU: the plain versions of K2 (upper Cholesky plus inverse) and K3
+the CPU: the plain versions of the upper base case (K2 then K3) and K3
 (triangular inverse) against the Pallas kernels in interpret mode, the
 upper drivers, the factor-only driver and the block-doubling inverse, the
 M > 512 route of ``chol_with_inv``, ``natgrad_update`` on both routes,
@@ -58,8 +58,9 @@ def _close(a, b, tol):
 
 
 def test_chol_inv_base_upper_plain_matches_pallas():
-    """K2's plain version against the Pallas kernel, [3, 64, 64], float64
-    at rtol 1e-10: the same elimination steps in the same order."""
+    """The upper base case (K2 then K3, here their plain versions: K1's
+    block order on the reversed matrix) against the Pallas kernel,
+    [3, 64, 64], float64 at rtol 1e-10 (atol 1e-13)."""
     S = _spd(np.random.RandomState(0), 3, 64)
     Rj, Rij = pallas_linalg.chol_inv_base_upper(jnp.asarray(S))
     R, Ri = cuda_linalg.chol_inv_base_upper(_t(S))
@@ -80,16 +81,20 @@ def test_chol_inv_base_upper_non_pd_is_nan_in_its_element_only():
 
 
 def test_chol_inv_base_reads_both_triangles():
-    """K1 (and K2) read the whole matrix, as the JAX kernel does: garbage
-    above the diagonal changes the factor, which is why the upper drivers
-    symmetrize their diagonal blocks from the lower triangle first."""
+    """K1 reads the whole matrix, as the JAX kernel does: garbage above the
+    diagonal changes the factor, and the symmetric matrix of the lower
+    triangle restores it.  The upper base case (K2) reads the lower
+    triangle only: the same garbage changes nothing, bit for bit."""
     S = _spd(np.random.RandomState(2), 2, 16)
     dirty = np.tril(S) + np.triu(np.random.RandomState(3).randn(2, 16, 16), 1)
-    for base in (cuda_linalg.chol_inv_base, cuda_linalg.chol_inv_base_upper):
-        clean = base(_t(S))[0].numpy()
-        assert np.abs(base(_t(dirty))[0].numpy() - clean).max() > 1e-3
-        fixed = base(cuda_linalg.sym_from_tril(_t(dirty)))[0].numpy()
-        np.testing.assert_array_equal(fixed, clean)
+    base = cuda_linalg.chol_inv_base
+    clean = base(_t(S))[0].numpy()
+    assert np.abs(base(_t(dirty))[0].numpy() - clean).max() > 1e-3
+    sym = np.tril(dirty) + np.swapaxes(np.tril(dirty, -1), 1, 2)
+    np.testing.assert_array_equal(base(_t(sym))[0].numpy(), clean)
+    for a, b in zip(cuda_linalg.chol_inv_base_upper(_t(dirty)),
+                    cuda_linalg.chol_inv_base_upper(_t(S))):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 @pytest.mark.parametrize('M', [128, 256])
@@ -114,9 +119,9 @@ def test_upper_drivers_match_jax(M):
 
 @pytest.mark.parametrize('M,panel', [(64, 64), (256, 64)])
 def test_upper_drivers_read_only_tril(M, panel):
-    """The upper drivers read only the lower triangle of A, through
-    ``sym_from_tril`` on the diagonal blocks and the lower block rows in
-    the panel solves: garbage above the diagonal changes nothing, bit for
+    """The upper drivers read only the lower triangle of A, through K2 on
+    the diagonal blocks and the lower block rows in the panel solves:
+    garbage above the diagonal changes nothing, bit for
     bit (the input of tests/test_pallas_linalg.py's test of the JAX
     drivers)."""
     rng = np.random.RandomState(7)
@@ -245,19 +250,19 @@ def test_natgrad_update_f64_matches_jax():
 @pytest.mark.parametrize('route', ['reversed', 'panels'])
 def test_natgrad_update_f32_kernel_route_matches_jax(monkeypatch, route):
     """float32 with M % 32 == 0 takes a kernel route (G's lower triangle
-    into K1 and K3 on the index-reversed G, 'reversed', or into the K2
+    into K2 and K3 on the whole index-reversed G, 'reversed', or into the
     panel driver, 'panels', forced here at M = 128): against the JAX
     package forced through its Pallas branch (interpret mode) and against
     the theta round trip, at the JAX test's 2e-4 relative, 2e-5 absolute.
-    M = 128: one K1 and one K3 per update, or two K2 base cases at
+    M = 128: one K2 and one K3 per update, or two K2 + K3 base cases at
     panel 64."""
     monkeypatch.setenv('DEEPCGP_PALLAS_FORCE', '1')
-    assert optim.natgrad_route(torch.float32, 128) == 'reversed'
+    assert optim.natgrad_route(torch.float32, 128) == 'upper'
     if route == 'panels':
         monkeypatch.setattr(cuda_linalg, 'upper_route',
                             lambda M: ('panels', 64))
     calls = []
-    for name in ('chol_inv_base_upper_plain', 'chol_factor_blocked_plain',
+    for name in ('chol_upper_blocked_plain', 'chol_factor_blocked_plain',
                  'tri_inv_blocked_plain'):
         monkeypatch.setattr(
             cuda_linalg, name,
@@ -276,9 +281,10 @@ def test_natgrad_update_f32_kernel_route_matches_jax(monkeypatch, route):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                        atol=2e-5)
     if route == 'panels':
-        assert calls == [('chol_inv_base_upper_plain', (3, 64, 64))] * 4
+        assert calls == [('chol_upper_blocked_plain', (3, 64, 64)),
+                         ('tri_inv_blocked_plain', (3, 64, 64))] * 4
     else:
-        assert calls == [('chol_factor_blocked_plain', (3, 128, 128)),
+        assert calls == [('chol_upper_blocked_plain', (3, 128, 128)),
                          ('tri_inv_blocked_plain', (3, 128, 128))] * 2
 
 

@@ -51,6 +51,14 @@ col2im) against their plain versions, and Adam training of
   carries the hidden layer's gradient, and one step of it from the
   builder's default init against the CPU.
 
+Last, the CLI a user runs, in process, on the synthetic fallback: the
+flagship through ``deepcgp_tpu_torch.cifar.main`` (5 chunks of 20 Adam
+steps, an eval of 1000 images after each), its run dir served on raw
+images, the same run stopped after 2 chunks and resumed from its
+full-state snapshot, the M=1024 configuration through
+``deepcgp_tpu_torch.mnist.main`` (NatGrad after 20 warm Adam steps), and
+the flagship's argv on learnable blobs, held to a held-out accuracy.
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -60,8 +68,11 @@ final line.  The last line is the device summary.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import csv
 import ctypes
+import io
 import json
 import os
 import subprocess
@@ -133,6 +144,34 @@ UNFUSED_PER_STEP = {
              'extract_patches_transposed': 1, 'col2im_transposed': 1}}
 MNIST_SERVING_PER_CALL = UNFUSED_PER_STEP['mnist_conv']
 UNFUSED_WARMUP_STEPS, UNFUSED_CHUNK, UNFUSED_WINDOW_SECONDS = 5, 10, 5.0
+# The CLI paths: the entry points' argv, the JAX package's CLI flags.  The
+# flagship CIFAR run: 5 chunks of 20 Adam steps, an eval of 1000 test
+# images after each; the M=1024 MNIST run: 20 warm Adam steps, then 5
+# chunks of 10 NatGrad steps, an eval of 512 after each; the blob run:
+# the flagship's argv on learnable blobs, 6 chunks of 100 steps.
+CLI_FLAGSHIP = ['--name', 'flagship', '-N', '2048', '-M', '384,384',
+                '--feature-maps', '10', '--filter-sizes', '5,5', '--strides',
+                '3,1', '--batch-size', '32', '--num-samples', '10',
+                '--test-every', '20', '--lr-decay-steps', '40', '--test-size',
+                '1000', '--no-tensorboard', '--full-state-ckpt']
+CLI_M1024 = ['--name', 'm1024', '-N', '2048', '-M', '1024', '--feature-maps',
+             '', '--filter-sizes', '5', '--strides', '1', '--last-kernel',
+             'rbf', '--batch-size', '128', '--num-samples', '10',
+             '--optimizer', 'NatGrad', '--natgrad-warm-steps', '20',
+             '--test-every', '10', '--lr-decay-steps', '20', '--test-size',
+             '512', '--no-tensorboard']
+CLI_BLOBS = CLI_FLAGSHIP + ['--name', 'blobs', '--test-every', '100',
+                            '--lr-decay-steps', '100000']
+BLOB_IMAGES, BLOB_TRAIN, BLOB_CHUNKS, BLOB_MIN_ACCURACY = 2560, 2048, 6, 0.95
+# Launches per predict_y of an eval batch (EVAL_BATCH rows) and per Adam
+# step.
+EVAL_BATCH = 32
+EVAL_PER_BATCH = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
+                               'conv_rbf_cross': 1},
+                  'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
+ADAM_PER_STEP = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
+                              'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 2},
+                 'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
 # Every launch counter, in the order of the kernels line.
 COUNTERS = ('chol_inv_base', 'chol_inv_base_upper', 'tri_inv_base',
             'conv_rbf_cross', 'conv_rbf_cross_bwd',
@@ -1388,6 +1427,339 @@ def mnist_conv_serving(torch, model, step: int, dev, card: dict, rng,
     return launches
 
 
+def expected_launches(*terms) -> dict:
+    """launches_of the sum of (count, {kernel: launches}) terms."""
+    total = {}
+    for count, per in terms:
+        for k, n in per.items():
+            total[k] = total.get(k, 0) + count * n
+    return launches_of(**total)
+
+
+def minus(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def log_rows(run_dir: str):
+    """(log.csv's first line, its entry rows as dicts): the header repeats
+    on every open of the log, and those lines are left out."""
+    with open(os.path.join(run_dir, 'log.csv')) as f:
+        lines = list(csv.reader(f))
+    return lines[0], [dict(zip(lines[0], r)) for r in lines[1:]
+                      if r[0] != 'Entry']
+
+
+def drive_cli(torch, fn, read_counts):
+    """Run fn() -- an entry point's main or an Experiment's lifecycle --
+    with its printed lines captured, the launch counts read just after
+    each model build (the Experiment's build_model) and the wall time.
+    Returns (fn(), the printed lines, the counts after each build,
+    seconds)."""
+    from deepcgp_tpu_torch.training import experiment
+    real_build, marks = experiment.build_model, []
+
+    def build(*a, **k):
+        model = real_build(*a, **k)
+        marks.append(read_counts())
+        return model
+    out = io.StringIO()
+    experiment.build_model = build
+    try:
+        with contextlib.redirect_stdout(out):
+            t = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+    finally:
+        experiment.build_model = real_build
+    return result, out.getvalue().splitlines(), marks, seconds
+
+
+def train_state_tensors(state) -> dict:
+    """Copies of every tensor a full-state snapshot holds."""
+    out = {f'model/{k}': v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for moment in ('mu', 'nu'):
+        out.update({f'{moment}/{k}': v.clone()
+                    for k, v in state.opt_state[moment].items()})
+    out['count'] = state.opt_state['count'].clone()
+    out['step'] = state.step.clone()
+    out['generator'] = state.generator.get_state()
+    return out
+
+
+def cli_phases(torch, dev, card: dict, seed: int, reset_counts,
+               read_counts) -> dict:
+    """The entry points a user runs, in process, on the synthetic fallback
+    (DEEPCGP_DATA_DIR an empty directory): the flagship CIFAR run with
+    Adam, the same run stopped after 2 chunks and resumed from its
+    full-state snapshot, the M=1024 MNIST run with NatGrad after an Adam
+    warm start, and the flagship's argv on learnable blobs for held-out
+    accuracy.  Each checks its log.csv, its ELBOs and its exact launches
+    after the build (each chunk's steps, NatGrad's verifying ELBO, the
+    eval batches).  Returns each path's launches, the build included."""
+    rng = np.random.RandomState(seed + 4)
+    with tempfile.TemporaryDirectory() as empty, \
+            tempfile.TemporaryDirectory() as root:
+        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
+        os.environ['DEEPCGP_DATA_DIR'] = empty
+        try:
+            return cli_paths(torch, dev, card, rng, root, reset_counts,
+                             read_counts)
+        finally:
+            if old_data_dir is None:
+                os.environ.pop('DEEPCGP_DATA_DIR', None)
+            else:
+                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
+
+
+def cli_paths(torch, dev, card: dict, rng, root: str, reset_counts,
+              read_counts) -> dict:
+    """The four CLI paths of ``cli_phases``, their files under ``root``."""
+    exp, rows, adam = cli_cifar_adam(torch, dev, card, rng, root,
+                                     reset_counts, read_counts)
+    resume = cli_cifar_resume(torch, card, root, exp, rows, reset_counts,
+                              read_counts)
+    del exp
+    return {'cli_cifar_adam': adam, 'cli_cifar_resume': resume,
+            'cli_mnist_m1024_natgrad': cli_m1024_natgrad(
+                torch, card, root, reset_counts, read_counts),
+            'cli_blobs_accuracy': cli_blobs_accuracy(
+                torch, card, root, reset_counts, read_counts)}
+
+
+def cli_cifar_adam(torch, dev, card: dict, rng, root: str, reset_counts,
+                   read_counts):
+    """``cifar.main`` on the flagship: its log.csv, ELBOs and launches,
+    then its run dir served on raw test images.  Returns (the experiment,
+    its log rows, its launches)."""
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.serving import Predictor
+    from deepcgp_tpu_torch.training import data
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    argv = CLI_FLAGSHIP + ['--log-dir', os.path.join(root, 'adam')]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exp, printed, marks, seconds = drive_cli(
+        torch, lambda: cifar.main(argv), read_counts)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = os.path.join(root, 'adam', 'flagship')
+    header, rows = log_rows(run_dir)
+    chunks = train_steps(exp.flags)
+    steps = chunks * exp.flags.test_every
+    evals = chunks * -(-exp.flags.test_size // EVAL_BATCH)
+    elbos = [float(r['train_elbo']) for r in rows]
+    check(header == ['Entry', 'global_step', 'lr', 'test_accuracy',
+                     'train_elbo', 'steps_per_sec'],
+          f'cli cifar: log.csv header {header}')
+    check([int(r['global_step']) for r in rows] == [20, 40, 60, 80, 100]
+          and chunks == 5, f'cli cifar: rows {rows}')
+    check(all(np.isfinite(elbos)) and elbos[-1] > elbos[0],
+          f'cli cifar: train_elbo {elbos}')
+    after_build = minus(total, marks[0])
+    want = expected_launches((steps, ADAM_PER_STEP['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']))
+    check(len(marks) == 1 and after_build == want,
+          f'cli cifar: launches after the build {after_build}, '
+          f'expected {want}')
+    # The run served: Predictor.from_run_dir on raw test images (the
+    # synthetic fallback's, selected as cifar_data selects them).
+    pred = Predictor.from_run_dir(run_dir, IMAGE, batch_size=BATCH,
+                                  num_samples=SAMPLES)
+    x_tr, _, x_te, _ = data.load_dataset('cifar10')
+    raw = np.concatenate([x_tr[exp.flags.N:], x_te]).transpose(0, 2, 3, 1)
+    chosen = np.random.RandomState(exp.flags.seed).choice(
+        len(raw), exp.flags.test_size, replace=False)
+    prepared = pred._prepare(raw[chosen], raw=True)
+    d_prep = float(np.abs(prepared - exp.X_test.reshape(len(chosen), -1))
+                   .max())
+    noise = [rng.randn(SAMPLES, BATCH, layer.num_outputs)
+             for layer in exp.model.layers]
+    xb = torch.as_tensor(prepared[:BATCH], device=dev)
+    with torch.no_grad():
+        p_served = pred.model.predict_y(xb, SAMPLES, noise=noise)[0]
+        p_trained = exp.model.predict_y(xb, SAMPLES, noise=noise)[0]
+    d_served = float((p_served - p_trained).abs().max())
+    probs = pred.predict_proba(raw[chosen][:2 * BATCH], raw=True)
+    emit({'phase': 'cli cifar flagship adam', **card, 'argv': argv,
+          'entry': 'deepcgp_tpu_torch.cifar.main', 'chunks': chunks,
+          'steps': steps, 'eval_batches': evals, 'seconds': seconds,
+          'log_csv': rows, 'printed': printed,
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_in_build': marks[0],
+          'launches_after_build': after_build,
+          'max_memory_allocated_bytes': peak,
+          'raw_prepared_vs_test_set_max_abs': d_prep,
+          'served_vs_trained_max_abs_prob': d_served,
+          'served_raw_probs_finite': bool(np.isfinite(probs).all()),
+          'tolerance': 'raw test images prepared by the served run within '
+                       '1e-6 of the test set; served vs trained '
+                       'probabilities on the same noise 1e-4'})
+    check(d_prep <= 1e-6, f'cli cifar: prepared raw images {d_prep}')
+    check(d_served <= 1e-4 and probs.shape == (2 * BATCH, 10)
+          and bool(np.isfinite(probs).all()),
+          f'cli cifar: served vs trained {d_served}')
+    return exp, rows, total
+
+
+def cli_cifar_resume(torch, card: dict, root: str, unbroken, unbroken_rows,
+                     reset_counts, read_counts) -> dict:
+    """The flagship's CLI run stopped after 2 chunks and resumed from its
+    full-state snapshot by a new ``Cifar``, against the unbroken run.
+    Returns the launches."""
+    from deepcgp_tpu_torch import cifar
+    argv = CLI_FLAGSHIP + ['--log-dir', os.path.join(root, 'resume')]
+    reset_counts()
+
+    def stop_and_resume():
+        first = cifar.Cifar(cifar.read_args(argv))
+        first.train_step()
+        first.train_step()
+        first.conclude()
+        saved = train_state_tensors(first.state)
+        del first
+        resumed = cifar.Cifar(cifar.read_args(argv))
+        restored = train_state_tensors(resumed.state)
+        resumed.run()
+        return saved, restored, resumed
+    (saved, restored, resumed), printed, _, seconds = drive_cli(
+        torch, stop_and_resume, read_counts)
+    launches = read_counts()
+    restore_equal = saved.keys() == restored.keys() and all(
+        saved[k].dtype == restored[k].dtype
+        and bool(torch.equal(saved[k], restored[k])) for k in saved)
+    _, rows = log_rows(os.path.join(root, 'resume', 'flagship'))
+    resumed_elbos = [float(r['train_elbo']) for r in rows[2:]]
+    unbroken_elbos = [float(r['train_elbo']) for r in unbroken_rows[2:]]
+    elbo_rel = [abs(a - b) / abs(b)
+                for a, b in zip(resumed_elbos, unbroken_elbos)]
+    final = train_state_tensors(resumed.state)
+    whole = train_state_tensors(unbroken.state)
+    cols = ('global_step', 'test_accuracy', 'train_elbo')
+    emit({'phase': 'cli cifar flagship resume', **card, 'argv': argv,
+          'seconds': seconds, 'printed': printed, 'log_csv': rows,
+          'restored_state_bit_equal': restore_equal,
+          'resumed_at_step': int(saved['step']),
+          'final_global_step': resumed.global_step,
+          'train_elbo_resumed': resumed_elbos,
+          'train_elbo_unbroken': unbroken_elbos,
+          'train_elbo_rel_diff': elbo_rel,
+          'rows_bit_equal_to_unbroken': [
+              [r[c] for c in cols] == [u[c] for c in cols]
+              for r, u in zip(rows, unbroken_rows)],
+          'final_state_bit_equal_to_unbroken': all(
+              bool(torch.equal(final[k], whole[k])) for k in final),
+          'launches': launches,
+          'tolerance': 'restored state bit-equal to the saved one; the '
+                       "resumed rows' train_elbo within 1e-3 relative of "
+                       "the unbroken run's"})
+    check(restore_equal and int(saved['step']) == 40,
+          'cli cifar resume: the restored state differs from the saved')
+    check(resumed.global_step == 100 and len(rows) == 5,
+          f'cli cifar resume: ended at {resumed.global_step}, '
+          f'{len(rows)} rows')
+    check(len(elbo_rel) == 3 and max(elbo_rel) <= 1e-3,
+          f'cli cifar resume: train_elbo {resumed_elbos} against '
+          f'{unbroken_elbos}')
+    return launches
+
+
+def cli_m1024_natgrad(torch, card: dict, root: str, reset_counts,
+                      read_counts) -> dict:
+    """``mnist.main`` on the M=1024 configuration with NatGrad after an
+    Adam warm start.  Returns the launches."""
+    from deepcgp_tpu_torch import mnist
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    argv = CLI_M1024 + ['--log-dir', os.path.join(root, 'm1024')]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exp, printed, marks, seconds = drive_cli(
+        torch, lambda: mnist.main(argv), read_counts)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _, rows = log_rows(os.path.join(root, 'm1024', 'm1024'))
+    chunks = train_steps(exp.flags)
+    steps = chunks * exp.flags.test_every
+    evals = chunks * -(-exp.flags.test_size // EVAL_BATCH)
+    warm = exp.flags.natgrad_warm_steps
+    elbos = [float(r['train_elbo']) for r in rows]
+    after_build = minus(total, marks[0])
+    want = expected_launches((warm, ADAM_PER_STEP['m1024']),
+                             (steps, NATGRAD_PER_STEP['m1024']),
+                             (chunks, NATGRAD_PER_CHUNK['m1024']),
+                             (evals, EVAL_PER_BATCH['m1024']))
+    emit({'phase': 'cli mnist m1024 natgrad', **card, 'argv': argv,
+          'entry': 'deepcgp_tpu_torch.mnist.main', 'warm_steps': warm,
+          'chunks': chunks, 'steps': steps, 'eval_batches': evals,
+          'seconds': seconds, 'log_csv': rows, 'printed': printed,
+          'steps_back': float(exp.state.steps_back),
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_in_build': marks[0],
+          'launches_after_build': after_build,
+          'max_memory_allocated_bytes': peak})
+    check(f'natgrad warm start: {warm} Adam steps' in printed,
+          f'cli mnist: no warm-start line in {printed}')
+    check(len(rows) == 5 and chunks == 5 and all(np.isfinite(elbos)),
+          f'cli mnist: rows {rows}')
+    check(len(marks) == 1 and after_build == want,
+          f'cli mnist: launches after the build {after_build}, '
+          f'expected {want}')
+    return total
+
+
+def cli_blobs_accuracy(torch, card: dict, root: str, reset_counts,
+                       read_counts) -> dict:
+    """The flagship's CLI argv on learnable blobs, through a ``Cifar``
+    whose data are the blobs, driven by ``train_step``: held-out accuracy.
+    Returns the launches."""
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.training import data
+
+    class Blobs(cifar.Cifar):
+        def _load_data(self):
+            X, y = data.learnable_blobs(BLOB_IMAGES, IMAGE, 10, 0)
+            self.X_train, self.Y_train = X[:BLOB_TRAIN], y[:BLOB_TRAIN]
+            self.X_test, self.Y_test = X[BLOB_TRAIN:], y[BLOB_TRAIN:]
+
+    argv = CLI_BLOBS + ['--log-dir', os.path.join(root, 'blobs')]
+    reset_counts()
+
+    def blobs():
+        experiment = Blobs(cifar.read_args(argv))
+        for _ in range(BLOB_CHUNKS):
+            experiment.train_step()
+        experiment.conclude()
+        return experiment
+    exp, _, marks, seconds = drive_cli(torch, blobs, read_counts)
+    total = read_counts()
+    _, rows = log_rows(os.path.join(root, 'blobs', 'blobs'))
+    accuracy = [float(r['test_accuracy']) for r in rows]
+    elbos = [float(r['train_elbo']) for r in rows]
+    steps = BLOB_CHUNKS * exp.flags.test_every
+    evals = BLOB_CHUNKS * -(-(BLOB_IMAGES - BLOB_TRAIN) // EVAL_BATCH)
+    after_build = minus(total, marks[0])
+    want = expected_launches((steps, ADAM_PER_STEP['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']))
+    emit({'phase': 'cli blobs flagship accuracy', **card, 'argv': argv,
+          'data': f'learnable_blobs({BLOB_IMAGES}, {IMAGE}, 10, 0): rows '
+                  f'0-{BLOB_TRAIN - 1} train, the rest held out',
+          'steps': steps, 'seconds': seconds, 'test_accuracy': accuracy,
+          'train_elbo': elbos,
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_after_build': after_build,
+          'min_final_accuracy': BLOB_MIN_ACCURACY})
+    check(len(rows) == BLOB_CHUNKS and all(np.isfinite(elbos)),
+          f'cli blobs: train_elbo {elbos}')
+    check(len(marks) == 1 and after_build == want,
+          f'cli blobs: launches after the build {after_build}, '
+          f'expected {want}')
+    check(accuracy[-1] >= BLOB_MIN_ACCURACY,
+          f'cli blobs: held-out accuracy {accuracy}')
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1979,6 +2351,10 @@ def main() -> int:
         torch, 'fm32', FM32, IMAGE, args.seed, rng, dev, card, reset_counts,
         read_counts, loaded={1: {'base_kernel/lengthscales': LENGTHSCALES[1]}})
     fm32_default_init_step(torch, args.seed, rng, dev, card)
+
+    # -- the CLI: the entry points a user runs ------------------------------
+    path_launches.update(cli_phases(torch, dev, card, args.seed,
+                                    reset_counts, read_counts))
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

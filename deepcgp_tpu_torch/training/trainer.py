@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from deepcgp_tpu_torch.training import optim
@@ -207,12 +206,15 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
 def accuracy(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
              num_samples: int = 5) -> float:
     """Test accuracy: per batch of ``batch_size``, the mean class
-    probability over ``num_samples`` MC draws, argmax, fraction correct."""
+    probability over ``num_samples`` MC draws, argmax, fraction correct.
+    ``X_test`` [N, ...] and ``Y_test`` [N(, 1)] are arrays or tensors; a
+    tensor already on the model's device is used where it lies.  One host
+    sync, for the count."""
     device = model.layers[0].Z.device
     dtype = model.layers[0].Z.dtype
-    X = torch.as_tensor(np.asarray(X_test).reshape(len(X_test), -1),
-                        dtype=dtype, device=device)
-    Y = torch.as_tensor(np.asarray(Y_test).reshape(-1, 1), device=device)
+    X = torch.as_tensor(X_test, device=device)
+    X = X.reshape(X.shape[0], -1).to(dtype)
+    Y = torch.as_tensor(Y_test, device=device).reshape(-1, 1)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     correct = torch.zeros((), dtype=torch.int64, device=device)

@@ -1,15 +1,21 @@
-"""Reference-format parameter snapshots (counterpart of
-``deepcgp_tpu/utils/checkpoint.py``; the full-state snapshots are not
-ported yet).
+"""Checkpoints (counterpart of ``deepcgp_tpu/utils/checkpoint.py``).
 
-A snapshot is ``np.save`` of a flat {pathname: constrained value} dict plus
-``global_step``, with the reference's ``DGP/layers/<i>/<param>`` pathnames,
-so a snapshot written by the JAX package loads here and back.
+A reference-format snapshot is ``np.save`` of a flat {pathname:
+constrained value} dict plus ``global_step``, with the reference's
+``DGP/layers/<i>/<param>`` pathnames, so a snapshot written by the JAX
+package loads here and back.
+
+A full-state snapshot (``--full-state-ckpt``) is one ``torch.save`` of the
+whole ``TrainState`` -- the model's parameters and buffers, the optimizer
+moments and count, the generator state, the step and NatGrad's backoff
+counter and verified parameters -- as ``state_<step>.pt``, so a resumed run
+continues bit for bit.  Its format is the port's own.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -91,3 +97,79 @@ def parse_layer_parameters(parameters: dict, model_layers: int):
 
 def load_layer_parameters(path: str, model_layers: int):
     return parse_layer_parameters(load_raw(path), model_layers)
+
+
+# ------------------------------------------------------------ full state
+
+_STATE_RE = re.compile(r'^state_(\d+)\.pt$')
+
+
+def save_train_state(directory: str, state, *, keep: int = 3) -> None:
+    """Write the full TrainState to ``directory/state_<step>.pt``: saved
+    under a temporary name and renamed, so a crash mid-save leaves no
+    snapshot that ``latest_train_state_step`` would pick.  Only the
+    ``keep`` newest snapshots stay."""
+    os.makedirs(directory, exist_ok=True)
+    step = int(state.step)
+    payload = {'model': state.model.state_dict(),
+               'opt_state': {k: v for k, v in state.opt_state.items()
+                             if k != 'salt_index'},
+               'step': state.step, 'steps_back': state.steps_back,
+               'prev': state.prev, 'generator': state.generator.get_state()}
+    path = os.path.join(directory, f'state_{step}.pt')
+    tmp = f'{path}.tmp-{os.getpid()}'
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    for old in sorted(_complete_snapshots(directory))[:-keep]:
+        os.remove(os.path.join(directory, f'state_{old}.pt'))
+
+
+def _complete_snapshots(directory: str) -> list:
+    """Steps of the fully written snapshots (temporary files excluded)."""
+    return [int(m.group(1)) for m in map(_STATE_RE.match,
+                                         os.listdir(directory)) if m]
+
+
+def latest_train_state_step(directory: str) -> int | None:
+    if not os.path.isdir(directory):
+        return None
+    steps = _complete_snapshots(directory)
+    return max(steps) if steps else None
+
+
+def _copy_into(dst: dict, src: dict, what: str) -> None:
+    if set(dst) != set(src):
+        raise ValueError(f'{what}: the snapshot holds {sorted(src)}, the '
+                         f'state {sorted(dst)}')
+    for k, t in dst.items():
+        t.copy_(src[k])
+
+
+@torch.no_grad()
+def restore_train_state(directory: str, state):
+    """Restore the newest full snapshot into ``state`` (a freshly built
+    TrainState of the same model, optimizer and device), in place, and
+    return it.  Each tensor is copied into the state's own, so a moment
+    stored in another dtype is cast to the state's."""
+    step = latest_train_state_step(directory)
+    if step is None:
+        raise FileNotFoundError(f'no state_*.pt snapshots under {directory}')
+    saved = torch.load(os.path.join(directory, f'state_{step}.pt'),
+                       map_location='cpu', weights_only=True)
+    state.model.load_state_dict(saved['model'])
+    opt = saved['opt_state']
+    if 'count' in state.opt_state:
+        state.opt_state['count'].copy_(opt['count'])
+        _copy_into(state.opt_state['mu'], opt['mu'], 'Adam mu')
+        _copy_into(state.opt_state['nu'], opt['nu'], 'Adam nu')
+    elif opt:
+        raise ValueError('the snapshot holds optimizer moments the state '
+                         'has no place for')
+    state.step = saved['step'].to(state.step.device)
+    if (saved['steps_back'] is None) != (state.steps_back is None):
+        raise ValueError('the snapshot and the state differ in optimizer')
+    if state.steps_back is not None:
+        state.steps_back = saved['steps_back'].to(state.steps_back.device)
+        _copy_into(state.prev, saved['prev'], 'NatGrad prev')
+    state.generator.set_state(saved['generator'])
+    return state

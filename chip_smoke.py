@@ -59,6 +59,17 @@ full-state snapshot, the M=1024 configuration through
 ``deepcgp_tpu_torch.mnist.main`` (NatGrad after 20 warm Adam steps), and
 the flagship's argv on learnable blobs, held to a held-out accuracy.
 
+Then the models the JAX CLI builds beyond the flagship's, through the
+same entry point: a 3-layer stack with the identity mean (32x32x3,
+M=384,384,384, 10 and 10 feature maps, filters 5,3,3, strides 2,1,1: an
+unfused last layer over P = 100, L = 90) trained with Adam, served, and
+stopped and resumed bit for bit, then trained with NatGrad after an Adam
+warm start (the solve's [30, 384, 384] batch on K2); and the flagship's
+geometry with an ArcCosine hidden layer and the identity mean on learnable
+blobs, Adam then NatGrad.  The second hidden layer's extraction, whose
+backward is the first to reach a sample, is timed by the plain route it
+takes against K6/K7.
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -119,11 +130,15 @@ NATGRAD_PER_STEP = {
                  'conv_rbf_cross_bwd': 2},
     'm1024': {'chol_inv_base': 1, 'chol_inv_base_upper': 1, 'tri_inv_base': 2,
               'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0},
-    'm1088': {'chol_inv_base_upper': 1, 'tri_inv_base': 1}}
+    'm1088': {'chol_inv_base_upper': 1, 'tri_inv_base': 1},
+    'deep3': {'chol_inv_base': 1, 'chol_inv_base_upper': 1, 'tri_inv_base': 2,
+              'extract_patches_transposed': 1, 'col2im_transposed': 2}}
 NATGRAD_PER_CHUNK = {
     'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1},
     'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
-    'm1088': {}}
+    'm1088': {},
+    'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
+              'extract_patches_transposed': 1}}
 # NatGrad above K1's largest matrix: the M=1024 configuration at M = 1088.
 # No configuration of the repo goes past M = 1024 (BASELINE.md's sweep ends
 # there); this path drives K2 beyond K1's largest matrix through the
@@ -163,15 +178,59 @@ CLI_M1024 = ['--name', 'm1024', '-N', '2048', '-M', '1024', '--feature-maps',
 CLI_BLOBS = CLI_FLAGSHIP + ['--name', 'blobs', '--test-every', '100',
                             '--lr-decay-steps', '100000']
 BLOB_IMAGES, BLOB_TRAIN, BLOB_CHUNKS, BLOB_MIN_ACCURACY = 2560, 2048, 6, 0.95
+# Depth 3: tests/test_deep_stack.py's geometry at CIFAR's 32x32x3 and the
+# flagship's widths (M = 384 a layer, 10 feature maps) with the identity
+# mean: 14x14x10 -> 12x12x10 -> an unfused ConvKernel last layer over
+# P = 100, L = 90.  Adam: 3 chunks of 10 steps, an eval of 256 images
+# after each, then the same run stopped after a chunk and resumed.  NatGrad:
+# 10 warm Adam steps, then 3 chunks of 10 NatGrad steps whose solve
+# stacks the three layers' 30 GPs into one [30, 384, 384] batch.  The
+# ArcCosine path: the flagship's geometry with an order-0 ArcCosine hidden
+# layer and the identity mean on learnable blobs, 100 warm Adam steps,
+# then 3 chunks of 50 NatGrad steps.
+CLI_DEEP3 = ['--name', 'deep3', '-N', '2048', '-M', '384,384,384',
+             '--feature-maps', '10,10', '--filter-sizes', '5,3,3', '--strides',
+             '2,1,1', '--identity-mean', '--batch-size', '32',
+             '--num-samples', '10', '--test-every', '10', '--lr-decay-steps',
+             '10', '--test-size', '256', '--no-tensorboard',
+             '--full-state-ckpt']
+CLI_DEEP3_NATGRAD = CLI_DEEP3[:-1] + ['--name', 'deep3ng', '--optimizer',
+                                      'NatGrad', '--natgrad-warm-steps', '10',
+                                      '--test-size', '64']
+CLI_ACOS = ['--name', 'acos', '-N', '2048', '-M', '384,384', '--feature-maps',
+            '10', '--filter-sizes', '5,5', '--strides', '3,1', '--base-kernel',
+            'acos', '--identity-mean', '--batch-size', '32', '--num-samples',
+            '10', '--optimizer', 'NatGrad', '--natgrad-warm-steps', '100',
+            '--test-every', '50', '--lr-decay-steps', '100000',
+            '--no-tensorboard']
+ACOS_CHUNKS = 3
+# The batch of the depth-3 steps held against the CPU (its float64 side
+# runs the [S*N*P, R*M] products of layer 2 on the host); the chunks and
+# steps of each new path's bare run_chunk window after its CLI run, and
+# the steps of it under the profiler (each takes ~1 s of the profiler's
+# host work).
+DEEP3_CHECK_BATCH = 8
+WINDOW_CHUNKS, WINDOW_CHUNK, WINDOW_PROFILE_STEPS = 3, 10, 8
 # Launches per predict_y of an eval batch (EVAL_BATCH rows) and per Adam
 # step.
 EVAL_BATCH = 32
+# Depth 3 factors its five [384, 384] grams (two hidden layers' Kuu and KL
+# prior, the last layer's Kuu) in one K1 + K3 pair; its hidden layers'
+# extraction is a strided copy, and only the unfused last layer launches
+# K6.  The backward launches K7 twice: once for the last layer, once for
+# the second hidden layer's extraction of a sample (layer 1 reads images,
+# which need no gradient).
 EVAL_PER_BATCH = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
                                'conv_rbf_cross': 1},
-                  'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
+                  'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
+                  'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
+                            'extract_patches_transposed': 1}}
 ADAM_PER_STEP = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
                               'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 2},
-                 'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1}}
+                 'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
+                 'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
+                           'extract_patches_transposed': 1,
+                           'col2im_transposed': 2}}
 # Every launch counter, in the order of the kernels line.
 COUNTERS = ('chol_inv_base', 'chol_inv_base_upper', 'tri_inv_base',
             'conv_rbf_cross', 'conv_rbf_cross_bwd',
@@ -213,6 +272,34 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds of fn() over ``iters`` calls whose launches
+    the host queued while the device spun (``torch.cuda._sleep``), so the
+    device runs them back to back: the device time of a call that the
+    host takes longer to launch than the device to run, which CUDA events
+    around host-paced calls cannot give.  The spin doubles until the
+    device is still in it when the host has queued every call."""
+    for _ in range(warmup):
+        fn()
+    cycles = 1 << 24
+    for _ in range(12):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        end.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise RuntimeError('chip_smoke check failed: the host never queued '
+                       f'{iters} calls ahead of the device')
 
 
 # Every profiled round of kernel_ms: [kernel, launches recorded, made].
@@ -472,13 +559,16 @@ K1K3_TOLERANCE = ('relative to max|.|: K1 (factor, diagonal-block inverses) '
 # ([3, 384, 384] flagship, [1, 1024, 1024] M=1024 and MNIST ConvKernel) and
 # the NatGrad solve's ([20, 384, 384] flagship at 4 blocks a matrix,
 # [10, 1024, 1024] M=1024 at 8; their inputs come from the ``aux``
-# generator, see main).
+# generator, see main) and depth 3's Kuu batch ([5, 384, 384]: two hidden
+# layers' Kuu and KL prior, the last layer's Kuu; from the ``deep``
+# generator).
 K1K3_SOLVE_SHAPES = ((20, 384), (10, 1024))
+K1K3_DEEP3_SHAPES = ((5, 384),)
 K1K3_SHAPES = ((3, 64), (1, 128), (8, 128), (3, 384), (1, 1024)) + \
-    K1K3_SOLVE_SHAPES
+    K1K3_SOLVE_SHAPES + K1K3_DEEP3_SHAPES
 
 
-def k1_k3_phases(torch, dev, card: dict, rng, aux, Kuu) -> list:
+def k1_k3_phases(torch, dev, card: dict, rng, aux, deep, Kuu) -> list:
     """K1 (the whole blocked factor, one cluster a matrix) and K3 (the whole
     inverse by column strips) at K1K3_SHAPES: each against its plain
     version on the same inputs, the route against float64, a non-PD
@@ -494,8 +584,10 @@ def k1_k3_phases(torch, dev, card: dict, rng, aux, Kuu) -> list:
           'source': 'deepcgp_tpu_torch/csrc/tri_inv.cu',
           'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:165', 'max_abs_err': 0.0}
     for b, M in K1K3_SHAPES:
-        D = (Kuu[:, :M, :M].contiguous() if M == 64 else spd_batch(
-            torch, aux if (b, M) in K1K3_SOLVE_SHAPES else rng, b, M, dev))
+        g_rng = (deep if (b, M) in K1K3_DEEP3_SHAPES else
+                 aux if (b, M) in K1K3_SOLVE_SHAPES else rng)
+        D = (Kuu[:, :M, :M].contiguous() if M == 64
+             else spd_batch(torch, g_rng, b, M, dev))
         L, Dinv = cl.chol_factor_blocked(D)
         X = cl.tri_inv_blocked(L, Dinv)
         X0 = cl.tri_inv_blocked(L)
@@ -587,15 +679,19 @@ def k1_k3_phases(torch, dev, card: dict, rng, aux, Kuu) -> list:
 # K2's whole-factor shapes: the NatGrad solve's G on the flagship
 # ([20, 384, 384]), M=1024 ([10, 1024, 1024]) and M=1088 ([10, 1088, 1088])
 # paths, and [2, 1088, 1088] and [2, 2048, 2048] beyond K1's largest
-# matrix (inputs from the ``aux`` generator).
-K2_SHAPES = ((20, 384), (10, 1024), (2, 1088), (10, 1088), (2, 2048))
+# matrix (inputs from the ``aux`` generator); then depth 3's
+# ([30, 384, 384]: three layers of 10 GPs, inputs and the garbage above
+# the diagonal from the ``deep`` generator).
+K2_DEEP3_SHAPES = ((30, 384),)
+K2_SHAPES = ((20, 384), (10, 1024), (2, 1088), (10, 1088), (2, 2048)) + \
+    K2_DEEP3_SHAPES
 K2_TOLERANCE = ('relative to max|.|: factor and Dinv <= 1e-5 of the plain '
                 'version on the same inputs; R R^T against G and the solve '
                 'W R^-T against float64 <= 1e-4; bit-equal with garbage '
                 'above the diagonal, and to K1 on J G J (M <= 1024)')
 
 
-def k2_phases(torch, dev, card: dict, rng, aux) -> list:
+def k2_phases(torch, dev, card: dict, rng, aux, deep) -> list:
     """K2 (the whole upper factor, one cluster a matrix, from G's lower
     triangle) at K2_SHAPES: against its plain version and float64, bit-equal
     with garbage above G's diagonal and to K1 on J G J, a non-PD element NaN
@@ -610,10 +706,13 @@ def k2_phases(torch, dev, card: dict, rng, aux) -> list:
           'source': 'deepcgp_tpu_torch/csrc/chol_inv.cu',
           'replaces': 'deepcgp_tpu/ops/pallas_linalg.py:135', 'max_abs_err': 0.0}
     for b, M in K2_SHAPES:
-        D = spd_batch(torch, aux, b, M, dev)
+        g_rng = deep if (b, M) in K2_DEEP3_SHAPES else aux
+        D = spd_batch(torch, g_rng, b, M, dev)
         G = torch.tril(D)
-        Gg = G + torch.triu(torch.randn(b, M, M, device=dev) * 1e3, 1)
-        X = torch.tril(spd_batch(torch, aux, b, M, dev))
+        noise = (torch.as_tensor(deep.randn(b, M, M), dtype=G.dtype, device=dev)
+                 if g_rng is deep else torch.randn(b, M, M, device=dev))
+        Gg = G + torch.triu(noise * 1e3, 1)
+        X = torch.tril(spd_batch(torch, g_rng, b, M, dev))
         Lf, Dv = cl.chol_upper_blocked(G)
         torch.cuda.synchronize()
         Lp, Dp = cl.chol_upper_blocked_plain(G)
@@ -859,6 +958,64 @@ def driver_phases(torch, dev, card: dict, rng, aux) -> None:
                           '(library_solve); library_ms is the faster'})
 
 
+NATGRAD_STEP_TOLERANCE = (
+    'ELBO 1e-4 relative; q_mu and q_sqrt after the step within 1e-4 of '
+    "their largest magnitude, the step's change within 5e-2 of its largest "
+    '(the gradients behind it agree to 1e-2 in float32) or, where float32 '
+    "itself is that far off, within 5e-2 plus twice the CPU float32's "
+    'distance of the float64 change')
+
+
+def natgrad_step_vs_cpu(torch, model, config, Xd, Yd, batch: int, seed: int,
+                        rng):
+    """One NatGrad step's proposal from ``model``, the card against the
+    same model on the CPU (plain versions), float64 on the CPU as the
+    reference: the same parameters, batch and noise (drawn from ``rng``),
+    every side from step 0 and steps_back 0.  Returns (the phase line's
+    fields, None or what disagreed)."""
+    from deepcgp_tpu_torch.training import trainer
+    noise = [rng.randn(model.num_samples, batch, layer.num_outputs)
+             for layer in model.layers]
+    xb, yb = Xd[:batch], Yd[:batch]
+    dev = xb.device
+    sides = {}
+    for side, device, dtype in (('card', dev, torch.float32),
+                                ('cpu', torch.device('cpu'), torch.float32),
+                                ('f64', torch.device('cpu'), torch.float64)):
+        st = trainer.init_state(copy.deepcopy(model).to(device, dtype), config,
+                                seed=seed)
+        before = {k: p.detach().clone() for k, p in st.params.items()
+                  if k.endswith(('q_mu', 'q_sqrt'))}
+        elbo = trainer.train_step(st, config, xb.to(device, dtype),
+                                  yb.to(device), noise=noise)
+        sides[side] = (float(elbo), {
+            k: (st.params[k].detach().double().cpu(),
+                (st.params[k] - before[k]).detach().double().cpu())
+            for k in before})
+
+    def errs(a, b, i):
+        return {k: rel(v[i], sides[b][1][k][i]) for k, v in sides[a][1].items()}
+    elbo_err = abs(sides['card'][0] - sides['cpu'][0]) / abs(sides['cpu'][0])
+    param_err = errs('card', 'cpu', 0)
+    delta_err = errs('card', 'cpu', 1)
+    delta_f64 = {'card': errs('card', 'f64', 1), 'cpu': errs('cpu', 'f64', 1)}
+    delta_ok = f32_agrees(delta_err, delta_f64['card'], delta_f64['cpu'], 5e-2)
+    fields = {'card_vs_cpu': {'elbo_rel_err': elbo_err,
+                              'param_rel_err': param_err,
+                              'step_change_rel_err': delta_err},
+              'step_change_rel_err_vs_f64': delta_f64,
+              'elbo_card_cpu_f64': [sides[k][0] for k in ('card', 'cpu', 'f64')],
+              'tolerance': NATGRAD_STEP_TOLERANCE}
+    failure = None
+    if not (elbo_err <= 1e-4 and max(param_err.values()) <= 1e-4
+            and all(delta_ok.values())
+            and all(np.isfinite(sides[k][0]) for k in sides)):
+        failure = (f'NatGrad step, card vs CPU: elbo {elbo_err}, parameters '
+                   f'{param_err}, their change {delta_err}, vs float64 '
+                   f'{delta_f64}')
+    return fields, failure
+
+
 def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
                      rng, dev, card: dict, reset_counts, read_counts,
                      warmup: int, chunk: int, window_seconds: float,
@@ -908,34 +1065,8 @@ def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
     check(launches == expected, f'{label} NatGrad: launches {launches} for '
           f'{steps} steps in {len(traces)} chunks, expected {expected}')
 
-    # One step's proposal, the card against the CPU (plain versions): the
-    # same parameters, batch and noise, both from step 0 and steps_back 0.
-    noise = [(noise_rng or rng).randn(model.num_samples, batch,
-                                      layer.num_outputs)
-             for layer in model.layers]
-    xb, yb = Xd[:batch], Yd[:batch]
-    sides = {}
-    for side, device, dtype in (('card', dev, torch.float32),
-                                ('cpu', torch.device('cpu'), torch.float32),
-                                ('f64', torch.device('cpu'), torch.float64)):
-        st = trainer.init_state(copy.deepcopy(model).to(device, dtype), config,
-                                seed=seed)
-        before = {k: p.detach().clone() for k, p in st.params.items()
-                  if k.endswith(('q_mu', 'q_sqrt'))}
-        elbo = trainer.train_step(st, config, xb.to(device, dtype),
-                                  yb.to(device), noise=noise)
-        sides[side] = (float(elbo), {
-            k: (st.params[k].detach().double().cpu(),
-                (st.params[k] - before[k]).detach().double().cpu())
-            for k in before})
-
-    def errs(a, b, i):
-        return {k: rel(v[i], sides[b][1][k][i]) for k, v in sides[a][1].items()}
-    elbo_err = abs(sides['card'][0] - sides['cpu'][0]) / abs(sides['cpu'][0])
-    param_err = errs('card', 'cpu', 0)
-    delta_err = errs('card', 'cpu', 1)
-    delta_f64 = {'card': errs('card', 'f64', 1), 'cpu': errs('cpu', 'f64', 1)}
-    delta_ok = f32_agrees(delta_err, delta_f64['card'], delta_f64['cpu'], 5e-2)
+    fields, failure = natgrad_step_vs_cpu(torch, model, config, Xd, Yd,
+                                          batch, seed, noise_rng or rng)
     emit({'phase': f'natgrad training {label}', **card, 'config': dict(flags.__dict__),
           'image': list(image), 'optimizer': 'NatGrad', 'lr': config.lr,
           'gamma': config.gamma, 'batch_size': batch,
@@ -945,20 +1076,8 @@ def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
           'steps_per_s': steps / window, 'launches': launches,
           'elbo_first': float(trace[0]), 'elbo_window_start': float(trace[warmup]),
           'elbo_last': float(trace[-1]), 'steps_back': float(state.steps_back),
-          'max_memory_allocated_bytes': peak,
-          'card_vs_cpu': {'elbo_rel_err': elbo_err, 'param_rel_err': param_err,
-                          'step_change_rel_err': delta_err},
-          'step_change_rel_err_vs_f64': delta_f64,
-          'tolerance': 'ELBO 1e-4 relative; q_mu and q_sqrt after the step '
-                       'within 1e-4 of their largest magnitude, the step\'s '
-                       'change within 5e-2 of its largest (the gradients '
-                       'behind it agree to 1e-2 in float32) or, where float32 '
-                       'itself is that far off, within 5e-2 plus twice the '
-                       "CPU float32's distance of the float64 change"})
-    check(elbo_err <= 1e-4 and max(param_err.values()) <= 1e-4
-          and all(delta_ok.values()),
-          f'{label} NatGrad step, card vs CPU: elbo {elbo_err}, parameters '
-          f'{param_err}, their change {delta_err}, vs float64 {delta_f64}')
+          'max_memory_allocated_bytes': peak, **fields})
+    check(failure is None, f'{label} {failure}')
     return state, config, Xd, Yd, launches, fresh
 
 
@@ -1096,7 +1215,7 @@ def k6_plan_on_card(img, out, f, s, d, grid) -> dict:
     return dict(zip(K6_PLAN_KEYS, plan))
 
 
-def patches_phases(torch, dev, card: dict, rng, new_rng) -> list:
+def patches_phases(torch, dev, card: dict, rng, new_rng, deep) -> list:
     """K6 and K7 against their plain versions on the card, at the MNIST
     last layer ([32, 28, 28, 1], f5 s1 -> [32, 576, 25]), the CIFAR fm32
     last layer ([320, 10, 10, 32], f5 s1 -> [320, 36, 800]) and an odd
@@ -1106,7 +1225,10 @@ def patches_phases(torch, dev, card: dict, rng, new_rng) -> list:
     serving ([128, 28, 28, 1]), an image beyond a block's shared memory
     ([4, 40, 40, 40], 256 KB) and fm32's geometry at N = 64 with both
     tensors one float past 16-byte alignment (the kernels then move single
-    floats).  K6 must equal its plain version bit for bit (it moves values
+    floats), then, from ``deep``, depth 3's second hidden layer
+    ([320, 14, 14, 10], f3 s1 -> [320, 144, 90]: its extraction's backward
+    is K7) and its unfused last layer ([320, 12, 12, 10] -> [320, 100, 90]).
+    K6 must equal its plain version bit for bit (it moves values
     untouched), K7 lie within 1e-6 of the largest magnitude (float32 sums
     in another order) and give the same bits in two launches; K6's split,
     as the launcher computes it, must equal ``cuda_patches.extract_plan``.
@@ -1125,7 +1247,9 @@ def patches_phases(torch, dev, card: dict, rng, new_rng) -> list:
               ('strides21', 320, 14, 14, 10, 5, 1, 1),
               ('mnist serving', 128, 28, 28, 1, 5, 1, 1),
               ('beyond smem', 4, 40, 40, 40, 5, 1, 1),
-              ('unaligned', 64, 10, 10, 32, 5, 1, 1))
+              ('unaligned', 64, 10, 10, 32, 5, 1, 1),
+              ('deep3 hidden', 320, 14, 14, 10, 3, 1, 1),
+              ('deep3 last layer', 320, 12, 12, 10, 3, 1, 1))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(2 ** 25, dtype=torch.float32, device=dev)  # 128 MiB
     k6 = {'name': 'extract_patches_transposed', 'route': 'cuda',
@@ -1137,7 +1261,7 @@ def patches_phases(torch, dev, card: dict, rng, new_rng) -> list:
           'replaces': 'deepcgp_tpu/ops/pallas_patches.py:201',
           'max_abs_err': 0.0}
     for i, (label, N, H, W, C, f, s, d) in enumerate(shapes):
-        g_rng = rng if i < 3 else new_rng
+        g_rng = rng if i < 3 else new_rng if i < 7 else deep
         Hout, Wout = out_size(H, f, s, d), out_size(W, f, s, d)
         P, L = Hout * Wout, f * f * C
         lead = 1 if label == 'unaligned' else 0
@@ -1525,7 +1649,22 @@ def cli_paths(torch, dev, card: dict, rng, root: str, reset_counts,
             'cli_mnist_m1024_natgrad': cli_m1024_natgrad(
                 torch, card, root, reset_counts, read_counts),
             'cli_blobs_accuracy': cli_blobs_accuracy(
-                torch, card, root, reset_counts, read_counts)}
+                torch, card, root, reset_counts, read_counts),
+            **cli_new_model_paths(torch, dev, card, rng, root, reset_counts,
+                                  read_counts)}
+
+
+def cli_new_model_paths(torch, dev, card: dict, rng, root: str, reset_counts,
+                        read_counts) -> dict:
+    """The depth-3 and ArcCosine CLI paths.  Returns each path's
+    launches."""
+    deep3, deep3_resume = cli_deep3_adam(torch, dev, card, rng, root,
+                                         reset_counts, read_counts)
+    return {'cli_deep3_adam': deep3, 'cli_deep3_resume': deep3_resume,
+            'train_deep3_natgrad': cli_deep3_natgrad(
+                torch, dev, card, rng, root, reset_counts, read_counts),
+            'cli_acos_identity': cli_acos_identity(
+                torch, dev, card, rng, root, reset_counts, read_counts)}
 
 
 def cli_cifar_adam(torch, dev, card: dict, rng, root: str, reset_counts,
@@ -1604,28 +1743,33 @@ def cli_cifar_adam(torch, dev, card: dict, rng, root: str, reset_counts,
     return exp, rows, total
 
 
+def stop_and_resume(argv, chunks: int):
+    """A ``Cifar`` of ``argv`` (with --full-state-ckpt) stopped after
+    ``chunks`` chunks, and a new one that resumes from its snapshot and
+    runs the rest.  Returns (the stopped state's tensors, the restored
+    state's, the resumed experiment)."""
+    from deepcgp_tpu_torch import cifar
+    first = cifar.Cifar(cifar.read_args(argv))
+    for _ in range(chunks):
+        first.train_step()
+    first.conclude()
+    saved = train_state_tensors(first.state)
+    del first
+    resumed = cifar.Cifar(cifar.read_args(argv))
+    restored = train_state_tensors(resumed.state)
+    resumed.run()
+    return saved, restored, resumed
+
+
 def cli_cifar_resume(torch, card: dict, root: str, unbroken, unbroken_rows,
                      reset_counts, read_counts) -> dict:
     """The flagship's CLI run stopped after 2 chunks and resumed from its
     full-state snapshot by a new ``Cifar``, against the unbroken run.
     Returns the launches."""
-    from deepcgp_tpu_torch import cifar
     argv = CLI_FLAGSHIP + ['--log-dir', os.path.join(root, 'resume')]
     reset_counts()
-
-    def stop_and_resume():
-        first = cifar.Cifar(cifar.read_args(argv))
-        first.train_step()
-        first.train_step()
-        first.conclude()
-        saved = train_state_tensors(first.state)
-        del first
-        resumed = cifar.Cifar(cifar.read_args(argv))
-        restored = train_state_tensors(resumed.state)
-        resumed.run()
-        return saved, restored, resumed
     (saved, restored, resumed), printed, _, seconds = drive_cli(
-        torch, stop_and_resume, read_counts)
+        torch, lambda: stop_and_resume(argv, 2), read_counts)
     launches = read_counts()
     restore_equal = saved.keys() == restored.keys() and all(
         saved[k].dtype == restored[k].dtype
@@ -1709,11 +1853,9 @@ def cli_m1024_natgrad(torch, card: dict, root: str, reset_counts,
     return total
 
 
-def cli_blobs_accuracy(torch, card: dict, root: str, reset_counts,
-                       read_counts) -> dict:
-    """The flagship's CLI argv on learnable blobs, through a ``Cifar``
-    whose data are the blobs, driven by ``train_step``: held-out accuracy.
-    Returns the launches."""
+def blobs_cifar(argv):
+    """A ``Cifar`` of ``argv`` whose data are learnable blobs: rows
+    0 .. BLOB_TRAIN - 1 train, the rest held out."""
     from deepcgp_tpu_torch import cifar
     from deepcgp_tpu_torch.training import data
 
@@ -1723,11 +1865,388 @@ def cli_blobs_accuracy(torch, card: dict, root: str, reset_counts,
             self.X_train, self.Y_train = X[:BLOB_TRAIN], y[:BLOB_TRAIN]
             self.X_test, self.Y_test = X[BLOB_TRAIN:], y[BLOB_TRAIN:]
 
+    return Blobs(cifar.read_args(argv))
+
+
+def window_and_profile(torch, label: str, exp, card: dict, reset_counts,
+                       read_counts) -> None:
+    """After a CLI run, its state's bare speed: WINDOW_CHUNKS run_chunk
+    calls of WINDOW_CHUNK steps (steps/s, peak memory over them), then
+    WINDOW_PROFILE_STEPS steps under the profiler (device busy ms)."""
+    from deepcgp_tpu_torch.training import trainer
+    state, config = exp.state, exp.config
+    Xd, Yd = exp.X_train_dev, exp.Y_train_dev
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trace = torch.cat([trainer.run_chunk(state, config, Xd, Yd, WINDOW_CHUNK)
+                       for _ in range(WINDOW_CHUNKS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms, busy_ms, top, rounds = profile_device(
+        torch, lambda: trainer.run_chunk(state, config, Xd, Yd,
+                                         WINDOW_PROFILE_STEPS),
+        reset_counts, read_counts)
+    steps = WINDOW_CHUNKS * WINDOW_CHUNK
+    emit({'phase': f'{label} window', **card, 'optimizer': config.optimizer,
+          'batch_size': config.batch_size,
+          'num_samples': exp.model.num_samples, 'steps': steps,
+          'seconds': seconds, 'steps_per_s': steps / seconds,
+          'elbo_first': float(trace[0]), 'elbo_last': float(trace[-1]),
+          'max_memory_allocated_bytes': peak,
+          'profile_steps': WINDOW_PROFILE_STEPS, 'wall_ms': wall_ms,
+          'device_busy_ms': busy_ms, 'device_busy_share': busy_ms / wall_ms,
+          'profile_rounds': rounds, 'top_device_ms': top})
+    check(finite(torch, trace), f'{label} window: an ELBO is not finite')
+
+
+def resolvable_copy(torch, model):
+    """A copy of a trained depth-3 model whose last layer's lengthscale is
+    LENGTHSCALES[1], as the flagship snapshot's and fm32's.  At the
+    builder's 5, the last layer's 90-element patches of the hidden layers'
+    samples sit so far apart that the gradients through its
+    cross-covariances (its Z, patch weights and lengthscale, and every
+    hidden layer's Z) are below float32's resolution in float64, and a
+    check there holds rounding noise to rounding noise."""
+    from deepcgp_tpu_torch.utils.transforms import positive_backward
+    copied = copy.deepcopy(model)
+    base = copied.layers[-1].kernel.base_kernel
+    with torch.no_grad():
+        base.raw_lengthscales.fill_(float(positive_backward(LENGTHSCALES[1])))
+    return copied
+
+
+def natgrad_solve_batches(model) -> list:
+    """[B, M, M] of each NatGrad solve of a step: the layers' GPs stacked
+    by (M, R), as ``optim.natgrad_step_with_backoff`` stacks them."""
+    groups: dict = {}
+    for layer in model.layers:
+        M, R = layer.q_mu.shape
+        groups[(M, R)] = groups.get((M, R), 0) + R
+    return [[b, M, M] for (M, _), b in groups.items()]
+
+
+def cli_deep3_adam(torch, dev, card: dict, rng, root: str, reset_counts,
+                   read_counts):
+    """``cifar.main`` on the depth-3 identity-mean configuration with Adam:
+    its log.csv, ELBOs and exact launches after the build, the run served
+    from its run dir; the same run stopped after a chunk and resumed, bit
+    for bit the unbroken one; one step on the card against the CPU; then
+    its window.  Returns (the run's launches, the resumed run's)."""
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.serving import Predictor
+    from deepcgp_tpu_torch.training import trainer
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    argv = CLI_DEEP3 + ['--log-dir', os.path.join(root, 'deep3')]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exp, printed, marks, seconds = drive_cli(
+        torch, lambda: cifar.main(argv), read_counts)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = os.path.join(root, 'deep3', 'deep3')
+    _, rows = log_rows(run_dir)
+    chunks = train_steps(exp.flags)
+    steps = chunks * exp.flags.test_every
+    evals = chunks * -(-exp.flags.test_size // EVAL_BATCH)
+    elbos = [float(r['train_elbo']) for r in rows]
+    after_build = minus(total, marks[0])
+    want = expected_launches((steps, ADAM_PER_STEP['deep3']),
+                             (evals, EVAL_PER_BATCH['deep3']))
+    layers = exp.model.layers
+    geometry = {'hidden_patches': [l.view.patch_count for l in layers[:-1]],
+                'last_layer_P_L': [layers[-1].kernel.view.patch_count,
+                                   layers[-1].kernel.view.patch_length],
+                'kuu_batch': [5, 384, 384]}
+    pred = Predictor.from_run_dir(run_dir, IMAGE, batch_size=BATCH,
+                                  num_samples=SAMPLES)
+    xb = exp.X_test_dev[:EVAL_BATCH]
+    noise = [rng.randn(SAMPLES, EVAL_BATCH, layer.num_outputs)
+             for layer in layers]
+    with torch.no_grad():
+        p_served = pred.model.predict_y(xb, SAMPLES, noise=noise)[0]
+        p_trained = exp.model.predict_y(xb, SAMPLES, noise=noise)[0]
+    d_served = float((p_served - p_trained).abs().max())
+    del pred
+    emit({'phase': 'cli cifar deep3 identity adam', **card, 'argv': argv,
+          'entry': 'deepcgp_tpu_torch.cifar.main', 'geometry': geometry,
+          'chunks': chunks, 'steps': steps, 'eval_batches': evals,
+          'seconds': seconds, 'log_csv': rows, 'printed': printed,
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_in_build': marks[0],
+          'launches_after_build': after_build,
+          'max_memory_allocated_bytes': peak,
+          'served_vs_trained_max_abs_prob': d_served,
+          'tolerance': 'served vs trained probabilities on the same noise '
+                       '1e-4'})
+    check(geometry['hidden_patches'] == [196, 144]
+          and geometry['last_layer_P_L'] == [100, 90],
+          f'cli deep3: geometry {geometry}')
+    check(len(rows) == chunks == 3 and all(np.isfinite(elbos)),
+          f'cli deep3: rows {rows}')
+    check(len(marks) == 1 and after_build == want,
+          f'cli deep3: launches after the build {after_build}, '
+          f'expected {want}')
+    check(d_served <= 1e-4, f'cli deep3: served vs trained {d_served}')
+
+    rargv = CLI_DEEP3 + ['--log-dir', os.path.join(root, 'deep3_resume')]
+    reset_counts()
+    (saved, restored, resumed), rprinted, _, rseconds = drive_cli(
+        torch, lambda: stop_and_resume(rargv, 1), read_counts)
+    resume_launches = read_counts()
+    restore_equal = saved.keys() == restored.keys() and all(
+        saved[k].dtype == restored[k].dtype
+        and bool(torch.equal(saved[k], restored[k])) for k in saved)
+    _, rrows = log_rows(os.path.join(root, 'deep3_resume', 'deep3'))
+    cols = ('global_step', 'test_accuracy', 'train_elbo')
+    rows_equal = [[r[c] for c in cols] == [u[c] for c in cols]
+                  for r, u in zip(rrows, rows)]
+    final = train_state_tensors(resumed.state)
+    whole = train_state_tensors(exp.state)
+    final_equal = final.keys() == whole.keys() and all(
+        bool(torch.equal(final[k], whole[k])) for k in final)
+    emit({'phase': 'cli cifar deep3 identity resume', **card, 'argv': rargv,
+          'seconds': rseconds, 'printed': rprinted, 'log_csv': rrows,
+          'restored_state_bit_equal': restore_equal,
+          'resumed_at_step': int(saved['step']),
+          'final_global_step': resumed.global_step,
+          'rows_bit_equal_to_unbroken': rows_equal,
+          'final_state_bit_equal_to_unbroken': final_equal,
+          'launches': resume_launches,
+          'tolerance': 'restored state, resumed rows and final state bit '
+                       'for bit the unbroken run\'s'})
+    check(restore_equal and int(saved['step']) == exp.flags.test_every,
+          'cli deep3 resume: the restored state differs from the saved')
+    check(len(rrows) == len(rows) and all(rows_equal) and final_equal,
+          f'cli deep3 resume: rows equal {rows_equal}, final state equal '
+          f'{final_equal}')
+    del resumed
+
+    fields, failure = adam_step_vs_cpu(torch, exp.state, exp.config,
+                                       exp.X_train_dev, exp.Y_train_dev,
+                                       DEEP3_CHECK_BATCH, rng)
+    wide = trainer.init_state(resolvable_copy(torch, exp.model), exp.config)
+    wide_fields, wide_failure = adam_step_vs_cpu(
+        torch, wide, exp.config, exp.X_train_dev, exp.Y_train_dev,
+        DEEP3_CHECK_BATCH, rng)
+    del wide
+    emit({'phase': 'cli cifar deep3 identity adam step vs cpu', **card,
+          'batch_size': DEEP3_CHECK_BATCH, 'cli_state': fields,
+          'last_lengthscale_25': wide_fields})
+    check(failure is None and wide_failure is None,
+          f'deep3: {failure}; at lengthscale 25: {wide_failure}')
+    window_and_profile(torch, 'cli cifar deep3 identity adam', exp, card,
+                       reset_counts, read_counts)
+    return total, resume_launches
+
+
+def cli_deep3_natgrad(torch, dev, card: dict, rng, root: str, reset_counts,
+                      read_counts) -> dict:
+    """``cifar.main`` on the depth-3 configuration with NatGrad after an
+    Adam warm start: exact launches (K2 on the three layers' [30, 384,
+    384] solve), ``steps_back``, one NatGrad step on the card against the
+    CPU, then its window.  Returns the launches."""
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.training import optim
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    argv = CLI_DEEP3_NATGRAD + ['--log-dir', os.path.join(root, 'deep3ng')]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exp, printed, marks, seconds = drive_cli(
+        torch, lambda: cifar.main(argv), read_counts)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _, rows = log_rows(os.path.join(root, 'deep3ng', 'deep3ng'))
+    chunks = train_steps(exp.flags)
+    steps = chunks * exp.flags.test_every
+    evals = chunks * -(-exp.flags.test_size // EVAL_BATCH)
+    warm = exp.flags.natgrad_warm_steps
+    elbos = [float(r['train_elbo']) for r in rows]
+    after_build = minus(total, marks[0])
+    want = expected_launches((warm, ADAM_PER_STEP['deep3']),
+                             (steps, NATGRAD_PER_STEP['deep3']),
+                             (chunks, NATGRAD_PER_CHUNK['deep3']),
+                             (evals, EVAL_PER_BATCH['deep3']))
+    solves = natgrad_solve_batches(exp.model)
+    emit({'phase': 'train deep3 natgrad', **card, 'argv': argv,
+          'entry': 'deepcgp_tpu_torch.cifar.main', 'warm_steps': warm,
+          'chunks': chunks, 'steps': steps, 'eval_batches': evals,
+          'natgrad_solve_batches': solves,
+          'natgrad_route': optim.natgrad_route(torch.float32, 384),
+          'seconds': seconds, 'log_csv': rows, 'printed': printed,
+          'steps_back': float(exp.state.steps_back),
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_after_build': after_build,
+          'max_memory_allocated_bytes': peak})
+    check(f'natgrad warm start: {warm} Adam steps' in printed,
+          f'train deep3 natgrad: no warm-start line in {printed}')
+    check(solves == [[30, 384, 384]]
+          and optim.natgrad_route(torch.float32, 384) == 'upper',
+          f'train deep3 natgrad: solves {solves}')
+    check(len(rows) == chunks == 3 and all(np.isfinite(elbos)),
+          f'train deep3 natgrad: rows {rows}')
+    check(len(marks) == 1 and after_build == want,
+          f'train deep3 natgrad: launches after the build {after_build}, '
+          f'expected {want}')
+    checks = {name: natgrad_step_vs_cpu(
+        torch, model, exp.config, exp.X_train_dev, exp.Y_train_dev,
+        DEEP3_CHECK_BATCH, exp.flags.seed, rng)
+        for name, model in (('cli_state', exp.model),
+                            ('last_lengthscale_25',
+                             resolvable_copy(torch, exp.model)))}
+    emit({'phase': 'train deep3 natgrad step vs cpu', **card,
+          'batch_size': DEEP3_CHECK_BATCH,
+          **{name: fields for name, (fields, _) in checks.items()}})
+    check(all(failure is None for _, failure in checks.values()),
+          f'deep3 NatGrad: {[failure for _, failure in checks.values()]}')
+    window_and_profile(torch, 'train deep3 natgrad', exp, card, reset_counts,
+                       read_counts)
+    return total
+
+
+def cli_acos_identity(torch, dev, card: dict, rng, root: str, reset_counts,
+                      read_counts) -> dict:
+    """The flagship's geometry with an ArcCosine hidden layer and the
+    identity mean, on learnable blobs through a ``Cifar``: Adam warm
+    steps, then NatGrad; exact launches, the held-out accuracy (read, not
+    held), ``train_elbo`` rising; one step on the card against the CPU
+    (Adam's loss and gradients, NatGrad's step), then its window.  Returns
+    the launches."""
+    argv = CLI_ACOS + ['--log-dir', os.path.join(root, 'acos')]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    def run():
+        experiment = blobs_cifar(argv)
+        for _ in range(ACOS_CHUNKS):
+            experiment.train_step()
+        experiment.conclude()
+        return experiment
+    exp, printed, marks, seconds = drive_cli(torch, run, read_counts)
+    total = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _, rows = log_rows(os.path.join(root, 'acos', 'acos'))
+    accuracy = [float(r['test_accuracy']) for r in rows]
+    elbos = [float(r['train_elbo']) for r in rows]
+    warm = exp.flags.natgrad_warm_steps
+    steps = ACOS_CHUNKS * exp.flags.test_every
+    evals = ACOS_CHUNKS * -(-(BLOB_IMAGES - BLOB_TRAIN) // EVAL_BATCH)
+    after_build = minus(total, marks[0])
+    want = expected_launches((warm, ADAM_PER_STEP['flagship']),
+                             (steps, NATGRAD_PER_STEP['flagship']),
+                             (ACOS_CHUNKS, NATGRAD_PER_CHUNK['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']))
+    solves = natgrad_solve_batches(exp.model)
+    emit({'phase': 'cli cifar acos identity', **card, 'argv': argv,
+          'data': f'learnable_blobs({BLOB_IMAGES}, {IMAGE}, 10, 0): rows '
+                  f'0-{BLOB_TRAIN - 1} train, the rest held out',
+          'base_kernel': type(exp.model.layers[0].base_kernel).__name__,
+          'mean_function': type(exp.model.layers[0].mean_function).__name__,
+          'warm_steps': warm, 'steps': steps, 'seconds': seconds,
+          'natgrad_solve_batches': solves,
+          'test_accuracy': accuracy, 'train_elbo': elbos,
+          'steps_back': float(exp.state.steps_back),
+          'steps_per_sec_column': [float(r['steps_per_sec']) for r in rows],
+          'launches': total, 'launches_after_build': after_build,
+          'max_memory_allocated_bytes': peak,
+          'gate': "train_elbo's last entry above its first; the held-out "
+                  'accuracy is read, not held'})
+    check(exp.model.layers[0].base_kernel.__class__.__name__ == 'ArcCosine'
+          and solves == [[20, 384, 384]], f'cli acos: model {solves}')
+    check(len(rows) == ACOS_CHUNKS and all(np.isfinite(elbos))
+          and elbos[-1] > elbos[0], f'cli acos: train_elbo {elbos}')
+    check(len(marks) == 1 and after_build == want,
+          f'cli acos: launches after the build {after_build}, '
+          f'expected {want}')
+    adam_fields, adam_failure = adam_step_vs_cpu(
+        torch, exp.state, exp.config, exp.X_train_dev, exp.Y_train_dev,
+        TRAIN_BATCH, rng)
+    ng_fields, ng_failure = natgrad_step_vs_cpu(
+        torch, exp.model, exp.config, exp.X_train_dev, exp.Y_train_dev,
+        TRAIN_BATCH, exp.flags.seed, rng)
+    emit({'phase': 'cli cifar acos identity step vs cpu', **card,
+          'batch_size': TRAIN_BATCH, 'adam': adam_fields,
+          'natgrad': ng_fields})
+    check(adam_failure is None and ng_failure is None,
+          f'acos: Adam {adam_failure}; NatGrad {ng_failure}')
+    window_and_profile(torch, 'cli cifar acos identity', exp, card,
+                       reset_counts, read_counts)
+    return total
+
+
+def hidden_extraction_phase(torch, dev, card: dict, rng) -> None:
+    """The depth-3 second hidden layer's patch extraction, forward and
+    backward, by the two routes that do not sum with atomics: the one the
+    layer runs (``cuda_patches.tf_order_patches``: a strided copy, then K7
+    on the cotangent gathered into transposed order) and K6 + a transpose
+    to row-major patch order (K7 after the transpose's copy in the
+    backward); autograd's own backward of the strided view (``index_add_``)
+    beside them.  Each backward twice, for bits; times by CUDA events
+    around host-paced calls (a call's host time where it launches more
+    than the device runs) and the device's own (``queued_ms``); the
+    launches here are not a path's."""
+    from deepcgp_tpu_torch.ops import cuda_patches, patches
+    N, H, W, C, f = TRAIN_BATCH * TRAIN_SAMPLES, 14, 14, 10, 3
+    Ho = Wo = H - f + 1
+    X = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
+                        device=dev).requires_grad_(True)
+    G = torch.as_tensor(rng.randn(N, Ho * Wo, f * f * C), dtype=torch.float32,
+                        device=dev)
+
+    def via_kernels(X):
+        tp = cuda_patches.transposed_patches(X, f)
+        return tp.reshape(N, Wo, Ho, -1).transpose(1, 2).reshape(N, Ho * Wo, -1)
+    routes = {'strided_k7': lambda X: cuda_patches.tf_order_patches(X, f),
+              'k6_k7_transpose': via_kernels,
+              'autograd_index_add': lambda X: patches.extract_patches(X, f)}
+    out, grads, fwd_ms, fwd_bwd_ms, device_ms = {}, {}, {}, {}, {}
+    for name, fn in routes.items():
+        out[name] = fn(X).detach()
+        grads[name] = [torch.autograd.grad(fn(X), X, G)[0] for _ in range(2)]
+        with torch.no_grad():
+            fwd_ms[name] = cuda_ms(torch, lambda: fn(X), 20)
+        fwd_bwd_ms[name] = cuda_ms(
+            torch, lambda: torch.autograd.grad(fn(X), X, G), 20)
+        device_ms[name] = queued_ms(
+            torch, lambda: torch.autograd.grad(fn(X), X, G), 20)
+    ref = grads['strided_k7'][0]
+    emit({'phase': 'hidden extraction backward', **card,
+          'image': [N, H, W, C], 'filter': f, 'stride': 1,
+          'forward_ms': fwd_ms, 'forward_backward_ms': fwd_bwd_ms,
+          'forward_backward_device_ms': device_ms,
+          'forward_bit_equal_to_layer': {
+              k: bool(torch.equal(v, out['strided_k7'])) for k, v in out.items()},
+          'backward_bit_equal_run_to_run': {
+              k: bool(torch.equal(*v)) for k, v in grads.items()},
+          'backward_rel_err_vs_layer': {k: rel(v[0], ref)
+                                        for k, v in grads.items()},
+          'chosen': 'strided_k7',
+          'tolerance': 'forwards bit-equal; the two routes without atomics '
+                       'bit-equal run to run, each backward within 1e-6 of '
+                       "the layer's"})
+    check(all(torch.equal(v, out['strided_k7']) for v in out.values()),
+          'hidden extraction: the forwards differ')
+    check(all(torch.equal(*grads[k]) for k in ('strided_k7',
+                                                'k6_k7_transpose')),
+          'hidden extraction: a backward without atomics changed run to run')
+    check(all(rel(v[0], ref) <= 1e-6 for v in grads.values()),
+          'hidden extraction: the backwards disagree')
+
+
+def cli_blobs_accuracy(torch, card: dict, root: str, reset_counts,
+                       read_counts) -> dict:
+    """The flagship's CLI argv on learnable blobs, through a ``Cifar``
+    whose data are the blobs, driven by ``train_step``: held-out accuracy.
+    Returns the launches."""
     argv = CLI_BLOBS + ['--log-dir', os.path.join(root, 'blobs')]
     reset_counts()
 
     def blobs():
-        experiment = Blobs(cifar.read_args(argv))
+        experiment = blobs_cifar(argv)
         for _ in range(BLOB_CHUNKS):
             experiment.train_step()
         experiment.conclude()
@@ -1821,6 +2340,8 @@ def main() -> int:
     aux = np.random.RandomState(args.seed + 1)
     # And those of K2's whole-factor shapes and the solve beyond M = 1088.
     k2_rng = np.random.RandomState(args.seed + 2)
+    # And those of the depth-3 shapes of K1/K3, K2, K6 and K7.
+    deep = np.random.RandomState(args.seed + 5)
     rbfs = [RBF.create(5.0, ls, device=dev) for ls in LENGTHSCALES]
     snapshot = flagship_snapshot(args.seed)
     Zs = [torch.as_tensor(snapshot[f'DGP/layers/{i}/feature/Z'],
@@ -1832,7 +2353,7 @@ def main() -> int:
     kernels = []
 
     # -- K1 and K3: the blocked factor and the inverse, two launches --------
-    kernels += k1_k3_phases(torch, dev, card, rng, aux, Kuu)
+    kernels += k1_k3_phases(torch, dev, card, rng, aux, deep, Kuu)
     # The route on the flagship's own Kuu grams, against the library.
     LB, LiB = cuda_linalg.chol_inv_batched(Kuu)
     torch.cuda.synchronize()
@@ -1853,7 +2374,7 @@ def main() -> int:
                        'reconstruction <= 1e-5'})
 
     # -- K2, the whole upper factor, and the NatGrad solve's routes ---------
-    kernels += k2_phases(torch, dev, card, rng, k2_rng)
+    kernels += k2_phases(torch, dev, card, rng, k2_rng, deep)
     driver_phases(torch, dev, card, rng, k2_rng)
 
     # -- K4: fused extraction -> RBF cross-covariance ------------------------
@@ -2069,7 +2590,7 @@ def main() -> int:
     # -- K6 and K7: the unfused route's extraction and its col2im -----------
     # The rows added with the staged K6 draw from a generator of their own.
     kernels += patches_phases(torch, dev, card, rng,
-                              np.random.RandomState(args.seed + 3))
+                              np.random.RandomState(args.seed + 3), deep)
 
     # -- serving: the flagship through Predictor.from_run_dir ---------------
     with tempfile.TemporaryDirectory() as root:
@@ -2351,6 +2872,9 @@ def main() -> int:
         torch, 'fm32', FM32, IMAGE, args.seed, rng, dev, card, reset_counts,
         read_counts, loaded={1: {'base_kernel/lengthscales': LENGTHSCALES[1]}})
     fm32_default_init_step(torch, args.seed, rng, dev, card)
+
+    # -- depth 3's hidden-layer extraction: the route the layer takes ------
+    hidden_extraction_phase(torch, dev, card, rng)
 
     # -- the CLI: the entry points a user runs ------------------------------
     path_launches.update(cli_phases(torch, dev, card, args.seed,

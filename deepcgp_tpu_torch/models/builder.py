@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from deepcgp_tpu_torch import config
-from deepcgp_tpu_torch.models.base_kernels import RBF
+from deepcgp_tpu_torch.models.base_kernels import RBF, ArcCosine
 from deepcgp_tpu_torch.models.conv_kernels import (AdditivePatchKernel,
                                                    ConvKernel,
                                                    MultiOutputConvKernel)
@@ -27,7 +27,7 @@ from deepcgp_tpu_torch.models.inducing import (inducing_points_from_data,
 from deepcgp_tpu_torch.models.layers import (ConvLayer, SVGPLayer, fresh_q_sqrt,
                                              kernel_gram)
 from deepcgp_tpu_torch.models.likelihoods import MultiClass
-from deepcgp_tpu_torch.models.mean_functions import Zero
+from deepcgp_tpu_torch.models.mean_functions import Conv2dMean, Zero
 from deepcgp_tpu_torch.models.views import FullView
 from deepcgp_tpu_torch.ops.linalg import add_jitter
 from deepcgp_tpu_torch.ops.patches import out_size
@@ -87,8 +87,10 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
                 images: np.ndarray | None = None,
                 generator: torch.Generator | None = None,
                 num_data: int | None = None, dtype=None, device=None) -> DGP:
-    """Hidden ConvLayers (none for an empty ``feature_maps``) plus a final
-    SVGP layer -- a patch-sum kernel ('conv', 'add') or an ARD RBF over the
+    """Hidden ConvLayers (none for an empty ``feature_maps``; an RBF or,
+    for base_kernel 'acos', an order-0 ArcCosine base; the identity conv
+    mean under identity_mean) plus a final SVGP layer -- a patch-sum
+    kernel ('conv', 'add') over an RBF base, or an ARD RBF over the
     flattened input ('rbf') -- over images of
     ``image_shape`` = (H, W, C), from the per-layer dict of
     ``checkpoint.parse_layer_parameters``.  ``flags`` carries the training
@@ -100,15 +102,11 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
     device = config.default_device(device)
     dtype = dtype or config.FLOAT_TYPE
     loaded_parameters = loaded_parameters or {}
-    if flags.base_kernel != 'rbf':
-        raise NotImplementedError(f'base kernel {flags.base_kernel!r} is not '
-                                  'ported yet (ROADMAP queue A)')
+    if flags.base_kernel not in ('rbf', 'acos'):
+        raise ValueError(f'base kernel {flags.base_kernel!r}: not rbf or acos')
     if flags.last_kernel not in ('conv', 'add', 'rbf'):
-        raise NotImplementedError(f'last kernel {flags.last_kernel!r} is not '
-                                  'ported yet (ROADMAP queue A)')
-    if flags.identity_mean:
-        raise NotImplementedError('the identity conv mean is not ported yet '
-                                  '(ROADMAP queue A)')
+        raise ValueError(f'last kernel {flags.last_kernel!r}: not conv, add '
+                         'or rbf')
     Ms = parse_ints(flags.M)
     feature_maps = parse_ints(flags.feature_maps)
     strides = parse_ints(flags.strides)
@@ -135,8 +133,7 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
             Z = _tensor(params['Z'], **kw)
         else:
             Z = _fresh_Z(H_X, i, Ms[i], f, generator, **kw)
-        base = RBF.create(params.get('base_kernel/variance', 5.0),
-                          params.get('base_kernel/lengthscales', 5.0), **kw)
+        base = _hidden_base_kernel(flags.base_kernel, params, **kw)
         M = Z.shape[0]
         q_mu = (_tensor(params['q_mu'], **kw) if 'q_mu' in params
                 else torch.zeros(M, fm, **kw))
@@ -147,7 +144,9 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
         else:
             q_sqrt = fresh_q_sqrt(MultiOutputConvKernel(base, 1).Kuu(Z), fm,
                                   FRESH_HIDDEN_Q_SQRT_SCALE)
-        layers.append(ConvLayer(base, Z, q_mu, q_sqrt, Zero(), view,
+        mean = (Conv2dMean.create(f, C, fm, stride=s, **kw)
+                if flags.identity_mean else Zero())
+        layers.append(ConvLayer(base, Z, q_mu, q_sqrt, mean, view,
                                 white=flags.white, gp_count=fm))
         if H_X is not None:
             idx = torch.randint(0, H_X.shape[0], (IDENTITY_CONV_IMAGES,),
@@ -177,6 +176,19 @@ def build_model(flags, image_shape, loaded_parameters: dict | None = None, *,
                             white=flags.white, num_outputs=R))
     return DGP(layers, MultiClass(10), num_data=num_data or 0,
                num_samples=int(getattr(flags, 'num_samples', 10)))
+
+
+def _hidden_base_kernel(name, params, dtype, device):
+    """A hidden layer's base kernel: RBF, or order-0 ArcCosine for 'acos',
+    with its loaded hyperparameters or the reference's defaults."""
+    kw = dict(dtype=dtype, device=device)
+    if name == 'acos':
+        return ArcCosine.create(
+            params.get('base_kernel/variance', 1.0),
+            params.get('base_kernel/weight_variances', 1.0),
+            params.get('base_kernel/bias_variance', 1.0), order=0, **kw)
+    return RBF.create(params.get('base_kernel/variance', 5.0),
+                      params.get('base_kernel/lengthscales', 5.0), **kw)
 
 
 def _patch_last_layer(flags, params, H_X, i, M, H, W, C, f, stride,

@@ -45,7 +45,7 @@ class MultiOutputConvKernel:
 def _default_patch_weights(patch_count: int, patch_weights, dtype, device):
     if patch_weights is None or np.asarray(patch_weights).size != patch_count:
         patch_weights = np.ones(patch_count)
-    return torch.as_tensor(np.asarray(patch_weights), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(patch_weights), dtype=dtype, device=device)
 
 
 class AdditivePatchKernel(nn.Module):
@@ -93,16 +93,20 @@ class AdditivePatchKernel(nn.Module):
         return (PNN * self._weights()[:, None, None]).mean(0)
 
     def Kdiag(self, ND_X: torch.Tensor, patches=None) -> torch.Tensor:
-        """RBF Kdiag is the constant variance * mean(w): the patch values
-        never enter, so ``patches`` is not read.  Any other base kernel's
-        Kdiag reads the patches (the JAX package's branch), which the port
-        does not have yet: it raises rather than answer the RBF's value."""
-        if not isinstance(self.base_kernel, RBF):
-            raise NotImplementedError(
-                'AdditivePatchKernel.Kdiag: only an RBF base kernel, got '
-                f'{type(self.base_kernel).__name__}')
-        v = self.base_kernel.variance * self.patch_weights.mean()
-        return v.expand(ND_X.shape[0]).to(ND_X.dtype)
+        """[N]: mean_p w_p k(x[p], x[p]).  An RBF base's is the constant
+        variance * mean(w), and ``patches`` is not read; any other base
+        reads them (this kernel's extraction of ``ND_X``, made when not
+        given)."""
+        if not self._kdiag_needs_patches():
+            v = self.base_kernel.variance * self.patch_weights.mean()
+            return v.expand(ND_X.shape[0]).to(ND_X.dtype)
+        if patches is None:
+            patches = self._patches(ND_X)
+        NP = self.base_kernel.Kdiag(patches)                    # [N, P]
+        return (NP * self._weights()).mean(1)
+
+    def _kdiag_needs_patches(self) -> bool:
+        return not isinstance(self.base_kernel, RBF)
 
     def _cross(self, Z: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
         """[N, M] = sum_p w_p / P k(x[p], Z): the [N, P, M] base-kernel
@@ -112,8 +116,8 @@ class AdditivePatchKernel(nn.Module):
 
     def Kzx_NM_and_Kdiag(self, Z: torch.Tensor, ND_X: torch.Tensor):
         """(Kzx [N, M], Kdiag [N]): fused where the geometry fits (K4
-        forward, K5 backward), else off one shared extraction (K6, and K7
-        in the backward)."""
+        forward, K5 backward), else off one extraction (K6, and K7 in the
+        backward) that Kdiag shares where it reads patches."""
         if cuda_cross.fused_fits(self):
             return cuda_cross.kzx_and_kdiag(self, Z, ND_X)
         patches = self._patches(ND_X)

@@ -6,7 +6,8 @@ Each layer exposes ``kuu_grams()`` (the [M, M] grams to factorize),
 ``make_cache(pairs)`` (a LayerCache from their (L, L^-1) pairs),
 ``conditional_mean_var(cache, ND_X)`` -> (mean [N, O], var [N, O]) and
 ``KL(cache)``.  The variational parameters and Z are ``nn.Parameter``s;
-the hidden layer's KL anchor Z0 is a buffer, so no optimizer sees it.
+the hidden layer's KL anchor Z0 (and its identity mean's filter, under
+``--identity-mean``) is a buffer, so no optimizer sees it.
 """
 
 from __future__ import annotations

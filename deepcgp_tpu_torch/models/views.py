@@ -7,7 +7,8 @@ import dataclasses
 
 import torch
 
-from deepcgp_tpu_torch.ops.patches import extract_patches, out_size
+from deepcgp_tpu_torch.ops.cuda_patches import tf_order_patches
+from deepcgp_tpu_torch.ops.patches import out_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +40,8 @@ class FullView:
         return self.out_image_height * self.out_image_width
 
     def extract_patches_NPL(self, NHWC_X: torch.Tensor) -> torch.Tensor:
-        """[N, P, L]."""
-        return extract_patches(NHWC_X, self.filter_size, self.stride,
+        """[N, P, L]; its backward is K7 (``tf_order_patches``)."""
+        return tf_order_patches(NHWC_X, self.filter_size, self.stride,
                                self.dilation)
 
     def mean_view(self, NHWC_X: torch.Tensor, NPL_patches) -> torch.Tensor:

@@ -18,12 +18,16 @@ Only the patch order differs from ``ops.patches.extract_patches``: the
 permutation, and a [P]-indexed one (patch weights) is gathered with
 :func:`transposed_patch_perm`.  :func:`transposed_patches` is the
 ``torch.autograd.Function`` that ties the two together, as JAX's custom VJP
-does; K7 runs only when the image needs a gradient.
+does; K7 runs only when the image needs a gradient.  :func:`tf_order_patches`
+is the hidden layers' extraction: the TF-order strided copy forward, K7 on
+the cotangent gathered into transposed order backward, in place of
+autograd's ``index_add_`` (an atomic scatter on the card).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -229,3 +233,34 @@ def transposed_patches(NHWC_X, filter_size, stride=1, dilation=1):
     """Differentiable :func:`extract_patches_transposed`: K6 forward, K7
     backward (the plain versions of both on CPU tensors)."""
     return _TransposedPatches.apply(NHWC_X, filter_size, stride, dilation)
+
+
+@functools.lru_cache(maxsize=None)
+def _patch_perm(Hout, Wout, device):
+    return transposed_patch_perm(Hout, Wout, device)
+
+
+class _TFOrderPatches(torch.autograd.Function):
+    """``patches.extract_patches`` (a strided copy) forward, K7 backward on
+    the cotangent gathered into transposed order: no element is summed
+    with atomics, so the gradient does not depend on the order in which
+    the card's threads arrive."""
+
+    @staticmethod
+    def forward(ctx, NHWC_X, filter_size, stride, dilation):
+        ctx.geometry = (tuple(NHWC_X.shape[1:]), filter_size, stride, dilation)
+        return extract_patches(NHWC_X, filter_size, stride, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        perm = _patch_perm(*_out_grid(*ctx.geometry), g.device)
+        return (col2im_transposed(g.index_select(1, perm), *ctx.geometry),
+                None, None, None)
+
+
+def tf_order_patches(NHWC_X, filter_size, stride=1, dilation=1):
+    """Differentiable ``patches.extract_patches`` ([N, P, L], TF patch
+    order) whose backward is K7 (its plain version on CPU tensors)."""
+    return _TFOrderPatches.apply(NHWC_X, filter_size, stride, dilation)

@@ -91,11 +91,13 @@ def bf16_moments(p: torch.Tensor) -> bool:
 # moment leaves (each one's dither salt).
 _JAX_FIELDS = {
     'DGP': ('layers',),
-    'ConvLayer': ('base_kernel', 'Z', 'q_mu', 'q_sqrt', 'Z0'),
+    'ConvLayer': ('base_kernel', 'Z', 'q_mu', 'q_sqrt', 'Z0', 'mean_function'),
     'SVGPLayer': ('kernel', 'Z', 'q_mu', 'q_sqrt'),
     'ConvKernel': ('base_kernel', 'patch_weights'),
     'AdditivePatchKernel': ('base_kernel', 'patch_weights'),
     'RBF': ('raw_variance', 'raw_lengthscales'),
+    'ArcCosine': ('raw_variance', 'raw_weight_variances', 'raw_bias_variance'),
+    'Conv2dMean': ('conv_filter',),
 }
 
 

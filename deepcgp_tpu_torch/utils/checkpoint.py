@@ -20,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from deepcgp_tpu_torch.models.base_kernels import ArcCosine
 from deepcgp_tpu_torch.models.layers import ConvLayer
 
 
@@ -28,9 +29,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def model_parameters(model, global_step: int) -> dict:
-    """Flat {pathname: constrained value} dict (+ global_step).  Z0 is not
-    saved: a restart re-anchors the KL prior at the loaded Z, as the
-    reference does."""
+    """Flat {pathname: constrained value} dict (+ global_step).  Z0 and
+    the identity mean's filter are not saved: a restart re-anchors the KL
+    prior at the loaded Z and rebuilds the delta filter, as the reference
+    does."""
     params = {}
     for i, layer in enumerate(model.layers):
         prefix = f'DGP/layers/{i}/'
@@ -49,7 +51,11 @@ def model_parameters(model, global_step: int) -> dict:
             base = layer.kernel
             kern_prefix = prefix + 'kern/'
         params[kern_prefix + 'variance'] = _np(base.variance)
-        params[kern_prefix + 'lengthscales'] = _np(base.lengthscales)
+        if isinstance(base, ArcCosine):
+            params[kern_prefix + 'weight_variances'] = _np(base.weight_variances)
+            params[kern_prefix + 'bias_variance'] = _np(base.bias_variance)
+        else:
+            params[kern_prefix + 'lengthscales'] = _np(base.lengthscales)
     params['global_step'] = int(global_step)
     return params
 

@@ -27,6 +27,8 @@ GEOMETRIES = [
     (3, 6, 6, 1, 3, 1, 2),         # dilation only
     (2, 5, 6, 520, 5, 1, 1),       # one patch's band beyond 48 KB
     (1, 3, 3, 1, 1, 1, 1),         # L = 1
+    (320, 14, 14, 10, 3, 1, 1),    # chip_smoke.py's depth-3 hidden layer
+    (320, 12, 12, 10, 3, 1, 1),    # and depth-3 last layer
 ]
 IDS = ['x'.join(map(str, g)) for g in GEOMETRIES]
 
@@ -166,6 +168,8 @@ def test_extract_plan_at_the_paths_shapes():
     assert split(GEOMETRIES[0]) == (1, 2, 24, 28, 6, 384)     # MNIST Adam
     assert split(GEOMETRIES[4]) == (1, 5, 24, 28, 9, 640)     # serving
     assert split(GEOMETRIES[5]) == (4, 1, 9, 13, 5, 576)      # beyond smem
+    assert split(GEOMETRIES[10]) == (2, 6, 12, 14, 8, 640)    # depth-3 hidden
+    assert split(GEOMETRIES[11]) == (2, 5, 10, 12, 7, 640)    # depth-3 last
     plan = _plan(GEOMETRIES[8], 132, False)
     assert plan['staged'] == 0 and plan['bh'] == plan['bw'] == 0
 

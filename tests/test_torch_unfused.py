@@ -382,14 +382,43 @@ def test_ard_patch_last_layer_snapshot_both_ways(tmp_path):
                                rtol=1e-12)
 
 
-def test_additive_kdiag_raises_for_a_base_that_is_not_rbf():
-    """AdditivePatchKernel.Kdiag is variance * mean(w) only for an RBF base
-    (the JAX package reads the patches for any other); until that branch
-    is ported, another base raises instead of answering the RBF's value."""
-    class Other(torch.nn.Module):
-        variance = torch.tensor(2.0)
-
-    view = FullView(input_size=(9, 9), filter_size=3, feature_maps=3)
-    k = AdditivePatchKernel(Other(), torch.ones(view.patch_count), view)
-    with pytest.raises(NotImplementedError):
-        k.Kdiag(torch.zeros(2, 9 * 9 * 3))
+@pytest.mark.parametrize('cls', ['conv', 'add'])
+def test_kdiag_with_an_arccosine_base_matches_jax(cls, monkeypatch):
+    """Kdiag of both patch-sum kernels over an ArcCosine base reads the
+    patches (an RBF base's is the constant variance * mean(w)): alone and
+    through ``Kzx_NM_and_Kdiag``, whose extraction it shares, against the
+    JAX package on its Pallas extraction, float64, random weights."""
+    from deepcgp_tpu.models.base_kernels import ArcCosine as JArcCosine
+    from deepcgp_tpu.models.conv_kernels import (AdditivePatchKernel as JAdd,
+                                                 ConvKernel as JConv)
+    from deepcgp_tpu.models.views import FullView as JFullView
+    from deepcgp_tpu_torch.models.base_kernels import ArcCosine
+    monkeypatch.setenv('DEEPCGP_PALLAS_EXTRACT', '1')
+    jcls, tcls = {'conv': (JConv, ConvKernel),
+                  'add': (JAdd, AdditivePatchKernel)}[cls]
+    rng = np.random.RandomState(11)
+    geometry = dict(input_size=(9, 11), filter_size=3, feature_maps=2,
+                    stride=2, dilation=2)
+    jview = JFullView(**geometry)
+    jbase = JArcCosine.create(variance=1.3, weight_variances=0.5 + rng.rand(18),
+                              bias_variance=0.7, order=1, dtype=jnp.float64)
+    w = rng.rand(jview.patch_count) + 0.5
+    jk = jcls.create(jbase, jview, patch_weights=jnp.asarray(w),
+                     dtype=jnp.float64)
+    assert jk._pallas_order() and jk._kdiag_needs_patches()
+    tk = tcls(ArcCosine(*(torch.tensor(np.asarray(getattr(jbase, f'raw_{n}')))
+                          for n in ('variance', 'weight_variances',
+                                    'bias_variance')), order=1),
+              torch.tensor(w), FullView(**geometry))
+    assert tk._kdiag_needs_patches() and not cuda_cross.fused_fits(tk)
+    X = rng.randn(5, 9 * 11 * 2)
+    Z = rng.randn(4, 18)
+    kd = jk.Kdiag(jnp.asarray(X))
+    kzx_j, kd_j = jk.Kzx_NM_and_Kdiag(jnp.asarray(Z), jnp.asarray(X))
+    kzx, kd_shared = tk.Kzx_NM_and_Kdiag(torch.tensor(Z), torch.tensor(X))
+    for a, b in ((tk.Kdiag(torch.tensor(X)), kd), (kd_shared, kd_j),
+                 (kzx, kzx_j)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-13)
+    # Not the RBF's constant: the patches enter.
+    assert float(np.ptp(np.asarray(kd))) > 1e-3

@@ -70,6 +70,19 @@ blobs, Adam then NatGrad.  The second hidden layer's extraction, whose
 backward is the first to reach a sample, is timed by the plain route it
 takes against K6/K7.
 
+Last, the rest of the JAX package's single-device surface: the flagship
+CLI with its TensorBoard log on (2 chunks of 20 Adam steps, the events
+file read back by the port's own reader: CRCs, the JAX logger's tags,
+the layer-0 images), full-covariance sampling (the trained flagship's
+two layers at N = 16, the MNIST ConvKernel's last layer at N = 16 and
+N = 128, its peak memory held under 1 GiB), the diagnostics, a trace of
+a flagship chunk naming its annotated region and K1, K3, K4 and K5, the
+noise sweep, a RandomPartialView model trained with Adam (28x28x1, 144
+positions read as 12x12, the patchwise mean, M = 384, a ConvKernel last
+layer over P = 64, L = 25 on the fused route), the regression example
+(2000 Adam steps, its train RMSE gated) and the upper base case at
+blocks that are not a multiple of 32 (the identity padding).
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -2279,6 +2292,528 @@ def cli_blobs_accuracy(torch, card: dict, root: str, reset_counts,
     return total
 
 
+# -- the rest of the JAX package's single-device surface --------------------
+# The flagship CLI with its TensorBoard log on: 2 chunks of 20 Adam steps
+# (lr decay 17 steps: train_steps gives 2), an eval of 256 test images and a
+# TensorBoard entry after each.  Each entry evaluates the minibatch ELBO on
+# the first min(5000, N) training rows in batches of 64 and layer 0's
+# output on one test image.
+TB_ARGV = [a for a in CLI_FLAGSHIP
+           if a not in ('--no-tensorboard', '--full-state-ckpt')] + [
+    '--name', 'tb', '--lr-decay-steps', '17', '--test-size', '256']
+TB_ELBO_BATCH, TB_ELBO_ROWS = 64, 5000
+# The JAX logger's tags for the flagship's leaves, cleaned as tensorboardX
+# stores them ('model.layers[0].Z' -> 'model.layers_0_.Z').
+FLAGSHIP_TB_TAGS = frozenset(
+    [f'model.layers_0_.{n}' for n in ('base_kernel.raw_variance',
+                                      'base_kernel.raw_lengthscales', 'Z',
+                                      'q_mu', 'q_sqrt', 'Z0')]
+    + [f'model.layers_1_.{n}' for n in (
+        'kernel.base_kernel.raw_variance', 'kernel.base_kernel.raw_lengthscales',
+        'kernel.patch_weights', 'Z', 'q_mu', 'q_sqrt')])
+TB_IMAGE_TAGS = ('conv_sample', 'conv_mean', 'conv_var')
+# Full-covariance sampling: the flagship's layer 0 and last layer at
+# N = 16, the MNIST ConvKernel's (M = 1024, P = 576) at N = 128, whose
+# whole evaluation stays under 1 GiB (ConvKernel.K in blocks).
+FULL_COV_N, FULL_COV_MNIST_N, FULL_COV_BOUND_BYTES = 16, 128, 1 << 30
+FULL_COV_TOL = {'mean': 1e-4, 'cov': 1e-4, 'sample': 1e-3}
+# The partial-view model: 28x28x1, a RandomPartialView hidden layer (filter
+# 5, 144 positions read as a 12x12 image, seed 0) with the patchwise mean,
+# M = 384, one GP; an SVGP ConvKernel last layer over 12x12x1 (filter 5:
+# P = 64, L = 25), M = 384, 10 outputs.  The flagship's widths on the
+# geometry of tests/test_trajectory_parity.py's partial-view model.
+PV_IMAGE, PV_PATCHES, PV_M, PV_IMAGES = (28, 28, 1), 144, 384, 2048
+PV_PER_STEP = ADAM_PER_STEP['flagship']
+# Regression: the port's examples/regression.py, 5 chunks of 400 Adam
+# steps; the JAX example's train RMSE on the CPU (jax 0.9.0) for reference.
+REGRESSION_MAX_RMSE, JAX_REGRESSION_RMSE = 0.10, 0.0527
+# Diagnostics and the trace: one chunk of flagship steps under the
+# profiler (host and card activity: ~0.9 s a step), the noise sweep's
+# default levels on the test set.
+TRACE_STEPS, ROBUSTNESS_LEVELS = 2, 4
+# The upper base case at blocks that are not multiples of 32.
+UPPER_ANY_P = ((4, 48), (2, 100))
+
+
+def surface_phases(torch, dev, card: dict, seed: int, reset_counts,
+                   read_counts) -> dict:
+    """The modules of the JAX package's single-device surface beyond the
+    training CLI: the TensorBoard log of the flagship CLI, full-covariance
+    sampling, a partial-view model trained with Adam, the regression
+    example, the diagnostics, a trace, and the upper base case at any
+    block.  Returns each path's launches."""
+    rng = np.random.RandomState(seed + 6)
+    paths = {}
+    with tempfile.TemporaryDirectory() as empty, \
+            tempfile.TemporaryDirectory() as root:
+        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
+        os.environ['DEEPCGP_DATA_DIR'] = empty
+        try:
+            exp, paths['tensorboard_cli'] = tensorboard_cli(
+                torch, card, root, reset_counts, read_counts)
+        finally:
+            if old_data_dir is None:
+                os.environ.pop('DEEPCGP_DATA_DIR', None)
+            else:
+                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
+        paths['full_cov'] = full_cov_phase(torch, dev, card, exp.model, rng,
+                                           reset_counts, read_counts)
+        paths['diagnostics_trace'] = diagnostics_phase(
+            torch, card, exp, seed, root, reset_counts, read_counts)
+    del exp
+    paths['partial_view_adam'] = partial_view_adam(
+        torch, dev, card, rng, seed, reset_counts, read_counts)
+    paths['regression'] = regression_phase(torch, card, reset_counts,
+                                           read_counts)
+    paths['upper_any_p'] = upper_any_p_phase(torch, dev, card, rng,
+                                             reset_counts, read_counts)
+    return paths
+
+
+def tensorboard_cli(torch, card: dict, root: str, reset_counts, read_counts):
+    """``cifar.main`` on the flagship's argv with the TensorBoard log on,
+    its events read back by the port's reader.  Returns (the experiment,
+    its launches)."""
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    from deepcgp_tpu_torch.training.optim import jax_keystr, jax_leaf_order
+    from deepcgp_tpu_torch.utils import events, tensorboard
+    tb_dir = os.path.join(root, 'tensorboard')
+    argv = TB_ARGV + ['--log-dir', os.path.join(root, 'tb'),
+                      '--tensorboard-dir', tb_dir]
+    entries = []            # (seconds, launches) of each TensorBoard entry
+    real_entry = tensorboard.TensorBoardLog.write_entry
+
+    def timed_entry(self, experiment):
+        torch.cuda.synchronize()
+        before, t = read_counts(), time.perf_counter()
+        real_entry(self, experiment)
+        torch.cuda.synchronize()
+        entries.append((time.perf_counter() - t, minus(read_counts(), before)))
+
+    tensorboard.TensorBoardLog.write_entry = timed_entry
+    reset_counts()
+    try:
+        exp, printed, marks, seconds = drive_cli(
+            torch, lambda: cifar.main(argv), read_counts)
+    finally:
+        tensorboard.TensorBoardLog.write_entry = real_entry
+    total = read_counts()
+    flags = exp.flags
+    chunks = train_steps(flags)
+    steps = chunks * flags.test_every
+    evals = chunks * -(-flags.test_size // EVAL_BATCH)
+    elbos = -(-min(TB_ELBO_ROWS, flags.N) // TB_ELBO_BATCH)
+    per_entry = expected_launches((elbos, EVAL_PER_BATCH['flagship']),
+                                  (1, {'chol_inv_base': 1, 'tri_inv_base': 1}))
+    want = expected_launches((steps, ADAM_PER_STEP['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']),
+                             (chunks, per_entry))
+    after_build = minus(total, marks[0])
+    check(chunks == 2 and len(entries) == chunks,
+          f'tensorboard cli: {chunks} chunks, {len(entries)} entries')
+    check(all(e[1] == per_entry for e in entries),
+          f'tensorboard cli: entry launches {[e[1] for e in entries]}, '
+          f'expected {per_entry} each')
+    check(len(marks) == 1 and after_build == want,
+          f'tensorboard cli: launches after the build {after_build}, '
+          f'expected {want}')
+    # The events file, read back: every CRC (read_events raises on one that
+    # does not match), the JAX logger's tags at every entry's step.
+    run_tb = os.path.join(tb_dir, flags.name)
+    (name,) = [n for n in os.listdir(run_tb)
+               if n.startswith('events.out.tfevents.')]
+    evs = events.read_events(os.path.join(run_tb, name))
+    check(evs[0].get('file_version') == events.FILE_VERSION,
+          f'tensorboard cli: first record {evs[0]}')
+    sizes = {events.clean_tag('model' + jax_keystr(n)): t.numel()
+             for n, t in jax_leaf_order(exp.model)}
+    check(set(sizes) == FLAGSHIP_TB_TAGS,
+          f'tensorboard cli: parameter tags {sorted(sizes)}')
+    layer0 = exp.model.layers[0]
+    h, w = layer0.view.out_image_height, layer0.view.out_image_width
+    fm = layer0.gp_count
+    image_shapes = {'conv_sample': (4 * h, fm * w, 3),
+                    'conv_mean': (h, fm * w, 3), 'conv_var': (h, fm * w, 3)}
+    by_step = {}
+    for ev in evs[1:]:
+        for v in ev['summary']:
+            by_step.setdefault(ev['step'], []).append(v)
+    check(sorted(by_step) == [flags.test_every * (i + 1) for i in range(chunks)],
+          f'tensorboard cli: entry steps {sorted(by_step)}')
+    lls = []
+    for step, values in sorted(by_step.items()):
+        tags = [v['tag'] for v in values]
+        check(sorted(tags) == sorted(set(tags)) and set(tags) == set(sizes)
+              | {'train_log_likelihood', *TB_IMAGE_TAGS},
+              f'tensorboard cli: tags at step {step}: {sorted(tags)}')
+        at = {v['tag']: v for v in values}
+        lls.append(at['train_log_likelihood']['simple_value'])
+        for tag, size in sizes.items():
+            check(('simple_value' in at[tag]) if size == 1
+                  else at[tag]['histo']['num'] == size,
+                  f'tensorboard cli: {tag} at step {step}: {at[tag]}')
+        for tag, shape in image_shapes.items():
+            img = at[tag]['image']
+            px = events.decode_png(img['png'])
+            check(px.shape == shape and (img['height'], img['width'])
+                  == shape[:2], f'tensorboard cli: {tag} is {px.shape}, '
+                  f'expected {shape}')
+    check(all(np.isfinite(lls)), f'tensorboard cli: train_log_likelihood {lls}')
+    emit({'phase': 'tensorboard cli', **card, 'argv': argv,
+          'entry': 'deepcgp_tpu_torch.cifar.main', 'chunks': chunks,
+          'steps': steps, 'eval_batches': evals, 'seconds': seconds,
+          'events_file_bytes': os.path.getsize(os.path.join(run_tb, name)),
+          'records': len(evs), 'entry_seconds': [e[0] for e in entries],
+          'entry_launches': per_entry, 'elbos_per_entry': elbos,
+          'train_log_likelihood': lls, 'parameter_tags': sorted(sizes),
+          'image_shapes': image_shapes, 'launches': total,
+          'launches_after_build': after_build, 'printed': printed,
+          'checks': 'every CRC; one finite train_log_likelihood, every '
+                    'parameter tag (histogram num = leaf size) and the '
+                    'three layer-0 images at each entry'})
+    return exp, total
+
+
+def full_cov_vs_cpu(torch, layer, ND, z):
+    """sample_from_conditional(full_cov=True) of ``layer`` on the card and
+    on the CPU in float32 and float64, on the same inputs and z.  Returns
+    (card results, CPU float64 results, {quantity: [card vs CPU float32,
+    card vs float64, CPU float32 vs float64]})."""
+    card = layer.sample_from_conditional(ND, True, noise=z)
+    cpu = {}
+    for name, dtype in (('f32', torch.float32), ('f64', torch.float64)):
+        cpu_layer = copy.deepcopy(layer).to('cpu', dtype)
+        cpu[name] = cpu_layer.sample_from_conditional(ND.cpu().to(dtype), True,
+                                                      noise=z)
+    errs = {}
+    for i, q in enumerate(('sample', 'mean', 'cov')):
+        c = card[i].cpu()
+        errs[q] = [rel(c, cpu['f32'][i]), rel(c.double(), cpu['f64'][i]),
+                   rel(cpu['f32'][i].double(), cpu['f64'][i])]
+    return card, cpu['f64'], errs
+
+
+def full_cov_phase(torch, dev, card: dict, flagship, rng, reset_counts,
+                   read_counts) -> dict:
+    """Full-covariance sampling on the card, held to the CPU under
+    ``f32_agrees``: the trained flagship's layer 0 and last layer at
+    N = 16, and the MNIST ConvKernel's last layer at N = 16 and at
+    N = 128, whose peak memory is held under 1 GiB and whose leading
+    16 x 16 block (a covariance entry depends on its two rows' inputs
+    alone) against the CPU's N = 16 float64."""
+    from deepcgp_tpu_torch.models import builder as mbuilder
+    from deepcgp_tpu_torch.models.conv_kernels import gram_block_rows
+    mflags = types.SimpleNamespace(**MNIST_CONV, num_samples=TRAIN_SAMPLES)
+    images = rng.randn(512, *MNIST_IMAGE).astype(np.float32)
+    mnist = mbuilder.build_model(mflags, MNIST_IMAGE, images=images,
+                                 generator=torch.Generator().manual_seed(1),
+                                 device=dev)
+    X = torch.as_tensor(rng.randn(FULL_COV_N, *IMAGE).reshape(FULL_COV_N, -1),
+                        dtype=torch.float32, device=dev)
+    Xm = torch.as_tensor(images[:FULL_COV_MNIST_N].reshape(
+        FULL_COV_MNIST_N, -1), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        lines, ND = [], X
+        for label, layer in (('flagship layer 0', flagship.layers[0]),
+                             ('flagship last layer', flagship.layers[1]),
+                             ('mnist conv last layer', mnist.layers[-1])):
+            if layer is mnist.layers[-1]:
+                ND = Xm[:FULL_COV_N]
+            z = rng.randn(layer.num_outputs, FULL_COV_N)
+            res, ref64, errs = full_cov_vs_cpu(torch, layer, ND, z)
+            ok = {q: f32_agrees({q: e[0]}, {q: e[1]}, {q: e[2]},
+                                FULL_COV_TOL[q])[q] for q, e in errs.items()}
+            lines.append({'layer': label, 'N': FULL_COV_N,
+                          'outputs': layer.num_outputs,
+                          'card_vs_cpu_f32': {q: e[0] for q, e in errs.items()},
+                          'card_vs_cpu_f64': {q: e[1] for q, e in errs.items()},
+                          'cpu_f32_vs_cpu_f64': {q: e[2]
+                                                 for q, e in errs.items()},
+                          'finite': all(finite(torch, t) for t in res)})
+            check(all(ok.values()) and lines[-1]['finite'],
+                  f'full cov {label}: {errs}')
+            ND = res[0]              # the last layer reads layer 0's sample
+        # The N = 128 call, its peak memory above what was allocated.
+        z = rng.randn(mnist.layers[-1].num_outputs, FULL_COV_MNIST_N)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        big = mnist.layers[-1].sample_from_conditional(Xm, True, noise=z)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+    launches = read_counts()
+    n = FULL_COV_N
+    # ref64 and errs are the MNIST layer's at N = 16, the loop's last.
+    lead = {'mean': rel(big[1][:n].cpu().double(), ref64[1]),
+            'cov': rel(big[2][:n, :n].cpu().double(), ref64[2])}
+    cpu_own = {q: errs[q][2] for q in lead}
+    # A K1 + K3 pair per layer's precompute (4 calls); 2 K6 per last-layer
+    # call (Kzx and the gram of ConvKernel.K, 3 calls).
+    want = launches_of(chol_inv_base=4, tri_inv_base=4,
+                       extract_patches_transposed=6)
+    emit({'phase': 'full cov', **card, 'layers': lines,
+          'mnist_conv_N128': {
+              'seconds': seconds, 'peak_bytes_above_allocated': peak,
+              'bound_bytes': FULL_COV_BOUND_BYTES,
+              'gram_block_rows': gram_block_rows(
+                  mnist.layers[-1].kernel.view.patch_count, FULL_COV_MNIST_N,
+                  4),
+              'leading_16_block_vs_cpu_f64_N16': lead,
+              'finite': all(finite(torch, t) for t in big)},
+          'launches': launches,
+          'tolerance': f'{FULL_COV_TOL} of max|.| card vs CPU float32, or '
+                       'within that plus twice the CPU float32\'s own distance '
+                       'of the CPU float64 (f32_agrees)'})
+    check(all(finite(torch, t) for t in big), 'full cov N = 128: not finite')
+    check(peak < FULL_COV_BOUND_BYTES,
+          f'full cov N = 128: peak {peak} bytes above what was allocated')
+    check(all(lead[q] <= FULL_COV_TOL[q] + 2 * cpu_own[q] for q in lead),
+          f'full cov N = 128: leading block vs CPU float64 {lead}')
+    check(launches == want, f'full cov: launches {launches}, expected {want}')
+    return launches
+
+
+def diagnostics_phase(torch, card: dict, exp, seed: int, root: str,
+                      reset_counts, read_counts) -> dict:
+    """The diagnostics on the trained flagship of the tensorboard phase,
+    one chunk of its training inside ``profiling.trace`` with an
+    ``annotate`` region, and the noise sweep on its test set."""
+    from deepcgp_tpu_torch.training import trainer
+    from deepcgp_tpu_torch.utils import diagnostics, inspect, profiling
+    model = exp.model
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    health = diagnostics.param_health(model)
+    chol = diagnostics.cholesky_health(model)
+    xb = exp.X_train_dev[:TRAIN_BATCH].cpu().numpy()
+    yb = exp.Y_train_dev[:TRAIN_BATCH].cpu().numpy()
+    drift = diagnostics.elbo_drift(model, xb, yb, seed=seed)
+    diag_s = time.perf_counter() - t
+    trace_dir = os.path.join(root, 'trace')
+    t = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.annotate('flagship_chunk'):
+            trainer.run_chunk(exp.state, exp.config, exp.X_train_dev,
+                              exp.Y_train_dev, TRACE_STEPS)
+    trace_s = time.perf_counter() - t
+    (name,) = os.listdir(trace_dir)
+    trace_bytes = os.path.getsize(os.path.join(trace_dir, name))
+    with open(os.path.join(trace_dir, name)) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    kernels = {k: any(any(n in e for n in KERNEL_NAMES[k]) for e in names)
+               for k in ('chol_inv_base', 'tri_inv_base', 'conv_rbf_cross',
+                         'conv_rbf_cross_bwd')}
+    bwd_sides = {n: any(n in e for e in names)
+                 for n in KERNEL_NAMES['conv_rbf_cross_bwd']}
+    t = time.perf_counter()
+    robust = inspect.noise_robustness(model, exp.X_test_dev, exp.Y_test_dev)
+    robust_s = time.perf_counter() - t
+    launches = read_counts()
+    batches = -(-min(512, exp.X_test_dev.shape[0]) // EVAL_BATCH)
+    want = expected_launches(
+        (2, {'chol_inv_base': 1, 'tri_inv_base': 1}),      # cholesky_health
+        (1, EVAL_PER_BATCH['flagship']),                   # elbo_drift's card ELBO
+        (TRACE_STEPS, ADAM_PER_STEP['flagship']),
+        (ROBUSTNESS_LEVELS * batches, EVAL_PER_BATCH['flagship']))
+    emit({'phase': 'diagnostics and trace', **card,
+          'param_health': health, 'cholesky_health': chol,
+          'elbo_drift': drift, 'diagnostics_seconds': diag_s,
+          'trace': {'steps': TRACE_STEPS, 'seconds': trace_s,
+                    'chrome_trace_bytes': trace_bytes,
+                    'names_annotate_region': 'flagship_chunk' in names,
+                    'names_kernel': kernels, 'names_k5_side': bwd_sides},
+          'noise_robustness': robust, 'noise_robustness_seconds': robust_s,
+          'launches': launches,
+          'tolerance': 'no non-finite leaf; every Cholesky finite; float32 '
+                       'ELBO within 1e-3 of the float64 one (relative)'})
+    check(health == {} and all(c['cholesky_ok'] for c in chol),
+          f'diagnostics: {health} {chol}')
+    check(drift['rel_drift'] <= 1e-3, f'diagnostics: elbo drift {drift}')
+    check('flagship_chunk' in names and all(kernels.values())
+          and all(bwd_sides.values()),
+          f'trace: region {"flagship_chunk" in names}, kernels {kernels}, '
+          f'K5 sides {bwd_sides}')
+    check(list(robust) == [0.0, 0.25, 0.5, 1.0]
+          and all(0.0 <= v <= 1.0 for v in robust.values()),
+          f'noise robustness {robust}')
+    check(launches == want, f'diagnostics and trace: launches {launches}, '
+          f'expected {want}')
+    return launches
+
+
+def partial_view_model(torch, images: np.ndarray, seed: int, dev):
+    """The partial-view model of PV_*, fresh: layer 1's Z from k-means of
+    sampled image patches, the last layer's from patches of the images'
+    centre pixels at the chosen positions (the patchwise mean's output),
+    q_mu zero, q_sqrt 1e-5 chol(Kuu) (hidden) and chol(Kuu) (last)."""
+    from deepcgp_tpu_torch import config
+    from deepcgp_tpu_torch.models.base_kernels import RBF
+    from deepcgp_tpu_torch.models.conv_kernels import (ConvKernel,
+                                                       MultiOutputConvKernel)
+    from deepcgp_tpu_torch.models.dgp import DGP
+    from deepcgp_tpu_torch.models.inducing import patch_inducing_points
+    from deepcgp_tpu_torch.models.layers import (ConvLayer, SVGPLayer,
+                                                 fresh_q_sqrt, kernel_gram)
+    from deepcgp_tpu_torch.models.likelihoods import MultiClass
+    from deepcgp_tpu_torch.models.mean_functions import PatchwiseConv2d, Zero
+    from deepcgp_tpu_torch.models.views import FullView, RandomPartialView
+    from deepcgp_tpu_torch.ops.linalg import add_jitter
+    g = torch.Generator().manual_seed(seed)
+    H, W, C = PV_IMAGE
+    view = RandomPartialView(input_size=(H, W), filter_size=5, feature_maps=C,
+                             patch_count=PV_PATCHES, seed=0)
+    Z1 = patch_inducing_points(images, PV_M, 5, generator=g, device=dev)
+    base = RBF.create(device=dev)
+    hidden = ConvLayer(
+        base, Z1, torch.zeros(PV_M, 1, device=dev),
+        fresh_q_sqrt(MultiOutputConvKernel(base, 1).Kuu(Z1), 1, 1e-5),
+        PatchwiseConv2d.create(5, C, device=dev), view)
+    centres = images[:, 2:H - 2, 2:W - 2, 0].reshape(len(images), -1)
+    side = view.out_image_height
+    H2 = centres[:, list(view.patch_indices)].reshape(-1, side, side, 1)
+    Z2 = patch_inducing_points(H2, PV_M, 5, generator=g, device=dev)
+    kernel = ConvKernel.create(RBF.create(device=dev),
+                               FullView(input_size=(side, side),
+                                        filter_size=5, feature_maps=1),
+                               device=dev)
+    last = SVGPLayer(kernel, Z2, torch.zeros(PV_M, 10, device=dev),
+                     fresh_q_sqrt(add_jitter(kernel_gram(kernel, Z2),
+                                             config.JITTER), 10),
+                     Zero(10), num_outputs=10)
+    return DGP([hidden, last], MultiClass(10), num_data=len(images),
+               num_samples=TRAIN_SAMPLES)
+
+
+def partial_view_adam(torch, dev, card: dict, rng, seed: int, reset_counts,
+                      read_counts) -> dict:
+    """The partial-view model trained with Adam (batch 32, S = 10) for a
+    5 s window after 10 warm-up steps, one step against the CPU."""
+    from deepcgp_tpu_torch.ops import cuda_cross
+    from deepcgp_tpu_torch.training import trainer
+    X = rng.randn(PV_IMAGES, *PV_IMAGE).astype(np.float32)
+    Y = rng.randint(0, 10, size=(PV_IMAGES, 1))
+    t = time.perf_counter()
+    model = partial_view_model(torch, X, seed, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    check(cuda_cross.fused_fits(model.layers[1].kernel),
+          'partial view: the last layer is not on the fused route')
+    config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
+                                 batch_size=TRAIN_BATCH)
+    state = trainer.init_state(model, config, seed=seed)
+    Xd = torch.as_tensor(X.reshape(PV_IMAGES, -1), device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    warm = trainer.run_chunk(state, config, Xd, Yd, TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    traces = []
+    t_window = time.perf_counter()
+    while time.perf_counter() - t_window < UNFUSED_WINDOW_SECONDS:
+        traces.append(trainer.run_chunk(state, config, Xd, Yd, TRAIN_CHUNK))
+        torch.cuda.synchronize()
+    window = time.perf_counter() - t_window
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_CHUNK * len(traces)
+    trace = torch.cat([warm] + traces).cpu().numpy()
+    fields, failure = adam_step_vs_cpu(torch, state, config, Xd, Yd,
+                                       TRAIN_BATCH, rng)
+    emit({'phase': 'partial view adam', **card, 'image': PV_IMAGE,
+          'hidden': {'view': 'RandomPartialView', 'filter_size': 5,
+                     'patch_count': PV_PATCHES, 'seed': 0, 'M': PV_M,
+                     'gp_count': 1, 'mean': 'PatchwiseConv2d'},
+          'last': {'kernel': 'ConvKernel', 'input': [12, 12, 1],
+                   'filter_size': 5, 'P': 64, 'L': 25, 'M': PV_M,
+                   'outputs': 10},
+          'batch_size': TRAIN_BATCH, 'num_samples': TRAIN_SAMPLES,
+          'build_seconds': build_s, 'warmup_steps': TRAIN_WARMUP_STEPS,
+          'window_steps': steps, 'window_seconds': window,
+          'steps_per_s': steps / window, 'launches': launches,
+          'elbo_first': float(trace[0]), 'elbo_last': float(trace[-1]),
+          'max_memory_allocated_bytes': peak, **fields})
+    check(bool(np.isfinite(trace).all()), 'partial view: an ELBO is not finite')
+    check(launches == expected_launches((steps, PV_PER_STEP)),
+          f'partial view: launches {launches} for {steps} steps')
+    check(failure is None, f'partial view {failure}')
+    return launches
+
+
+def regression_phase(torch, card: dict, reset_counts, read_counts) -> dict:
+    """``python -m deepcgp_tpu_torch.examples.regression`` in process:
+    2000 Adam steps on the card, its train RMSE gated."""
+    from deepcgp_tpu_torch.examples import regression
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t = time.perf_counter()
+        rmse = regression.main([])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    launches = read_counts()
+    emit({'phase': 'regression', **card,
+          'entry': 'deepcgp_tpu_torch.examples.regression.main',
+          'steps': 2000, 'seconds': seconds, 'steps_per_s': 2000 / seconds,
+          'printed': out.getvalue().splitlines(), 'train_rmse': rmse,
+          'gate': f'train RMSE <= {REGRESSION_MAX_RMSE}',
+          'jax_example_train_rmse': JAX_REGRESSION_RMSE,
+          'jax_example_note': 'examples/regression.py on the CPU, jax 0.9.0; '
+                              'its random streams differ from the port\'s',
+          'launches': launches,
+          'launches_note': 'M = 32 Kuu grams take the library Cholesky; the '
+                           'path runs no kernel of the port'})
+    check(rmse <= REGRESSION_MAX_RMSE, f'regression: train RMSE {rmse}')
+    check(launches == launches_of(), f'regression: launches {launches}')
+    return launches
+
+
+def upper_any_p_phase(torch, dev, card: dict, rng, reset_counts,
+                      read_counts) -> dict:
+    """The upper base case at blocks that are not a multiple of 32, by
+    the identity padding: against the plain version on the CPU (1e-5) and
+    float64 (1e-4)."""
+    from deepcgp_tpu_torch.ops import cuda_linalg
+    rows, total = [], launches_of()
+    for b, P in UPPER_ANY_P:
+        D = spd_batch(torch, rng, b, P, dev)
+        reset_counts()
+        R, Ri = cuda_linalg.chol_inv_base_upper(D)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        total = {k: total[k] + launches[k] for k in total}
+        Rp, Rip = cuda_linalg.chol_inv_base_upper(D.cpu())
+        R64, Ri64 = cuda_linalg.chol_inv_base_upper(D.cpu().double())
+        errs = {'R_vs_plain': rel(R.cpu(), Rp), 'Rinv_vs_plain': rel(Ri.cpu(), Rip),
+                'R_vs_f64': rel(R.cpu().double(), R64),
+                'Rinv_vs_f64': rel(Ri.cpu().double(), Ri64)}
+        call = lambda: cuda_linalg.chol_inv_base_upper(D)  # noqa: E731
+        rows.append({'shape': [b, P, P], 'padded_to': -(-P // 32) * 32,
+                     **errs, 'call_ms': cuda_ms(torch, call, 20),
+                     'device_ms': queued_ms(torch, call, 20),
+                     'launches': launches})
+        check(errs['R_vs_plain'] <= 1e-5 and errs['Rinv_vs_plain'] <= 1e-5
+              and errs['R_vs_f64'] <= 1e-4 and errs['Rinv_vs_f64'] <= 1e-4
+              and bool((torch.tril(R, -1) == 0).all()),
+              f'upper base case [{b}, {P}, {P}]: {errs}')
+        check(launches == launches_of(chol_inv_base_upper=1, tri_inv_base=1),
+              f'upper base case [{b}, {P}, {P}]: launches {launches}')
+    emit({'phase': 'upper base case, any P', **card, 'rows': rows,
+          'route': 'the block padded with an identity tail to the next '
+                   'multiple of 32, K2 + K3, the corner sliced',
+          'timing': 'call_ms: host-paced calls by CUDA events; device_ms: '
+                    'the calls queued behind a device spin (queued_ms), the '
+                    'padding copy and the slices included',
+          'tolerance': 'relative to max|.|: 1e-5 of the plain version (CPU '
+                       'float32, unpadded), 1e-4 of float64'})
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2879,6 +3414,9 @@ def main() -> int:
     # -- the CLI: the entry points a user runs ------------------------------
     path_launches.update(cli_phases(torch, dev, card, args.seed,
                                     reset_counts, read_counts))
+    # -- the rest of the single-device surface -------------------------------
+    path_launches.update(surface_phases(torch, dev, card, args.seed,
+                                        reset_counts, read_counts))
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

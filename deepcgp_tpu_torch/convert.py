@@ -1,9 +1,25 @@
 """Carry a JAX-package model's parameters over to the port.
 
-The port never imports the JAX package; this takes what its
-``deepcgp_tpu.utils.checkpoint.model_parameters(model, step)`` returns --
-a flat {pathname: np.ndarray} dict of constrained values, the same content
-as a reference-format snapshot -- and builds the port's model from it.
+The port never imports the JAX package.  Two ways in:
+
+* :func:`from_jax_parameters` takes what the JAX package's
+  ``deepcgp_tpu.utils.checkpoint.model_parameters(model, step)`` returns
+  -- a flat {pathname: np.ndarray} dict of constrained values, the same
+  content as a reference-format snapshot -- and builds the port's model
+  from it with the builder, for the models the CLI's flags describe.
+* :func:`load_jax_leaves` fills a port model that the caller has built
+  with the same structure -- a model the builder does not make, such as a
+  stack with a ``RandomPartialView`` hidden layer or the regression DGP
+  with its Gaussian likelihood -- from every leaf of the JAX model, raw
+  values as the JAX package holds them (the kernels' and the
+  likelihood's raw parameters, Z, q_mu, q_sqrt, the KL anchors Z0, the
+  mean functions' filters).  On the JAX side the leaves are
+
+      {''.join(str(k) for k in path): np.asarray(leaf)
+       for path, leaf in jax.tree_util.tree_flatten_with_path(model)[0]}
+
+  keyed as '.layers[0].Z'; the port model's ``num_data`` and
+  ``num_samples`` are set where it is built.
 """
 
 from __future__ import annotations
@@ -13,6 +29,7 @@ import torch
 
 from deepcgp_tpu_torch.models.builder import build_model, parse_ints
 from deepcgp_tpu_torch.models.layers import ConvLayer
+from deepcgp_tpu_torch.training.optim import jax_keystr, jax_leaf_order
 from deepcgp_tpu_torch.utils.checkpoint import parse_layer_parameters
 
 
@@ -36,4 +53,24 @@ def from_jax_parameters(flags, image_shape, params: dict, Z0=None, *,
     for layer, z0 in zip(conv_layers, Z0 or ()):
         layer.Z0 = torch.as_tensor(np.array(z0), dtype=layer.Z.dtype,
                                    device=layer.Z.device)
+    return model
+
+
+@torch.no_grad()
+def load_jax_leaves(model, leaves: dict):
+    """Copy every leaf of the JAX model (``leaves``, keyed by JAX key path,
+    see the module docstring) into the port ``model`` of the same
+    structure, in place, keeping each tensor's dtype and device.  The two
+    must hold the same leaves, shape for shape; returns ``model``."""
+    ours = {jax_keystr(name): t for name, t in jax_leaf_order(model)}
+    if set(ours) != set(leaves):
+        raise ValueError('load_jax_leaves: the models differ: port only '
+                         f'{sorted(set(ours) - set(leaves))}, JAX only '
+                         f'{sorted(set(leaves) - set(ours))}')
+    for key, t in ours.items():
+        value = torch.as_tensor(np.array(leaves[key]))
+        if tuple(value.shape) != tuple(t.shape):
+            raise ValueError(f'load_jax_leaves: {key} is {tuple(value.shape)} '
+                             f'in JAX, {tuple(t.shape)} here')
+        t.copy_(value)
     return model

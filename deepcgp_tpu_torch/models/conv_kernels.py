@@ -37,6 +37,14 @@ class MultiOutputConvKernel:
         """[P, N, M]."""
         return self.base_kernel.K(PNL_patches, Z[None])
 
+    def Kuf(self, Z: torch.Tensor, PNL_patches: torch.Tensor) -> torch.Tensor:
+        """[P, M, N]."""
+        return self.Kuf_PNM(Z, PNL_patches).transpose(-1, -2)
+
+    def Kff(self, PNL_patches: torch.Tensor) -> torch.Tensor:
+        """[P, N, N]: the full covariance at each patch position."""
+        return self.base_kernel.K(PNL_patches)
+
     def Kdiag(self, PNL_patches: torch.Tensor) -> torch.Tensor:
         """[P, N]."""
         return self.base_kernel.Kdiag(PNL_patches)
@@ -131,24 +139,55 @@ class AdditivePatchKernel(nn.Module):
         return self.Kzx_NM(Z, ND_X).T
 
 
+# The largest block of ConvKernel.K's [N1 P, N2 P] patch gram.  The base
+# kernel holds up to three grams of a block at once (the distances, their
+# scaled copy, the exponential), so a quarter of 1 GiB keeps the whole
+# evaluation under 1 GiB.
+GRAM_BLOCK_BYTES = 1 << 28
+
+
+def gram_block_rows(pc: int, N2: int, itemsize: int,
+                    limit: int = GRAM_BLOCK_BYTES) -> int:
+    """Images of ND_X per block of :meth:`ConvKernel.K`: the most whose
+    [rows P, N2 P] gram fits in ``limit`` bytes, at least one."""
+    return max(1, limit // (itemsize * pc * N2 * pc))
+
+
 class ConvKernel(AdditivePatchKernel):
     """Weighted double patch sum:
     K(x, x') = sum_pq w_p w_q k(x[p], x'[q]) / P^2."""
 
-    def K(self, ND_X: torch.Tensor, ND_X2: torch.Tensor | None = None):
+    def K(self, ND_X: torch.Tensor, ND_X2: torch.Tensor | None = None, *,
+          block_rows: int | None = None):
+        """[N1, N2], in blocks of ``block_rows`` images of ND_X (default:
+        :func:`gram_block_rows`, so that no block of the [N1 P, N2 P]
+        patch gram exceeds 256 MiB and the evaluation stays under 1 GiB;
+        the whole gram at MNIST's P = 576 and N = 128 would take 21.7 GB).
+        Each block is the base kernel of its patches against all of
+        ND_X2's, weighted and summed over q, then over p: every entry sums
+        the same P x P terms in the same order whatever the blocking.  A self-gram's patches are centred
+        first on their (gradient-free) mean, as the base kernel centres a
+        self-gram: it is factorized in full-covariance sampling."""
         pc = self.view.patch_count
         L = self.view.patch_length
-        p1 = self._patches(ND_X).reshape(-1, L)                 # [N*P, L]
+        p1 = self._patches(ND_X).reshape(-1, L)                 # [N1*P, L]
         if ND_X2 is None:
-            Kfull = self.base_kernel.K(p1)
+            p1 = p1 - p1.mean(0, keepdim=True).detach()
+            p2 = p1
         else:
-            Kfull = self.base_kernel.K(p1, self._patches(ND_X2).reshape(-1, L))
+            p2 = self._patches(ND_X2).reshape(-1, L)
         N1 = ND_X.shape[0]
-        N2 = N1 if ND_X2 is None else ND_X2.shape[0]
-        Kfull = Kfull.reshape(N1, pc, N2, pc)
+        N2 = p2.shape[0] // pc
         w = self._weights()
-        Kfull = Kfull * (w[None, :, None, None] * w[None, None, None, :])
-        return Kfull.sum((1, 3)) / (pc * pc)
+        if block_rows is None:
+            block_rows = gram_block_rows(pc, N2, p1.element_size())
+        out = []
+        for n0 in range(0, N1, block_rows):
+            n = min(block_rows, N1 - n0)
+            blk = self.base_kernel.K(p1[n0 * pc:(n0 + n) * pc], p2)
+            blk = (blk.reshape(n, pc, N2, pc) * w).sum(-1)      # [n, P, N2]
+            out.append((blk * w[:, None]).sum(1))
+        return torch.cat(out) / (pc * pc)
 
     def Kdiag(self, ND_X: torch.Tensor, patches=None) -> torch.Tensor:
         """[N]: w^T k(x[p], x[q]) w / P^2 over each image's own patches,

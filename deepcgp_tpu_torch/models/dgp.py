@@ -121,6 +121,11 @@ class DGP(nn.Module):
         return scale * self.expected_log_likelihood(X, Y, caches, **draw) \
             - self.prior_kl(caches)
 
+    def compute_log_likelihood(self, X: torch.Tensor, Y: torch.Tensor,
+                               **draw) -> torch.Tensor:
+        """The minibatch ELBO, by the reference's name for it."""
+        return self.elbo(X, Y, **draw)
+
     # -- prediction ----------------------------------------------------------
     @torch.no_grad()
     def predict_y(self, X: torch.Tensor, S: int, **draw):

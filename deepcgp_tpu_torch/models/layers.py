@@ -1,10 +1,11 @@
 """GP layers: the hidden convolutional layer and the final SVGP layer
-(counterpart of ``deepcgp_tpu/models/layers.py``, diagonal covariance
-only).
+(counterpart of ``deepcgp_tpu/models/layers.py``).
 
 Each layer exposes ``kuu_grams()`` (the [M, M] grams to factorize),
 ``make_cache(pairs)`` (a LayerCache from their (L, L^-1) pairs),
-``conditional_mean_var(cache, ND_X)`` -> (mean [N, O], var [N, O]) and
+``precompute()`` (the layer's own cache, its grams factorized in one
+batched call), ``conditional_mean_var(cache, ND_X, full_cov)`` ->
+(mean [N, O], var [N, O] or [N, N, O]), ``sample_from_conditional`` and
 ``KL(cache)``.  The variational parameters and Z are ``nn.Parameter``s;
 the hidden layer's KL anchor Z0 (and its identity mean's filter, under
 ``--identity-mean``) is a buffer, so no optimizer sees it.
@@ -38,6 +39,43 @@ def fresh_q_sqrt(Kuu: torch.Tensor, count: int, scale: float = 1.0):
     with torch.no_grad():
         Lu = linalg.cholesky(Kuu)
         return (Lu[None] * scale).expand(count, *Lu.shape).clone()
+
+
+def _precompute(layer) -> LayerCache:
+    """A layer's cache on its own: its grams factorized, with their
+    inverses, in one batched ``chol_with_inv`` (one K1 + one K3 on the
+    card where the shape takes them)."""
+    L, Linv = linalg.chol_with_inv(torch.stack(layer.kuu_grams()))
+    return layer.make_cache(tuple(zip(L.unbind(0), Linv.unbind(0))))
+
+
+def _sample_from_conditional(layer, ND_X, full_cov, generator, noise):
+    """(sample, mean, var) of q(f | ND_X), with standard normals from
+    ``noise`` when given (the shape of the mean, or [O, N] for the full
+    covariance), else from ``generator``.  The full covariance draws one
+    correlated sample per output through chol(cov + jitter I) over N."""
+    if (noise is None) == (generator is None):
+        raise ValueError('sample_from_conditional: pass exactly one of '
+                         'generator, noise')
+    mean, var = layer.conditional_mean_var(layer.precompute(), ND_X,
+                                           full_cov=full_cov)
+    N, O = mean.shape
+    shape = (O, N) if full_cov else (N, O)
+    if noise is not None:
+        z = torch.as_tensor(noise, dtype=mean.dtype, device=mean.device)
+        if z.shape != shape:
+            raise ValueError(f'noise is {tuple(z.shape)}, the sample draws '
+                             f'{shape}')
+    else:
+        z = torch.randn(shape, generator=generator, dtype=mean.dtype,
+                        device=mean.device)
+    if full_cov:
+        cov = var.permute(2, 0, 1)                               # [O, N, N]
+        L = linalg.cholesky(linalg.add_jitter(cov, JITTER))
+        sample = mean + torch.einsum('onk,ok->no', L, z)
+    else:
+        sample = mean + z * torch.sqrt(var + JITTER)
+    return sample, mean, var
 
 
 class ConvLayer(nn.Module):
@@ -87,21 +125,40 @@ class ConvLayer(nn.Module):
         Lp, Lp_inv = pairs[1]
         return LayerCache(Lm=Lm, Lp=Lp, Lm_inv=Lm_inv, Lp_inv=Lp_inv)
 
-    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor):
-        """(mean [N, P*R], var [N, P*R])."""
+    def precompute(self) -> LayerCache:
+        return _precompute(self)
+
+    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor,
+                             full_cov: bool = False):
+        """(mean [N, P*R], var [N, P*R], or [N, N, P*R] with
+        ``full_cov``)."""
         N = ND_X.shape[0]
         H, W = self.view.input_size
         NHWC_X = ND_X.reshape(N, H, W, self.view.feature_maps)
         NPL = self.view.extract_patches_NPL(NHWC_X)
         PNL = NPL.transpose(0, 1)
         Kuf = self.conv_kernel.Kuf_PNM(self.Z, PNL)           # [P, N, M]
-        Knn = self.conv_kernel.Kdiag(PNL)                     # [P, N]
+        if full_cov:
+            Knn = self.conv_kernel.Kff(PNL)                   # [P, N, N]
+        else:
+            Knn = self.conv_kernel.Kdiag(PNL)                 # [P, N]
         mean, var = multi_output_conditional(
             Kuf, Knn, self.q_mu, Lm_inv=cache.Lm_inv, q_sqrt=self.q_sqrt,
-            white=self.white)
-        var = var.permute(2, 1, 0).reshape(N, self.num_outputs)
+            white=self.white, full_cov=full_cov)
+        if full_cov:
+            var = var.permute(2, 3, 1, 0).reshape(N, N, self.num_outputs)
+        else:
+            var = var.permute(2, 1, 0).reshape(N, self.num_outputs)
         mean = mean.reshape(N, self.num_outputs)
         return mean + self.mean_function(self.view.mean_view(NHWC_X, NPL)), var
+
+    def sample_from_conditional(self, ND_X: torch.Tensor,
+                                full_cov: bool = False, *, generator=None,
+                                noise=None):
+        """(sample, mean, var) of q(f | ND_X), from this layer's own
+        cache."""
+        return _sample_from_conditional(self, ND_X, full_cov, generator,
+                                        noise)
 
     def KL(self, cache: LayerCache | None = None) -> torch.Tensor:
         """KL[q(u) || p(u)]; the non-white prior is Kuu(Z0), reused from
@@ -149,18 +206,36 @@ class SVGPLayer(nn.Module):
         Lm, Lm_inv = pairs[0]
         return LayerCache(Lm=Lm, Lm_inv=Lm_inv)
 
-    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor):
-        """(mean [N, R], var [N, R]).  A patch-sum kernel gives Kuf and
-        Kdiag from one fused call; a plain kernel K(X, Z) and its constant
-        Kdiag."""
-        if hasattr(self.kernel, 'Kzx_NM_and_Kdiag'):
+    def precompute(self) -> LayerCache:
+        return _precompute(self)
+
+    def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor,
+                             full_cov: bool = False):
+        """(mean [N, R], var [N, R], or [N, N, R] with ``full_cov``).  A
+        patch-sum kernel gives Kuf and Kdiag from one fused call; a plain
+        kernel K(X, Z) and its constant Kdiag.  The full covariance takes
+        Kuf alone and the kernel's K over the batch."""
+        if full_cov:
+            Kuf = (self.kernel.Kzx_NM(self.Z, ND_X)
+                   if hasattr(self.kernel, 'Kzx_NM')
+                   else self.kernel.K(ND_X, self.Z))
+            Knn = self.kernel.K(ND_X)
+        elif hasattr(self.kernel, 'Kzx_NM_and_Kdiag'):
             Kuf, Knn = self.kernel.Kzx_NM_and_Kdiag(self.Z, ND_X)
         else:
             Kuf, Knn = self.kernel.K(ND_X, self.Z), self.kernel.Kdiag(ND_X)
         mean, var = multi_output_conditional(
             Kuf[None], Knn[None], self.q_mu, Lm_inv=cache.Lm_inv,
-            q_sqrt=self.q_sqrt, white=self.white)
-        return mean[:, 0, :] + self.mean_function(ND_X), var[:, 0].T
+            q_sqrt=self.q_sqrt, white=self.white, full_cov=full_cov)
+        var = var[:, 0].permute(1, 2, 0) if full_cov else var[:, 0].T
+        return mean[:, 0, :] + self.mean_function(ND_X), var
+
+    def sample_from_conditional(self, ND_X: torch.Tensor,
+                                full_cov: bool = False, *, generator=None,
+                                noise=None):
+        """See :meth:`ConvLayer.sample_from_conditional`."""
+        return _sample_from_conditional(self, ND_X, full_cov, generator,
+                                        noise)
 
     def KL(self, cache: LayerCache | None = None) -> torch.Tensor:
         if self.white:

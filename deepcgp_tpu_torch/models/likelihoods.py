@@ -1,9 +1,11 @@
-"""Robust-max multiclass likelihood (counterpart of
-``deepcgp_tpu/models/likelihoods.py``).
+"""Likelihoods (counterpart of ``deepcgp_tpu/models/likelihoods.py``):
+the robust-max multiclass likelihood and an isotropic Gaussian.
 
-p(y = c | f) = 1 - eps if c = argmax(f), else eps / (K - 1).  The
-probability that a latent is the largest under a factorised Gaussian q(f)
-is a 1-D Gauss-Hermite quadrature, as gpflow's ``RobustMax`` computes it.
+Robust max: p(y = c | f) = 1 - eps if c = argmax(f), else eps / (K - 1).
+The probability that a latent is the largest under a factorised Gaussian
+q(f) is a 1-D Gauss-Hermite quadrature, as gpflow's ``RobustMax``
+computes it.  The Gaussian's variance is a trained parameter, stored raw
+as the kernels' positive parameters are.
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ import math
 
 import numpy as np
 import torch
+from torch import nn
 
 from deepcgp_tpu_torch.config import NUM_GAUSS_HERMITE_POINTS
+from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
+from deepcgp_tpu_torch.utils.transforms import positive_backward, positive_forward
 
 
 def _gh_points(n: int, like: torch.Tensor):
@@ -88,3 +93,32 @@ class MultiClass:
                         Y: torch.Tensor) -> torch.Tensor:
         p = self.prob_is_largest(Y, Fmu, Fvar)
         return torch.log(p * (1.0 - self.epsilon) + (1.0 - p) * self._eps_k1)
+
+
+class Gaussian(nn.Module):
+    """Isotropic Gaussian likelihood, p(y | f) = N(y; f, variance), for
+    regression with the DGP."""
+
+    def __init__(self, raw_variance: torch.Tensor):
+        super().__init__()
+        self.raw_variance = frozen_parameter(raw_variance)
+
+    @classmethod
+    def create(cls, variance=1.0, dtype=torch.float32, device=None):
+        return cls(torch.as_tensor(positive_backward(variance), dtype=dtype,
+                                   device=device))
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return positive_forward(self.raw_variance)
+
+    def variational_expectations(self, Fmu: torch.Tensor, Fvar: torch.Tensor,
+                                 Y: torch.Tensor) -> torch.Tensor:
+        """E_q[log N(y; f, variance)] summed over the outputs: [..., 1]."""
+        v = self.variance
+        ve = (-0.5 * math.log(2.0 * math.pi) - 0.5 * torch.log(v)
+              - 0.5 * ((Y - Fmu).square() + Fvar) / v)
+        return ve.sum(-1, keepdim=True)
+
+    def predict_mean_and_var(self, Fmu: torch.Tensor, Fvar: torch.Tensor):
+        return Fmu, Fvar + self.variance

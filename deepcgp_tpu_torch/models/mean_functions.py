@@ -1,11 +1,12 @@
-"""Mean functions (counterpart of ``deepcgp_tpu/models/mean_functions.py``;
-``PatchwiseConv2d``, the partial views' mean, is not ported yet).
+"""Mean functions (counterpart of ``deepcgp_tpu/models/mean_functions.py``).
 
 The conv means are the "identity/residual" mean of ``--identity-mean``: a
 frozen VALID conv2d whose delta filter copies the centre pixel of each
 patch, so a hidden layer's GP models the residual around an identity map.
-The filter is a buffer, never a parameter: the trainer trains every
-parameter of the model, and the JAX package freezes the filter by name.
+``PatchwiseConv2d`` is the partial views' mean, the same delta filter
+applied to patches already extracted.  The filter is a buffer, never a
+parameter: the trainer trains every parameter of the model, and the JAX
+package freezes the filter by name.
 """
 
 from __future__ import annotations
@@ -94,3 +95,23 @@ class IdentityConv2dMean(Conv2dMean):
 
     def forward(self, NHWC_X: torch.Tensor) -> torch.Tensor:
         return self.conv(NHWC_X)
+
+
+class PatchwiseConv2d(nn.Module):
+    """Conv2dMean's product over patches already extracted, for partial
+    views: [N, P, L] patches (TF order within a patch) times the filter
+    [fh, fw, in, 1] flattened to [L] -> [N, P]."""
+
+    def __init__(self, conv_filter: torch.Tensor):
+        super().__init__()
+        self.register_buffer('conv_filter', conv_filter)  # [fh, fw, in, 1]
+
+    @classmethod
+    def create(cls, filter_size: int, feature_maps_in: int,
+               dtype=torch.float32, device=None):
+        filt = _identity_filter(filter_size, feature_maps_in, 1, False)
+        return cls(torch.as_tensor(filt, dtype=dtype, device=device))
+
+    def forward(self, NPL_patches: torch.Tensor) -> torch.Tensor:
+        w = self.conv_filter.reshape(-1).to(NPL_patches.dtype)
+        return NPL_patches @ w

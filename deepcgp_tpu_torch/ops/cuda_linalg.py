@@ -372,15 +372,38 @@ def chol_upper_blocked(A: torch.Tensor):
     return L, Dinv
 
 
+def chol_inv_base_upper_padded(D: torch.Tensor):
+    """:func:`chol_inv_base_upper` of a block whose P is not a multiple of
+    32, through an identity tail: D is padded to the next multiple of 32
+    as blockdiag(D, I), whose upper factor is blockdiag(R, I) and its
+    inverse blockdiag(R^-1, I), so the leading [P, P] corners of the
+    padded results are R and R^-1.  K2 factors the padded tail first (J
+    reverses it to the top) and its panels below are zeros, so nothing
+    of the tail reaches D's part but exact zeros.  The card takes this
+    route for such a P; on the CPU it runs the same plain versions K2 and
+    K3 follow."""
+    b, P, _ = D.shape
+    Pp = -(-P // W) * W
+    padded = torch.eye(Pp, dtype=D.dtype, device=D.device).repeat(b, 1, 1)
+    padded[:, :P, :P] = D
+    R, Rinv = chol_inv_base_upper(padded)
+    return R[:, :P, :P], Rinv[:, :P, :P]
+
+
 def chol_inv_base_upper(D: torch.Tensor):
     """[b, P, P] SPD, lower triangle read -> (R, R^-1) with R upper,
     R R^T = D: K2 then K3 (:func:`chol_upper_blocked`,
     :func:`tri_inv_blocked` with K2's diagonal-block inverses), two
-    launches, R = J Lf J and R^-1 = J Lf^-1 J.  On the card P must be a
-    multiple of 32 up to 2048 (K2's and K3's contract, as K1's
-    :func:`chol_inv_base`): other shapes raise there.
+    launches, R = J Lf J and R^-1 = J Lf^-1 J.  K2 and K3 take a P that
+    is a multiple of 32 up to 2048, as K1 does (:func:`chol_inv_base`);
+    on the card any other P up to 2048 takes
+    :func:`chol_inv_base_upper_padded`, the same two launches on the block
+    padded with an identity tail, so that, as the JAX package's upper base
+    case, it takes any P.
 
     ``chol_inv_base_upper.launches`` counts K2's launches."""
+    if D.device.type == 'cuda' and D.ndim == 3 and D.shape[-1] % W:
+        return chol_inv_base_upper_padded(D)
     Lf, Dinv = chol_upper_blocked(D)
     return Lf.flip(-1, -2), tri_inv_blocked(Lf, Dinv).flip(-1, -2)
 
@@ -512,8 +535,8 @@ def chol_inv_batched_upper(A: torch.Tensor, panel: int | None = None):
     :func:`chol_inv_reversed_upper` (two launches), or the panel driver
     :func:`chol_inv_batched_upper_panels` at ``panel`` (default: the
     route's own, else 64).  On the card the panel driver's base case is
-    :func:`chol_inv_base_upper`, so a block that is not a multiple of 32
-    (M = 48, say) raises there."""
+    :func:`chol_inv_base_upper`, which takes a block that is not a
+    multiple of 32 (M = 48, say) through its identity padding."""
     kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
     if kind == 'upper':
         Lf, Lfinv = chol_inv_reversed_upper(A.contiguous())
@@ -528,7 +551,8 @@ def chol_right_solve_upper(A: torch.Tensor, X: torch.Tensor,
     :func:`upper_route`: :func:`chol_right_solve_reversed`, or the panel
     driver :func:`chol_right_solve_upper_panels` at ``panel`` (default:
     the route's own, else 64).  As :func:`chol_inv_batched_upper`, a block
-    that is not a multiple of 32 raises on the card."""
+    that is not a multiple of 32 takes the base case's identity padding
+    on the card."""
     kind, P = upper_route(A.shape[-1]) or ('panels', PANEL)
     if kind == 'upper':
         return chol_right_solve_reversed(A.contiguous(), X)

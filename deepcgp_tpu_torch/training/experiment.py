@@ -6,9 +6,10 @@ iteration chunk (``trainer.run_chunk``, no host sync inside), then logs and
 snapshots parameters (`conv_gp/experiment.py:28-31,56-64`).
 
 The port runs on one card, in one process: it always writes the run's
-files, and ``--mesh`` and ``--distributed`` raise.  The training set moves
-to the device once; each chunk syncs once, for its mean ELBO, and each
-evaluation once, for its count.
+files (the TensorBoard events too, under ``<tensorboard_dir>/<name>``,
+unless ``--no-tensorboard``), and ``--mesh`` and ``--distributed``
+raise.  The training set moves to the device once; each chunk syncs
+once, for its mean ELBO, and each evaluation once, for its count.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from deepcgp_tpu_torch.utils.log import (AccuracyLogger, GlobalStepLogger,
                                          LearningRateLogger, Log,
                                          TrainELBOLogger)
 from deepcgp_tpu_torch.utils.profiling import StepsPerSecLogger
+from deepcgp_tpu_torch.utils.tensorboard import make_default_log
 
 
 def eval_seed(seed: int, global_step: int) -> int:
@@ -61,6 +63,8 @@ class Experiment:
     # -- lifecycle ------------------------------------------------------------
     def conclude(self):
         self.log.close()
+        if self.tensorboard_log is not None:
+            self.tensorboard_log.close()
 
     def train_step(self):
         self._optimize()
@@ -84,7 +88,10 @@ class Experiment:
         self.last_mean_elbo = float(elbos.mean()) / self.flags.batch_size
 
     def _log_step(self):
-        print(self.log.write_entry(self), flush=True)
+        entry = self.log.write_entry(self)
+        if self.tensorboard_log is not None:
+            self.tensorboard_log.write_entry(self)
+        print(entry, flush=True)
 
     def _model_path(self, model_name=None):
         if model_name is None:
@@ -182,9 +189,9 @@ class Experiment:
         if prep is not None:
             np.savez(os.path.join(self.log.log_dir, 'preprocessing.npz'),
                      **prep)
+        self.tensorboard_log = None
         if not getattr(self.flags, 'no_tensorboard', False):
-            print("tensorboard logging disabled: the port writes no "
-                  "TensorBoard events yet", flush=True)
+            self.tensorboard_log = make_default_log(self)
 
     # -- logger accessors -------------------------------------------------------
     @property

@@ -90,7 +90,7 @@ def bf16_moments(p: torch.Tensor) -> bool:
 # the order in which its tree_map visits leaves, and so numbers the bf16
 # moment leaves (each one's dither salt).
 _JAX_FIELDS = {
-    'DGP': ('layers',),
+    'DGP': ('layers', 'likelihood'),
     'ConvLayer': ('base_kernel', 'Z', 'q_mu', 'q_sqrt', 'Z0', 'mean_function'),
     'SVGPLayer': ('kernel', 'Z', 'q_mu', 'q_sqrt'),
     'ConvKernel': ('base_kernel', 'patch_weights'),
@@ -98,6 +98,8 @@ _JAX_FIELDS = {
     'RBF': ('raw_variance', 'raw_lengthscales'),
     'ArcCosine': ('raw_variance', 'raw_weight_variances', 'raw_bias_variance'),
     'Conv2dMean': ('conv_filter',),
+    'PatchwiseConv2d': ('conv_filter',),
+    'Gaussian': ('raw_variance',),
 }
 
 
@@ -122,6 +124,14 @@ def jax_leaf_order(model) -> list:
     if missing:
         raise ValueError(f'jax_leaf_order: no JAX field order for {missing}')
     return out
+
+
+def jax_keystr(name: str) -> str:
+    """The JAX package's key path of the leaf a port name names:
+    'layers.0.base_kernel.raw_variance' -> '.layers[0].base_kernel.raw_variance'
+    (``''.join(str(k) for k in path)`` of ``tree_flatten_with_path``)."""
+    return ''.join(f'[{p}]' if p.isdigit() else f'.{p}'
+                   for p in name.split('.'))
 
 
 def bf16_leaf_order(model) -> list:

@@ -83,6 +83,16 @@ layer over P = 64, L = 25 on the fused route), the regression example
 (2000 Adam steps, its train RMSE gated) and the upper base case at
 blocks that are not a multiple of 32 (the identity padding).
 
+Last, the multi-process layer (``deepcgp_tpu_torch/parallel``) on the
+card: the flagship CLI as a one-rank NCCL group (``--mesh data=1
+--distributed``), its log rows and launches against the plain run; then
+two spawned processes sharing the card over gloo (NCCL takes one rank a
+device), with mesh data=2 and then model=2, each holding two Adam and
+two NatGrad steps of the flagship, and under model=2 one Adam step of
+the MNIST ConvKernel and of fm32, against the same steps in one process,
+with each rank's launches; and ``Predictor(mesh='data=2')``.  One card
+shows the collectives, not a speed-up.
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -122,7 +132,7 @@ BATCH, SAMPLES = 128, 5
 LENGTHSCALES = (5.0, 25.0)
 # Serving: warm-up requests, then batch-sized requests for this many seconds.
 WARMUP_REQUESTS = 30
-WINDOW_SECONDS = 10.0
+WINDOW_SECONDS = 5.0
 # Training (bench.py's flagship Adam run): batch, MC samples, synthetic
 # training images, warm-up steps, steps per timed chunk, window seconds.
 TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_IMAGES = 32, 10, 2048
@@ -2324,9 +2334,12 @@ FULL_COV_TOL = {'mean': 1e-4, 'cov': 1e-4, 'sample': 1e-3}
 # geometry of tests/test_trajectory_parity.py's partial-view model.
 PV_IMAGE, PV_PATCHES, PV_M, PV_IMAGES = (28, 28, 1), 144, 384, 2048
 PV_PER_STEP = ADAM_PER_STEP['flagship']
-# Regression: the port's examples/regression.py, 5 chunks of 400 Adam
-# steps; the JAX example's train RMSE on the CPU (jax 0.9.0) for reference.
+# Regression: the port's examples/regression.py (its width, M = 32), 5
+# chunks of REGRESSION_CHUNK Adam steps (the example's default is 400: its
+# host-bound steps were the script's longest phase); the JAX example's
+# train RMSE on the CPU (jax 0.9.0, 2000 steps) for reference.
 REGRESSION_MAX_RMSE, JAX_REGRESSION_RMSE = 0.10, 0.0527
+REGRESSION_CHUNK = 240
 # Diagnostics and the trace: one chunk of flagship steps under the
 # profiler (host and card activity: ~0.9 s a step), the noise sweep's
 # default levels on the test set.
@@ -2746,20 +2759,22 @@ def partial_view_adam(torch, dev, card: dict, rng, seed: int, reset_counts,
 
 
 def regression_phase(torch, card: dict, reset_counts, read_counts) -> dict:
-    """``python -m deepcgp_tpu_torch.examples.regression`` in process:
-    2000 Adam steps on the card, its train RMSE gated."""
+    """``python -m deepcgp_tpu_torch.examples.regression --steps-per-chunk
+    REGRESSION_CHUNK`` in process: 5 chunks of Adam steps on the card, its
+    train RMSE gated."""
     from deepcgp_tpu_torch.examples import regression
     reset_counts()
     out = io.StringIO()
+    steps = 5 * REGRESSION_CHUNK
     with contextlib.redirect_stdout(out):
         t = time.perf_counter()
-        rmse = regression.main([])
+        rmse = regression.main(['--steps-per-chunk', str(REGRESSION_CHUNK)])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
     launches = read_counts()
     emit({'phase': 'regression', **card,
           'entry': 'deepcgp_tpu_torch.examples.regression.main',
-          'steps': 2000, 'seconds': seconds, 'steps_per_s': 2000 / seconds,
+          'steps': steps, 'seconds': seconds, 'steps_per_s': steps / seconds,
           'printed': out.getvalue().splitlines(), 'train_rmse': rmse,
           'gate': f'train RMSE <= {REGRESSION_MAX_RMSE}',
           'jax_example_train_rmse': JAX_REGRESSION_RMSE,
@@ -2814,6 +2829,368 @@ def upper_any_p_phase(torch, dev, card: dict, rng, reset_counts,
     return total
 
 
+def kernel_counters() -> dict:
+    """Every kernel wrapper, by its COUNTERS name; each counts its
+    launches in ``.launches``."""
+    from deepcgp_tpu_torch.ops import cuda_cross, cuda_linalg, cuda_patches
+    return {'chol_inv_base': cuda_linalg.chol_inv_base,
+            'chol_inv_base_upper': cuda_linalg.chol_inv_base_upper,
+            'tri_inv_base': cuda_linalg.tri_inv_base,
+            'conv_rbf_cross': cuda_cross.conv_rbf_cross,
+            'conv_rbf_cross_bwd': cuda_cross.conv_rbf_cross_bwd,
+            'extract_patches_transposed':
+                cuda_patches.extract_patches_transposed,
+            'col2im_transposed': cuda_patches.col2im_transposed}
+
+
+# -- the mesh: the port's torch.distributed layer on the card ---------------
+# (a) The flagship CLI in one process as a one-rank NCCL group
+# (``--mesh data=1 --distributed``) against the plain run of the same argv:
+# 3 chunks of 10 Adam steps, an eval of 256 images after each.
+MESH_CLI = CLI_FLAGSHIP[:-1] + ['--name', 'mesh', '--test-every', '10',
+                                '--lr-decay-steps', '10', '--test-size', '256']
+# (b) Two processes sharing the card over gloo (NCCL takes one rank a
+# device): with mesh data=2, then with the group kept and the mesh
+# re-formed as model=2, each case's steps against the same steps in one
+# process on the card (deepcgp_tpu/parallel/train.py's float32 rule: the
+# ELBO within 1e-4 of max(|ELBO|, 1)), and before them each case's
+# gradients at the start, summed over the data group, against the one-
+# process gradients: every leaf within MESH_GRAD_RTOL of its max |.|.  That
+# checks the backward collectives, which no ELBO computed before its
+# update sees.  float32 in another summation order reads up to 2.2e-3
+# (fm32's last-layer variance, a sum over every patch) and a collective
+# patched out 0.5 or more on the leaves it feeds, so the rule sits
+# between; then Predictor(mesh='data=2') on a
+# request of MESH_REQUEST rows.  The flagship starts from the seed's
+# snapshot (trained-looking q_sqrt, the last layer at lengthscale 25, so
+# that every gradient resolves in float32), the unfused configurations
+# from a build on MESH_IMAGES seeded images with every q_mu moved off 0
+# by 0.05 x a seeded normal (at q_mu = 0 all class means are 0, the
+# robust-max likelihood is symmetric in them, and the gradients of the
+# patch weights, Z and the kernel's parameters are float32 noise).
+MESH_WORLD, MESH_IMAGES, MESH_REQUEST = 2, 256, 50
+MESH_CASES = (('data=2', (('flagship', 'Adam', 2), ('flagship', 'NatGrad', 2))),
+              ('model=2', (('flagship', 'Adam', 2), ('flagship', 'NatGrad', 2),
+                           ('mnist_conv', 'Adam', 1), ('fm32', 'Adam', 1))))
+MESH_TIMEOUT_S = 420
+MESH_RTOL, MESH_GRAD_RTOL = 1e-4, 1e-2
+
+
+def mesh_model(torch, label: str, seed: int, dev):
+    """(model, X [MESH_IMAGES, D], Y) of a mesh case, on ``dev``."""
+    from deepcgp_tpu_torch.models.builder import build_model
+    from deepcgp_tpu_torch.utils.checkpoint import parse_layer_parameters
+    flags, image = {'flagship': (FLAGSHIP, IMAGE),
+                    'mnist_conv': (MNIST_CONV, MNIST_IMAGE),
+                    'fm32': (FM32, IMAGE)}[label]
+    rng = np.random.RandomState(seed + 11)
+    X = rng.randn(MESH_IMAGES, *image).astype(np.float32)
+    Y = rng.randint(0, 10, size=(MESH_IMAGES, 1))
+    ns = types.SimpleNamespace(**flags, num_samples=TRAIN_SAMPLES)
+    if label == 'flagship':
+        _, loaded = parse_layer_parameters(flagship_snapshot(seed), 2)
+        model = build_model(ns, image, loaded, num_data=MESH_IMAGES,
+                            device=dev)
+    else:
+        loaded = ({1: {'base_kernel/lengthscales': LENGTHSCALES[1]}}
+                  if label == 'fm32' else None)
+        model = build_model(ns, image, loaded, images=X,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=dev)
+        with torch.no_grad():
+            for layer in model.layers:
+                layer.q_mu.add_(0.05 * torch.as_tensor(
+                    rng.randn(*layer.q_mu.shape), dtype=layer.q_mu.dtype,
+                    device=dev))
+    return (model, torch.as_tensor(X.reshape(MESH_IMAGES, -1), device=dev),
+            torch.as_tensor(Y, device=dev))
+
+
+def mesh_grads(torch, mesh, model, config, seed: int, X, Y) -> dict:
+    """{leaf: max |g - g1| / max |g1|}: each leaf's gradient of the loss on
+    the batch (X, Y) under ``mesh`` (this rank's rows, summed over the data
+    group as ``trainer.train_step`` sums them) against the one-process
+    gradient g1, both from a generator seeded with ``seed``."""
+    from deepcgp_tpu_torch.parallel import mesh as mesh_lib
+    from deepcgp_tpu_torch.parallel import sharding
+    from deepcgp_tpu_torch.training import trainer
+    ref = trainer.init_state(copy.deepcopy(model), config, seed=seed)
+    state = trainer.init_state(copy.deepcopy(model), config, seed=seed)
+    _, want = trainer.loss_and_grads(ref, X, Y)
+    with sharding.mesh_context(mesh):
+        _, got = trainer.loss_and_grads(
+            state, *mesh_lib.shard_batch(mesh, X, Y))
+        names = list(got)
+        got = dict(zip(names, sharding.sum_over_data([got[k]
+                                                      for k in names])))
+    return {k: rel(got[k], want[k]) for k in names}
+
+
+def mesh_case(torch, mesh, label: str, optimizer: str, steps: int, seed: int,
+              dev, counters: dict) -> dict:
+    """The gradients at the start (:func:`mesh_grads`), then ``steps``
+    sharded steps of a case against the same steps in one process, with
+    this rank's launches of the sharded steps."""
+    from deepcgp_tpu_torch.parallel import sharding
+    from deepcgp_tpu_torch.parallel.train import make_sharded_train_fns
+    from deepcgp_tpu_torch.training import trainer
+    model, X, Y = mesh_model(torch, label, seed, dev)
+    sharding.broadcast_module(model)
+    config = trainer.TrainConfig(optimizer=optimizer, lr=0.01, gamma=0.001,
+                                 batch_size=TRAIN_BATCH)
+    rng = np.random.RandomState(seed + 12)
+    batches = [torch.as_tensor(rng.randint(0, MESH_IMAGES, TRAIN_BATCH),
+                               device=dev) for _ in range(steps)]
+    grads = mesh_grads(torch, mesh, model, config, seed + 1, X[batches[0]],
+                       Y[batches[0]])
+    ref = trainer.init_state(copy.deepcopy(model), config, seed=seed + 1)
+    state = trainer.init_state(model, config, seed=seed + 1)
+    want = [float(trainer.train_step(ref, config, X[i], Y[i]))
+            for i in batches]
+    step_fn, _ = make_sharded_train_fns(mesh, config)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    got = [float(step_fn(state, X[i], Y[i])) for i in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return {'elbos': got, 'single_process_elbos': want,
+            'max_rel_err': max(abs(g - w) / max(abs(w), 1.0)
+                               for g, w in zip(got, want)),
+            'grad_rel_err': grads,
+            'param_max_rel_err': max(rel(p.detach(), ref.params[k].detach())
+                                     for k, p in state.params.items()),
+            'launches': {n: fn.launches for n, fn in counters.items()},
+            'seconds': seconds}
+
+
+def mesh_serving(torch, seed: int, dev, counters: dict) -> dict:
+    """Predictor(mesh='data=2') against the one-process Predictor."""
+    from deepcgp_tpu_torch.serving import Predictor
+    model, _, _ = mesh_model(torch, 'flagship', seed, dev)
+    rng = np.random.RandomState(seed + 13)
+    X = rng.randn(MESH_REQUEST, int(np.prod(IMAGE))).astype(np.float32)
+    Y = rng.randint(0, 10, size=(MESH_REQUEST, 1))
+    kw = dict(batch_size=TRAIN_BATCH, num_samples=SAMPLES, seed=seed,
+              device=dev)
+    single = Predictor(model, **kw)
+    want = (single.predict_proba(X), single.log_density(X, Y))
+    served = Predictor(model, mesh='data=2', **kw)
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    got = (served.predict_proba(X), served.log_density(X, Y))
+    seconds = time.perf_counter() - t
+    return {'shape': list(got[0].shape),
+            'probs_max_rel_err': float(np.abs(got[0] - want[0]).max()
+                                       / np.abs(want[0]).max()),
+            'log_density_max_rel_err': float(np.abs(got[1] - want[1]).max()
+                                             / np.abs(want[1]).max()),
+            'launches': {n: fn.launches for n, fn in counters.items()},
+            'seconds': seconds}
+
+
+def mesh_child(rank: int, world: int, port: int, seed: int, out: str):
+    """A rank of the gloo group on the card: every MESH_CASES case, then
+    the served request; its results into ``out/rank<r>.json``."""
+    import datetime
+    import torch
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    from deepcgp_tpu_torch.parallel import mesh as mesh_lib
+    from deepcgp_tpu_torch.parallel import multihost
+    dev = multihost.initialize_distributed(
+        backend='gloo', timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    counters = kernel_counters()
+    try:
+        results = {'device': str(dev),
+                   'backend': torch.distributed.get_backend()}
+        for spec, cases in MESH_CASES:
+            mesh = mesh_lib.make_mesh(spec)
+            for label, optimizer, steps in cases:
+                results[f'{spec} {label} {optimizer}'] = mesh_case(
+                    torch, mesh, label, optimizer, steps, seed, dev, counters)
+        results['data=2 serving'] = mesh_serving(torch, seed, dev, counters)
+        with open(os.path.join(out, f'rank{rank}.json'), 'w') as f:
+            json.dump(results, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_expected(label: str, optimizer: str, steps: int) -> dict:
+    """A rank's launches for ``steps`` train_step calls of a case: the
+    single-process step's, since each rank runs every kernel of the step
+    (on its rows, or replicated)."""
+    per = {('flagship', 'Adam'): ADAM_PER_STEP['flagship'],
+           ('flagship', 'NatGrad'): NATGRAD_PER_STEP['flagship'],
+           ('mnist_conv', 'Adam'): UNFUSED_PER_STEP['mnist_conv'],
+           ('fm32', 'Adam'): UNFUSED_PER_STEP['fm32']}[label, optimizer]
+    return expected_launches((steps, per))
+
+
+def mesh_gloo_phase(torch, card: dict, seed: int) -> dict:
+    """(b): MESH_WORLD spawned processes on the card over gloo; a child's
+    failure, or no result within MESH_TIMEOUT_S, fails the phase (and
+    every child is stopped).  Returns rank 0's launches by path."""
+    from deepcgp_tpu_torch.parallel.train import free_port, run_processes
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        run_processes(mesh_child, MESH_WORLD,
+                      (MESH_WORLD, free_port(), seed, out), MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(out, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+    paths = {}
+    for spec, cases in MESH_CASES:
+        for label, optimizer, steps in cases:
+            key = f'{spec} {label} {optimizer}'
+            want = mesh_expected(label, optimizer, steps)
+            got = [rk[key] for rk in ranks]
+            emit({'phase': f'mesh gloo {key}', **card,
+                  'processes': MESH_WORLD, 'backend': ranks[0]['backend'],
+                  'devices': [rk['device'] for rk in ranks], 'steps': steps,
+                  'batch_size': TRAIN_BATCH, 'num_samples': TRAIN_SAMPLES,
+                  'launches_per_rank': [g['launches'] for g in got],
+                  'max_rel_err': max(g['max_rel_err'] for g in got),
+                  'grad_rel_err': {k: max(g['grad_rel_err'][k] for g in got)
+                                   for k in got[0]['grad_rel_err']},
+                  'param_max_rel_err': max(g['param_max_rel_err']
+                                           for g in got),
+                  'elbos_rank0': got[0]['elbos'],
+                  'single_process_elbos': got[0]['single_process_elbos'],
+                  'seconds_per_rank': [g['seconds'] for g in got],
+                  'group_wall_seconds': wall,
+                  'tolerance': f'each step\'s ELBO within {MESH_RTOL} of '
+                               'max(|ELBO|, 1) of the one-process step on '
+                               'the card; at the start every leaf\'s '
+                               'gradient, summed over the data group, '
+                               f'within {MESH_GRAD_RTOL} of its max |.| of '
+                               'the one-process gradient; parameters read, '
+                               'not held',
+                  'note': 'two processes share one H100: no speed-up is '
+                          'timed'})
+            for r, g in enumerate(got):
+                check(g['max_rel_err'] <= MESH_RTOL,
+                      f'mesh gloo {key} rank {r}: ELBOs {g["elbos"]} vs '
+                      f'{g["single_process_elbos"]}')
+                check(max(g['grad_rel_err'].values()) <= MESH_GRAD_RTOL,
+                      f'mesh gloo {key} rank {r}: gradients '
+                      f'{g["grad_rel_err"]}')
+                check(g['launches'] == want,
+                      f'mesh gloo {key} rank {r}: launches {g["launches"]}, '
+                      f'expected {want}')
+            path = f'mesh_gloo_{spec.split("=")[0]}_{label}_{optimizer}'
+            paths[path.lower()] = got[0]['launches']
+    served = [rk['data=2 serving'] for rk in ranks]
+    emit({'phase': 'mesh gloo data=2 serving', **card,
+          'entry': "Predictor(mesh='data=2')", 'rows': MESH_REQUEST,
+          'batch_size': TRAIN_BATCH, 'num_samples': SAMPLES,
+          'per_rank': served, 'group_wall_seconds': wall,
+          'tolerance': 'probabilities and log-densities within 1e-5 of '
+                       'max|.| of the one-process Predictor on the card'})
+    for r, g in enumerate(served):
+        check(g['shape'] == [MESH_REQUEST, 10]
+              and g['probs_max_rel_err'] <= 1e-5
+              and g['log_density_max_rel_err'] <= 1e-5,
+              f'mesh gloo serving rank {r}: {g}')
+        check(all(g['launches'][k] > 0 for k in ('chol_inv_base',
+                                                  'tri_inv_base',
+                                                  'conv_rbf_cross')),
+              f'mesh gloo serving rank {r}: launches {g["launches"]}')
+    paths['mesh_gloo_serving'] = served[0]['launches']
+    return paths
+
+
+def mesh_nccl_cli(torch, card: dict, root: str, reset_counts,
+                  read_counts) -> dict:
+    """(a): ``cifar.main`` on MESH_CLI, plain and as a one-rank NCCL group;
+    rows and launches equal.  Returns the mesh run's launches."""
+    import torch.distributed as dist
+    from deepcgp_tpu_torch import cifar
+    from deepcgp_tpu_torch.parallel.train import free_port
+    runs = {}
+    for label, extra in (('plain', []),
+                         ('nccl', ['--mesh', 'data=1', '--distributed'])):
+        argv = MESH_CLI + ['--log-dir', os.path.join(root, label), *extra]
+        env = ({'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(free_port()),
+                'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0'}
+               if extra else {})
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset_counts()
+        try:
+            exp, _, _, seconds = drive_cli(torch, lambda: cifar.main(argv),
+                                           read_counts)
+            launches = read_counts()
+            backend = dist.get_backend() if dist.is_initialized() else None
+            mesh = None if exp.mesh is None else exp.mesh.shape
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        _, rows = log_rows(os.path.join(root, label, 'mesh'))
+        runs[label] = dict(rows=rows, launches=launches, seconds=seconds,
+                           backend=backend, mesh=mesh)
+        del exp
+    plain, nccl = runs['plain'], runs['nccl']
+    exact = ('global_step', 'lr', 'test_accuracy')
+    rows_equal = (len(plain['rows']) == len(nccl['rows']) == 3 and all(
+        a[c] == b[c] for a, b in zip(plain['rows'], nccl['rows'])
+        for c in exact))
+    elbo_err = max(abs(float(a['train_elbo']) - float(b['train_elbo']))
+                   / abs(float(a['train_elbo']))
+                   for a, b in zip(plain['rows'], nccl['rows']))
+    emit({'phase': 'mesh nccl cli', **card, 'entry': 'cifar.main',
+          'argv_extra': ['--mesh', 'data=1', '--distributed'],
+          'backend': nccl['backend'], 'mesh': nccl['mesh'],
+          'rows': {'plain': plain['rows'], 'nccl': nccl['rows']},
+          'train_elbo_max_rel_err': elbo_err,
+          'train_elbo_bit_equal': elbo_err == 0.0,
+          'launches': {'plain': plain['launches'], 'nccl': nccl['launches']},
+          'seconds': {'plain': plain['seconds'], 'nccl': nccl['seconds']},
+          'tolerance': 'global_step, lr and test_accuracy equal; train_elbo '
+                       'within 1e-6 relative; launches equal'})
+    check(nccl['backend'] == 'nccl' and nccl['mesh'] == {'data': 1,
+                                                         'model': 1},
+          f'mesh nccl cli: backend {nccl["backend"]}, mesh {nccl["mesh"]}')
+    check(rows_equal and elbo_err <= 1e-6,
+          f'mesh nccl cli: rows {plain["rows"]} vs {nccl["rows"]}')
+    check(nccl['launches'] == plain['launches']
+          and all(nccl['launches'][k] > 0 for k in COUNTERS[:5]
+                  if k != 'chol_inv_base_upper'),
+          f'mesh nccl cli: launches {nccl["launches"]} vs plain '
+          f'{plain["launches"]}')
+    return nccl['launches']
+
+
+def mesh_phases(torch, card: dict, seed: int, reset_counts,
+                read_counts) -> dict:
+    """(a) and (b) above.  Returns each path's launches."""
+    with tempfile.TemporaryDirectory() as empty, \
+            tempfile.TemporaryDirectory() as root:
+        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
+        os.environ['DEEPCGP_DATA_DIR'] = empty
+        try:
+            paths = {'mesh_nccl_cli': mesh_nccl_cli(
+                torch, card, root, reset_counts, read_counts)}
+        finally:
+            if old_data_dir is None:
+                os.environ.pop('DEEPCGP_DATA_DIR', None)
+            else:
+                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
+    paths.update(mesh_gloo_phase(torch, card, seed))
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2831,14 +3208,7 @@ def main() -> int:
     from deepcgp_tpu_torch.ops.patches import extract_patches
     from deepcgp_tpu_torch.serving import Predictor
 
-    counters = {'chol_inv_base': cuda_linalg.chol_inv_base,
-                'chol_inv_base_upper': cuda_linalg.chol_inv_base_upper,
-                'tri_inv_base': cuda_linalg.tri_inv_base,
-                'conv_rbf_cross': cuda_cross.conv_rbf_cross,
-                'conv_rbf_cross_bwd': cuda_cross.conv_rbf_cross_bwd,
-                'extract_patches_transposed':
-                    cuda_patches.extract_patches_transposed,
-                'col2im_transposed': cuda_patches.col2im_transposed}
+    counters = kernel_counters()
     check(tuple(counters) == COUNTERS, 'the counters and COUNTERS differ')
     # Launches of each main path, counted from 0 just before it is driven.
     path_launches = {}
@@ -3417,6 +3787,9 @@ def main() -> int:
     # -- the rest of the single-device surface -------------------------------
     path_launches.update(surface_phases(torch, dev, card, args.seed,
                                         reset_counts, read_counts))
+    # -- the mesh: the collectives on the card -------------------------------
+    path_launches.update(mesh_phases(torch, card, args.seed, reset_counts,
+                                     read_counts))
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

@@ -18,6 +18,7 @@ from torch import nn
 
 from deepcgp_tpu_torch.config import JITTER
 from deepcgp_tpu_torch.ops import linalg
+from deepcgp_tpu_torch.parallel import sharding
 
 
 class PropagateResult(typing.NamedTuple):
@@ -64,7 +65,10 @@ class DGP(nn.Module):
                   noise: list | None = None, caches=None) -> PropagateResult:
         """Draw S sample paths through the stack; X [N, D].  The standard
         normals come from ``noise`` (one [S, N, O_l] tensor per layer) when
-        given, else from ``generator``."""
+        given, else from ``generator``.  Under a data axis X holds this
+        rank's rows of the global batch, ``noise`` the global batch's
+        draws, and a draw from ``generator`` is the global batch's: each
+        rank keeps its rows, so the noise is the single-process one."""
         if (noise is None) == (generator is None):
             raise ValueError('propagate: pass exactly one of generator, noise')
         if caches is None:
@@ -85,11 +89,13 @@ class DGP(nn.Module):
             if noise is not None:
                 z = torch.as_tensor(noise[i], dtype=mean.dtype, device=mean.device)
                 if z.shape != mean.shape:
+                    z = sharding.own_rows(z, dim=1)
+                if z.shape != mean.shape:
                     raise ValueError(f'noise[{i}] is {tuple(z.shape)}, '
                                      f'layer {i} draws {tuple(mean.shape)}')
             else:
-                z = torch.randn(mean.shape, generator=generator,
-                                dtype=mean.dtype, device=mean.device)
+                z = sharding.normal(mean.shape, generator, dtype=mean.dtype,
+                                    device=mean.device, dim=1)
             F = mean + z * torch.sqrt(var + JITTER)
             samples.append(F)
             means.append(mean)
@@ -115,11 +121,16 @@ class DGP(nn.Module):
                    for layer, cache in zip(self.layers, caches))
 
     def elbo(self, X: torch.Tensor, Y: torch.Tensor, **draw) -> torch.Tensor:
-        """Minibatch ELBO: num_data / batch * E_q[log p(y | f)] - sum KL."""
+        """Minibatch ELBO: num_data / batch * E_q[log p(y | f)] - sum KL.
+        Under a data axis of size n, X holds this rank's rows of the global
+        batch and the result is this rank's share: the batch is the global
+        one (n times X's rows) and the KL enters divided by n, so the
+        shares sum to the ELBO."""
         caches = self.precompute()
-        scale = self.num_data / X.shape[0]
+        n = sharding.data_size()
+        scale = self.num_data / (X.shape[0] * n)
         return scale * self.expected_log_likelihood(X, Y, caches, **draw) \
-            - self.prior_kl(caches)
+            - self.prior_kl(caches) / n
 
     def compute_log_likelihood(self, X: torch.Tensor, Y: torch.Tensor,
                                **draw) -> torch.Tensor:

@@ -23,6 +23,7 @@ from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
 from deepcgp_tpu_torch.models.conv_kernels import MultiOutputConvKernel
 from deepcgp_tpu_torch.ops import linalg
 from deepcgp_tpu_torch.ops.conditional import multi_output_conditional
+from deepcgp_tpu_torch.parallel import sharding
 
 
 class LayerCache(typing.NamedTuple):
@@ -53,10 +54,17 @@ def _sample_from_conditional(layer, ND_X, full_cov, generator, noise):
     """(sample, mean, var) of q(f | ND_X), with standard normals from
     ``noise`` when given (the shape of the mean, or [O, N] for the full
     covariance), else from ``generator``.  The full covariance draws one
-    correlated sample per output through chol(cov + jitter I) over N."""
+    correlated sample per output through chol(cov + jitter I) over N, so
+    it needs the whole batch on every rank: it refuses a data axis.  Under
+    one, ``noise`` holds the global batch's rows, and a draw from
+    ``generator`` is the global batch's, of which each rank keeps its
+    rows."""
     if (noise is None) == (generator is None):
         raise ValueError('sample_from_conditional: pass exactly one of '
                          'generator, noise')
+    if full_cov and sharding.data_size() > 1:
+        raise ValueError('sample_from_conditional: the full covariance '
+                         'couples the rows that a data axis splits')
     mean, var = layer.conditional_mean_var(layer.precompute(), ND_X,
                                            full_cov=full_cov)
     N, O = mean.shape
@@ -64,11 +72,13 @@ def _sample_from_conditional(layer, ND_X, full_cov, generator, noise):
     if noise is not None:
         z = torch.as_tensor(noise, dtype=mean.dtype, device=mean.device)
         if z.shape != shape:
+            z = sharding.own_rows(z)
+        if z.shape != shape:
             raise ValueError(f'noise is {tuple(z.shape)}, the sample draws '
                              f'{shape}')
     else:
-        z = torch.randn(shape, generator=generator, dtype=mean.dtype,
-                        device=mean.device)
+        z = sharding.normal(shape, generator, dtype=mean.dtype,
+                            device=mean.device)
     if full_cov:
         cov = var.permute(2, 0, 1)                               # [O, N, N]
         L = linalg.cholesky(linalg.add_jitter(cov, JITTER))
@@ -131,20 +141,41 @@ class ConvLayer(nn.Module):
     def conditional_mean_var(self, cache: LayerCache, ND_X: torch.Tensor,
                              full_cov: bool = False):
         """(mean [N, P*R], var [N, P*R], or [N, N, P*R] with
-        ``full_cov``)."""
+        ``full_cov``).  Under a model axis the patch axis P is sharded:
+        this rank evaluates Kuf and the conditional on its block of the
+        patches, and the block's mean and variance are gathered along P
+        before they leave, so the sample and everything after it are the
+        single-process ones (``parallel.sharding``)."""
         N = ND_X.shape[0]
         H, W = self.view.input_size
         NHWC_X = ND_X.reshape(N, H, W, self.view.feature_maps)
         NPL = self.view.extract_patches_NPL(NHWC_X)
-        PNL = NPL.transpose(0, 1)
-        Kuf = self.conv_kernel.Kuf_PNM(self.Z, PNL)           # [P, N, M]
-        if full_cov:
-            Knn = self.conv_kernel.Kff(PNL)                   # [P, N, N]
+        P = self.view.patch_count
+        block = sharding.model_block(P, 'the patch axis P', NPL.shape)
+        if block is None:
+            kernel, PNL = self.conv_kernel, NPL.transpose(0, 1)
+            Z, q_mu, q_sqrt, Lm_inv = (self.Z, self.q_mu, self.q_sqrt,
+                                       cache.Lm_inv)
         else:
-            Knn = self.conv_kernel.Kdiag(PNL)                 # [P, N]
+            # The region's replicated inputs enter through replicate_in
+            # (the base kernel's parameters too); the mean view below
+            # reads the patches outside it.
+            NPL_in, Z, q_mu, q_sqrt, Lm_inv = sharding.replicate_in(
+                NPL, self.Z, self.q_mu, self.q_sqrt, cache.Lm_inv)
+            kernel = MultiOutputConvKernel(
+                sharding.replicate_module(self.base_kernel), P)
+            PNL = NPL_in.transpose(0, 1)[block]
+        Kuf = kernel.Kuf_PNM(Z, PNL)                          # [P, N, M]
+        if full_cov:
+            Knn = kernel.Kff(PNL)                             # [P, N, N]
+        else:
+            Knn = kernel.Kdiag(PNL)                           # [P, N]
         mean, var = multi_output_conditional(
-            Kuf, Knn, self.q_mu, Lm_inv=cache.Lm_inv, q_sqrt=self.q_sqrt,
+            Kuf, Knn, q_mu, Lm_inv=Lm_inv, q_sqrt=q_sqrt,
             white=self.white, full_cov=full_cov)
+        if block is not None:
+            mean = sharding.gather_out(mean, 1)               # [N, P, R]
+            var = sharding.gather_out(var, 1)                 # [R, P, N(, N)]
         if full_cov:
             var = var.permute(2, 3, 1, 0).reshape(N, N, self.num_outputs)
         else:
@@ -226,7 +257,8 @@ class SVGPLayer(nn.Module):
             Kuf, Knn = self.kernel.K(ND_X, self.Z), self.kernel.Kdiag(ND_X)
         mean, var = multi_output_conditional(
             Kuf[None], Knn[None], self.q_mu, Lm_inv=cache.Lm_inv,
-            q_sqrt=self.q_sqrt, white=self.white, full_cov=full_cov)
+            q_sqrt=self.q_sqrt, white=self.white, full_cov=full_cov,
+            shard_outputs=True)
         var = var[:, 0].permute(1, 2, 0) if full_cov else var[:, 0].T
         return mean[:, 0, :] + self.mean_function(ND_X), var
 

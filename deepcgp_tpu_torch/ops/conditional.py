@@ -11,14 +11,22 @@ from __future__ import annotations
 
 import torch
 
+from deepcgp_tpu_torch.parallel import sharding
+
 
 def multi_output_conditional(Kmn: torch.Tensor, Knn: torch.Tensor,
                              f: torch.Tensor, *, Lm_inv: torch.Tensor,
                              q_sqrt: torch.Tensor | None = None,
-                             white: bool = False, full_cov: bool = False):
+                             white: bool = False, full_cov: bool = False,
+                             shard_outputs: bool = False):
     """q(g1) = int q(g2) p(g1 | g2) with p(g2) = N(0, Kmm) and
     q(g2) = N(f, q_sqrt q_sqrt^T), given Lm_inv = chol(Kmm)^-1.  Every
-    triangular solve is a product with Lm_inv."""
+    triangular solve is a product with Lm_inv.
+
+    ``shard_outputs`` (the last layer, P == 1): under a model axis the GP
+    axis R of the q_sqrt term is sharded -- this rank multiplies A by its
+    block of the R factors, and the block's row norms are gathered along
+    R (``parallel.sharding``)."""
     A = Kmn @ Lm_inv.T                                     # rows of Lm^-1 Kmn
     R = f.shape[1]
     if full_cov:
@@ -38,8 +46,20 @@ def multi_output_conditional(Kmn: torch.Tensor, Knn: torch.Tensor,
             # Row-wise ||A L_r||^2 for every r as one [P*N, M] x [M, R*M]
             # product.
             P, N, M = A.shape
-            LTA = A.reshape(P * N, M) @ Lq.permute(1, 0, 2).reshape(M, R * M)
-            qterm = LTA.reshape(P * N, R, M).square().sum(-1)  # [P*N, R]
+            block = (sharding.model_block(R, 'the GP axis R', q_sqrt.shape)
+                     if shard_outputs and P == 1 else None)
+            if block is None:
+                LTA = A.reshape(P * N, M) @ Lq.permute(1, 0, 2).reshape(
+                    M, R * M)
+                qterm = LTA.reshape(P * N, R, M).square().sum(-1)  # [P*N, R]
+            else:
+                A_in, q_in = sharding.replicate_in(A, q_sqrt)
+                Lb = torch.tril(q_in[block])                   # [Rb, M, M]
+                Rb = Lb.shape[0]
+                LTA = A_in.reshape(N, M) @ Lb.permute(1, 0, 2).reshape(
+                    M, Rb * M)
+                qterm = sharding.gather_out(
+                    LTA.reshape(N, Rb, M).square().sum(-1), 1)  # [N, R]
             fvar = fvar + qterm.reshape(P, N, R).permute(2, 0, 1)
     # A marginal variance is >= 0; float32 cancellation in Knn - ||A||^2 on
     # an ill-conditioned Kmm can push it below, and sqrt(var) (or the

@@ -14,6 +14,7 @@ import torch
 
 from deepcgp_tpu_torch import config
 from deepcgp_tpu_torch.ops import cuda_linalg
+from deepcgp_tpu_torch.parallel import sharding
 
 
 def add_jitter(K: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
@@ -181,9 +182,24 @@ def gauss_kl(q_mu: torch.Tensor, q_sqrt: torch.Tensor,
     T alone in float64 brings them back to the CPU's distance, W = Lp^-T
     Lp^-1 or the trace alone in float64 leave them where all-float32 does
     (``tools/torch_grad_witness.py``).  The other two forms evaluate a
-    float32 KL wholly in float64."""
+    float32 KL wholly in float64.
+
+    Under a model axis the GP axis R is sharded: this rank evaluates the
+    KL of its block of q_mu and q_sqrt, and the blocks' KLs are summed
+    over the model group (``parallel.sharding``)."""
     if Lp_inv is not None and Lp is None:
         raise ValueError('gauss_kl: Lp_inv requires its factor Lp')
+    block = sharding.model_block(q_mu.shape[1], 'the GP axis R of the KL',
+                                 q_sqrt.shape)
+    if block is not None:
+        q_mu, q_sqrt, K, Lp, Lp_inv = sharding.replicate_in(
+            q_mu, q_sqrt, K, Lp, Lp_inv)
+        return sharding.reduce_out(_gauss_kl_dtype(
+            q_mu[:, block], q_sqrt[block], K, Lp=Lp, Lp_inv=Lp_inv))
+    return _gauss_kl_dtype(q_mu, q_sqrt, K, Lp=Lp, Lp_inv=Lp_inv)
+
+
+def _gauss_kl_dtype(q_mu, q_sqrt, K, *, Lp, Lp_inv):
     if q_mu.dtype == torch.float32 and Lp_inv is None:
         up = (lambda x: None if x is None else x.double())
         return _gauss_kl(up(q_mu), up(q_sqrt), up(K), Lp=up(Lp),

@@ -1,5 +1,4 @@
-"""Inference / serving layer (counterpart of ``deepcgp_tpu/serving.py``,
-single card; the mesh is not ported yet).
+"""Inference / serving layer (counterpart of ``deepcgp_tpu/serving.py``).
 
 ``Predictor`` serves class probabilities, labels and predictive
 log-densities from a model loaded from a reference-format snapshot plus the
@@ -9,6 +8,13 @@ before one ``torch.cuda.synchronize()`` per request.  Monte-Carlo draws
 come from a ``torch.Generator`` seeded from ``seed`` and the batch count,
 so answers are reproducible for a given seed (the stream is not the JAX
 package's).
+
+With ``mesh`` (a ``parallel.mesh.Mesh`` or a spec such as 'data=2'),
+every rank of the mesh serves the same request with the same model:
+each batch's rows split over the data ranks (and the patches or GPs over
+the model ranks, ``parallel.sharding``), the batch's draws are the
+single-process ones, and the answers are gathered, so every rank returns
+the whole [N, K].
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 
 from deepcgp_tpu_torch import config
 from deepcgp_tpu_torch.models.builder import build_model, parse_ints
+from deepcgp_tpu_torch.parallel import mesh as mesh_lib
+from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.utils import checkpoint
 
 
@@ -30,8 +38,14 @@ class Predictor:
 
     def __init__(self, model, *, batch_size: int = 32, num_samples: int = 5,
                  seed: int = 0, preprocessing: dict | None = None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = config.default_device(device)
+        if isinstance(mesh, str) and mesh:
+            mesh = mesh_lib.make_mesh(mesh)
+        self.mesh = mesh or None
+        if self.mesh is not None and batch_size % self.mesh.data:
+            raise ValueError(f'batch_size {batch_size} does not split over '
+                             f'the data axis of size {self.mesh.data}')
         model_device = model.layers[0].Z.device
         if model_device.type != self.device.type:
             raise ValueError(f'model is on {model_device}, Predictor on '
@@ -87,18 +101,21 @@ class Predictor:
                     / self.preprocessing['scale']).astype(np.float32)
         return flat
 
-    def _batches(self, flat: np.ndarray):
-        """(start, rows, batch) over the request padded to whole batches,
-        moved to the device in one transfer."""
+    def _batches(self, flat: np.ndarray, Y: np.ndarray | None = None):
+        """(start, rows, batch, labels) over the request padded to whole
+        batches (``multihost.pad_rows``), moved to the device in one
+        transfer; under a mesh, this data rank's rows of each batch."""
         N = flat.shape[0]
         B = self.batch_size
-        pad = (-N) % B
-        if pad:
-            flat = np.concatenate([flat, np.zeros((pad,) + flat.shape[1:],
-                                                  flat.dtype)])
+        if Y is None:
+            Y = np.zeros((N, 1), np.int64)
+        flat, Y = multihost.pad_rows(flat, Y, B)
         Xd = torch.as_tensor(flat).to(self.device, self.dtype)
+        Yd = torch.as_tensor(Y).to(self.device)
+        rows = slice(None) if self.mesh is None else self.mesh.rows(B)
         for start in range(0, N, B):
-            yield start, min(B, N - start), Xd[start:start + B]
+            yield (start, min(B, N - start), Xd[start:start + B][rows],
+                   Yd[start:start + B][rows])
 
     def _sync(self) -> None:
         if self.device.type == 'cuda':
@@ -108,10 +125,11 @@ class Predictor:
         """[N, D or H, W, C] -> [N, K] mean class probabilities."""
         flat = self._prepare(X, raw)
         outs = []
-        for _, n, xb in self._batches(flat):
-            probs, _ = self.model.predict_y(xb, self.num_samples,
-                                            generator=self._generator())
-            outs.append(probs.mean(0)[:n])
+        with sharding.mesh_context(self.mesh):
+            for _, n, xb, _ in self._batches(flat):
+                probs, _ = self.model.predict_y(xb, self.num_samples,
+                                                generator=self._generator())
+                outs.append(sharding.gather_rows(probs.mean(0))[:n])
         self._sync()
         if not outs:
             return np.empty((0, self.model.likelihood.num_classes), np.float32)
@@ -129,13 +147,14 @@ class Predictor:
             raise ValueError(f'X has {flat.shape[0]} rows but Y has '
                              f'{Y.shape[0]} labels')
         outs = []
-        for start, n, xb in self._batches(flat):
-            yb = np.zeros((xb.shape[0], 1), np.int64)
-            yb[:n] = Y[start:start + n]
-            dens = self.model.predict_density(
-                xb, torch.as_tensor(yb, device=self.device), self.num_samples,
-                generator=self._generator())
-            outs.append(dens[:n, 0])
+        with sharding.mesh_context(self.mesh):
+            for _, n, xb, yb in self._batches(flat, Y.astype(np.int64)):
+                # The padding rows' sentinel -1 read as class 0: their
+                # densities are dropped.
+                dens = self.model.predict_density(
+                    xb, yb.clamp_min(0), self.num_samples,
+                    generator=self._generator())
+                outs.append(sharding.gather_rows(dens)[:n, 0])
         self._sync()
         if not outs:
             return np.empty((0,), np.float32)

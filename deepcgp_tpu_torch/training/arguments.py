@@ -52,8 +52,9 @@ def default_parser() -> argparse.ArgumentParser:
                              "variational state in the basin.")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--mesh', type=str, default='',
-                        help="Device mesh spec, e.g. 'data=4'; empty = one "
-                             "card (the only layout the port runs yet).")
+                        help="Device mesh spec, e.g. 'data=4,model=2' "
+                             "over the ranks of --distributed; empty = one "
+                             "card (or every rank on 'data').")
     parser.add_argument('--no-tensorboard', action='store_true')
     parser.add_argument('--lr-decay-continuous', action='store_true',
                         help="Continuous (non-staircase) exponential lr "
@@ -62,8 +63,10 @@ def default_parser() -> argparse.ArgumentParser:
                              "with; its current source uses staircase "
                              "(the default here).")
     parser.add_argument('--distributed', action='store_true',
-                        help="Multi-process training (not ported yet: the "
-                             "port runs on one card).")
+                        help="Multi-process training: join the process "
+                             "group from RANK, WORLD_SIZE, MASTER_ADDR, "
+                             "MASTER_PORT and LOCAL_RANK (as torchrun sets "
+                             "them).")
     parser.add_argument('--full-state-ckpt', action='store_true',
                         help="Also checkpoint the FULL train state (model + "
                              "optimizer moments + generator state) and "

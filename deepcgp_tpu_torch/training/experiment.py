@@ -5,11 +5,23 @@ Template-method lifecycle: load data -> build model -> optimizer -> loggers
 iteration chunk (``trainer.run_chunk``, no host sync inside), then logs and
 snapshots parameters (`conv_gp/experiment.py:28-31,56-64`).
 
-The port runs on one card, in one process: it always writes the run's
-files (the TensorBoard events too, under ``<tensorboard_dir>/<name>``,
-unless ``--no-tensorboard``), and ``--mesh`` and ``--distributed``
-raise.  The training set moves to the device once; each chunk syncs
-once, for its mean ELBO, and each evaluation once, for its count.
+The training set moves to the device once; each chunk syncs once, for
+its mean ELBO, and each evaluation once, for its count.  The run writes
+its files (the TensorBoard events too, under ``<tensorboard_dir>/<name>``,
+unless ``--no-tensorboard``).
+
+Across processes (``parallel``): ``--distributed`` joins the process
+group from the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK``, as ``torchrun`` sets them) and
+``--mesh data=4,model=2`` lays the ranks out (without ``--mesh``, every
+rank goes to 'data'; ``--mesh`` alone in one process is the one-rank
+mesh).  Every rank builds the model from the whole data set, and rank 0's
+parameters are broadcast; each rank keeps only its
+``multihost.process_shard`` of the training set resident, the chunk and
+the evaluation run under the mesh, and rank 0 alone writes the run's
+files (every rank waits at a barrier after a write, and every rank reads
+on resume).  The TensorBoard log, on rank 0, evaluates its tasks outside
+the mesh, on rank 0's shard of the training set.
 """
 
 from __future__ import annotations
@@ -21,6 +33,8 @@ import torch
 
 from deepcgp_tpu_torch import config as port_config
 from deepcgp_tpu_torch.models.builder import build_model, parse_ints
+from deepcgp_tpu_torch.parallel import mesh as mesh_lib
+from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.training import trainer
 from deepcgp_tpu_torch.training.arguments import train_steps
 from deepcgp_tpu_torch.training.optim import learning_rate_schedule
@@ -43,14 +57,15 @@ def eval_seed(seed: int, global_step: int) -> int:
 class Experiment:
     def __init__(self, flags, device=None):
         self.flags = flags
-        self.device = port_config.default_device(device)
         self.last_mean_elbo = float('nan')
-        if getattr(flags, 'mesh', ''):
-            raise NotImplementedError('--mesh: the port runs on one card '
-                                      '(multi-GPU is not ported yet)')
-        if getattr(flags, 'distributed', False):
-            raise NotImplementedError('--distributed: the port runs in one '
-                                      'process (multi-GPU is not ported yet)')
+        self.mesh = None
+        distributed = getattr(flags, 'distributed', False)
+        if distributed:
+            self.device = multihost.initialize_distributed(device=device)
+        else:
+            self.device = port_config.default_device(device)
+        if getattr(flags, 'mesh', '') or distributed:
+            self.mesh = mesh_lib.make_mesh(getattr(flags, 'mesh', ''))
         self._load_data()
         self._setup_model()
         self._setup_optimizer()
@@ -82,9 +97,22 @@ class Experiment:
             self.conclude()
 
     # -- internals -------------------------------------------------------------
+    @property
+    def _is_writer(self) -> bool:
+        """Rank 0 alone writes the run's files."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.distributed:
+            torch.distributed.barrier()
+
+    def _run_chunk(self, state, config, num_steps):
+        with sharding.mesh_context(self.mesh):
+            return trainer.run_chunk(state, config, self.X_train_dev,
+                                     self.Y_train_dev, num_steps)
+
     def _optimize(self):
-        elbos = trainer.run_chunk(self.state, self.config, self.X_train_dev,
-                                  self.Y_train_dev, self.flags.test_every)
+        elbos = self._run_chunk(self.state, self.config, self.flags.test_every)
         self.last_mean_elbo = float(elbos.mean()) / self.flags.batch_size
 
     def _log_step(self):
@@ -99,9 +127,11 @@ class Experiment:
         return os.path.join(self.flags.log_dir, model_name + '.npy')
 
     def _save_model_parameters(self):
-        ckpt.save_model(self._model_path(), self.model, self.global_step)
-        if getattr(self.flags, 'full_state_ckpt', False):
-            ckpt.save_train_state(self._state_dir(), self.state)
+        if self._is_writer:
+            ckpt.save_model(self._model_path(), self.model, self.global_step)
+            if getattr(self.flags, 'full_state_ckpt', False):
+                ckpt.save_train_state(self._state_dir(), self.state)
+        self._barrier()
 
     def _state_dir(self) -> str:
         return os.path.join(self.flags.log_dir, self.flags.name + '_state')
@@ -118,6 +148,8 @@ class Experiment:
                                  images=self.X_train, generator=generator,
                                  num_data=self.X_train.shape[0],
                                  device=self.device)
+        if self.mesh is not None:
+            sharding.broadcast_module(self.model)
         self.initial_step = initial_step
 
     def _train_config(self, optimizer: str) -> TrainConfig:
@@ -143,11 +175,15 @@ class Experiment:
             print(f"resumed full train state at step {self.global_step}",
                   flush=True)
         # The training set, flattened, and the test set resident on the
-        # device for the whole run.
+        # device for the whole run; under a mesh, this process's row shard
+        # of the training set (the model above was built from all of it).
         N = self.X_train.shape[0]
-        self.X_train_dev = torch.as_tensor(self.X_train.reshape(N, -1),
-                                           device=self.device)
-        self.Y_train_dev = torch.as_tensor(self.Y_train, device=self.device)
+        X_flat, Y_train = self.X_train.reshape(N, -1), self.Y_train
+        if self.mesh is not None:
+            X_flat = multihost.process_shard(X_flat)
+            Y_train = multihost.process_shard(np.asarray(Y_train))
+        self.X_train_dev = torch.as_tensor(X_flat, device=self.device)
+        self.Y_train_dev = torch.as_tensor(Y_train, device=self.device)
         self.X_test_dev = torch.as_tensor(
             self.X_test.reshape(self.X_test.shape[0], -1), device=self.device)
         self.Y_test_dev = torch.as_tensor(
@@ -171,8 +207,7 @@ class Experiment:
         so every parameter is in it."""
         cfg = self._train_config('Adam')
         st = trainer.init_state(self.model, cfg, seed=self.flags.seed + 1)
-        trainer.run_chunk(st, cfg, self.X_train_dev, self.Y_train_dev,
-                          warm_steps)
+        self._run_chunk(st, cfg, warm_steps)
         self.state = trainer.init_state(self.model, self.config,
                                         seed=self.flags.seed + 1,
                                         global_step=self.initial_step)
@@ -181,17 +216,20 @@ class Experiment:
     def _setup_logger(self):
         loggers = [GlobalStepLogger(), LearningRateLogger(),
                    AccuracyLogger(), TrainELBOLogger(), StepsPerSecLogger()]
-        self.log = Log(self.flags.log_dir, self.flags.name, loggers)
+        self.log = Log(self.flags.log_dir, self.flags.name, loggers,
+                       write=self._is_writer)
         self.log.write_flags(self.flags)
         # Preprocessing statistics for serving (Predictor applies them to
         # raw inputs).
         prep = getattr(self.flags, 'preprocessing', None)
-        if prep is not None:
+        if prep is not None and self._is_writer:
             np.savez(os.path.join(self.log.log_dir, 'preprocessing.npz'),
                      **prep)
         self.tensorboard_log = None
-        if not getattr(self.flags, 'no_tensorboard', False):
+        if self._is_writer and not getattr(self.flags, 'no_tensorboard',
+                                           False):
             self.tensorboard_log = make_default_log(self)
+        self._barrier()
 
     # -- logger accessors -------------------------------------------------------
     @property
@@ -208,8 +246,11 @@ class Experiment:
 
     def test_accuracy(self) -> float:
         # Fresh-but-reproducible MC noise per evaluation, from a generator
-        # of its own: the training generator is not drawn from.
-        return trainer.accuracy(
-            self.model, self.X_test_dev, self.Y_test_dev,
-            seed=eval_seed(self.flags.seed, self.global_step),
-            batch_size=32, num_samples=5)
+        # of its own: the training generator is not drawn from.  Under a
+        # mesh each batch's rows split over the data ranks and the count
+        # is summed.
+        with sharding.mesh_context(self.mesh):
+            return trainer.accuracy(
+                self.model, self.X_test_dev, self.Y_test_dev,
+                seed=eval_seed(self.flags.seed, self.global_step),
+                batch_size=32, num_samples=5)

@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 
+from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.training import optim
 
 _VARIATIONAL = ('q_mu', 'q_sqrt')
@@ -120,8 +121,19 @@ def loss_and_grads(state: TrainState, xb, yb, noise=None):
 
 def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
     """One optimizer iteration on the batch (xb [B, D], yb [B, 1]); updates
-    ``state`` in place and returns the ELBO (a device scalar)."""
+    ``state`` in place and returns the ELBO (a device scalar).
+
+    Under a mesh (``parallel.sharding.mesh_context``) xb and yb are this
+    rank's rows of the global batch and ``noise`` the global batch's
+    draws: the loss and the gradients are summed over the data group, the
+    update (NatGrad's solve included) runs replicated on every rank, and
+    the commit guard holds only if it holds on every rank."""
     loss, grads = loss_and_grads(state, xb, yb, noise)
+    # Under a mesh: this rank's share of the loss and of the gradients,
+    # summed over the data group (the identity without one).
+    names = list(grads)
+    loss, *summed = sharding.sum_over_data([loss] + [grads[k] for k in names])
+    grads = dict(zip(names, summed))
     loss_ok = torch.isfinite(loss)
     natgrad = config.optimizer == 'NatGrad'
     new = {}
@@ -142,6 +154,7 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
     adam_grads = {k: g for k, g in grads.items() if k not in new}
     for g in adam_grads.values():
         ok = ok & torch.isfinite(g).all()
+    ok = sharding.all_ok(ok)
     lr = optim.learning_rate_schedule(config.lr, config.lr_decay_steps,
                                       config.lr_staircase)(state.step,
                                                            loss.dtype)
@@ -183,23 +196,86 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
     with replacement, from X_train [N, D] and Y_train [N, 1] (both on the
     model's device).  Returns the ELBO trace [num_steps] on the device.
     Under NatGrad one more ELBO, on a fresh minibatch, verifies the last
-    commit and rolls back to ``state.prev`` when it is non-finite."""
-    N = X_train.shape[0]
+    commit and rolls back to ``state.prev`` when it is non-finite.
+
+    Under a mesh X_train and Y_train are this process's
+    ``multihost.process_shard`` of the resident set: every rank draws the
+    same global indices from the replicated generator, the batch is
+    assembled from the rows each rank owns (``multihost.fetch_rows``) and
+    each rank steps on its rows of it."""
+    sharded = sharding.active_mesh() is not None
+    N = X_train.shape[0] * (multihost.world()[0] if sharded else 1)
 
     def batch():
         idx = torch.randint(0, N, (config.batch_size,),
                             generator=state.generator, device=X_train.device)
-        return X_train[idx], Y_train[idx]
+        if sharded:
+            xb, yb = multihost.fetch_rows(X_train, Y_train, idx)
+        else:
+            xb, yb = X_train[idx], Y_train[idx]
+        return sharding.own_rows(xb), sharding.own_rows(yb)
 
     elbos = [train_step(state, config, *batch()) for _ in range(num_steps)]
     if config.optimizer == 'NatGrad':
         xb, yb = batch()
         with torch.no_grad():
-            ok = torch.isfinite(state.model.elbo(xb, yb,
-                                                 generator=state.generator))
+            ok = sharding.all_ok(torch.isfinite(
+                state.model.elbo(xb, yb, generator=state.generator)))
             for k, p in state.params.items():
                 p.copy_(torch.where(ok, p, state.prev[k]))
     return torch.stack(elbos)
+
+
+def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples):
+    """(mean class probabilities [n, K], labels [n, 1], rows) per batch of
+    ``batch_size`` test rows, the MC draws from one generator seeded with
+    ``seed``.  Under a data axis each batch is padded to a multiple of
+    the data size (sentinel labels -1) and each rank evaluates its rows
+    of it, with the draws of the batch's true rows
+    (``sharding.true_rows``), so that they are the single-process ones;
+    ``rows`` is the batch's count before the padding."""
+    device = model.layers[0].Z.device
+    dtype = model.layers[0].Z.dtype
+    X = torch.as_tensor(X_test, device=device)
+    X = X.reshape(X.shape[0], -1).to(dtype)
+    Y = torch.as_tensor(Y_test, device=device).reshape(-1, 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    for start in range(0, X.shape[0], batch_size):
+        rows = min(batch_size, X.shape[0] - start)
+        xb, yb = sharding.split_rows(X[start:start + batch_size],
+                                     Y[start:start + batch_size])
+        with sharding.true_rows(rows):
+            probs, _ = model.predict_y(xb, num_samples, generator=g)
+        yield probs.mean(0), yb, rows
+
+
+@torch.no_grad()
+def correct_count(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
+                  num_samples: int = 5) -> torch.Tensor:
+    """The number of test rows whose argmax class is their label, a device
+    int64 (see :func:`accuracy`); under a data axis each rank counts its
+    rows and the count is summed over the data group."""
+    correct = torch.zeros((), dtype=torch.int64,
+                          device=model.layers[0].Z.device)
+    for probs, yb, _ in _eval_batches(model, X_test, Y_test, seed,
+                                      batch_size, num_samples):
+        correct += (probs.argmax(1)[:, None] == yb).sum()
+    (correct,) = sharding.sum_over_data([correct])
+    return correct
+
+
+@torch.no_grad()
+def predict_probs(model, X_test, seed: int = 0, batch_size: int = 32,
+                  num_samples: int = 5) -> torch.Tensor:
+    """[N, K] mean class probabilities of every test row, batched and
+    drawn as :func:`accuracy` does; under a data axis the rows are
+    gathered, so every rank returns all of them."""
+    labels = torch.zeros((X_test.shape[0], 1), dtype=torch.int64)
+    return torch.cat([sharding.gather_rows(probs)[:rows]
+                      for probs, _, rows in _eval_batches(
+                          model, X_test, labels, seed, batch_size,
+                          num_samples)])
 
 
 @torch.no_grad()
@@ -210,17 +286,6 @@ def accuracy(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
     ``X_test`` [N, ...] and ``Y_test`` [N(, 1)] are arrays or tensors; a
     tensor already on the model's device is used where it lies.  One host
     sync, for the count."""
-    device = model.layers[0].Z.device
-    dtype = model.layers[0].Z.dtype
-    X = torch.as_tensor(X_test, device=device)
-    X = X.reshape(X.shape[0], -1).to(dtype)
-    Y = torch.as_tensor(Y_test, device=device).reshape(-1, 1)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    correct = torch.zeros((), dtype=torch.int64, device=device)
-    for start in range(0, X.shape[0], batch_size):
-        probs, _ = model.predict_y(X[start:start + batch_size], num_samples,
-                                   generator=g)
-        pred = probs.mean(0).argmax(1)
-        correct += (pred[:, None] == Y[start:start + batch_size]).sum()
-    return float(correct) / Y.numel()
+    correct = correct_count(model, X_test, Y_test, seed, batch_size,
+                            num_samples)
+    return float(correct) / torch.as_tensor(Y_test).numel()

@@ -191,10 +191,18 @@ def test_natgrad_warm_start(tmp_path):
         warm.conclude()
 
 
-@pytest.mark.parametrize('extra', [['--mesh', 'data=2'], ['--distributed']],
-                         ids=['mesh', 'distributed'])
-def test_multi_device_options_raise(extra, tmp_path):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize('extra,match', [
+    (['--mesh', 'data=2'], 'needs 2 ranks, the world has 1'),
+    (['--distributed'], 'RANK expected')], ids=['mesh', 'distributed'])
+def test_multi_device_options_raise(extra, match, tmp_path, monkeypatch):
+    """In one process without a process group, a mesh larger than the
+    world raises, and ``--distributed`` without its environment lets the
+    failed ``init_process_group`` propagate; neither writes anything.
+    (The multi-process runs are in test_torch_parallel_cli.py.)"""
+    for var in ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT',
+                'LOCAL_RANK'):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=match):
         mnist.MNIST(mnist.read_args(_argv(tmp_path, 'm', *extra)), device='cpu')
     assert not (tmp_path / 'm').exists()
 

@@ -93,6 +93,19 @@ the MNIST ConvKernel and of fm32, against the same steps in one process,
 with each rank's launches; and ``Predictor(mesh='data=2')``.  One card
 shows the collectives, not a speed-up.
 
+Besides, the last of the JAX package's surface: right after the kernels'
+build, the native host data path (``deepcgp_tpu_torch/native``: g++ builds
+it, and each function is held bit for bit against its numpy version on a
+60000 x 784 fit and 10000 CIFAR-shaped images, both timed); after the
+mesh, the FLOP accounting (``utils/flops``) of the flagship Adam and
+M=1024 NatGrad windows against the card's BF16 peak, beside a measured
+8192^3 ``torch.matmul`` in BF16 and FP32; the example scripts at cut
+schedules (``train_mnist`` with its TensorBoard log, ``serve`` and
+``inspect_model`` on its run, whose PNGs are decoded; ``fm_sweep`` over
+feature maps 1 and 2; each parity script refused without its data, then
+on learnable blobs written in the reference's file layout); and the
+digits probe on the real UCI scans, its held-out accuracy gated.
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -1080,6 +1093,7 @@ def natgrad_training(torch, label: str, flags, image, batch: int, seed: int,
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = chunk * len(traces)
+    WINDOW_STEPS_PER_S[label] = steps / window
     expected = launches_of(**{
         k: n * steps + NATGRAD_PER_CHUNK[label].get(k, 0) * len(traces)
         for k, n in NATGRAD_PER_STEP[label].items()})
@@ -1587,6 +1601,20 @@ def minus(a: dict, b: dict) -> dict:
     return {k: a[k] - b[k] for k in a}
 
 
+@contextlib.contextmanager
+def data_dir_set(path: str):
+    """DEEPCGP_DATA_DIR set to ``path`` inside the block."""
+    old = os.environ.get('DEEPCGP_DATA_DIR')
+    os.environ['DEEPCGP_DATA_DIR'] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop('DEEPCGP_DATA_DIR', None)
+        else:
+            os.environ['DEEPCGP_DATA_DIR'] = old
+
+
 def log_rows(run_dir: str):
     """(log.csv's first line, its entry rows as dicts): the header repeats
     on every open of the log, and those lines are left out."""
@@ -1647,17 +1675,9 @@ def cli_phases(torch, dev, card: dict, seed: int, reset_counts,
     eval batches).  Returns each path's launches, the build included."""
     rng = np.random.RandomState(seed + 4)
     with tempfile.TemporaryDirectory() as empty, \
-            tempfile.TemporaryDirectory() as root:
-        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
-        os.environ['DEEPCGP_DATA_DIR'] = empty
-        try:
-            return cli_paths(torch, dev, card, rng, root, reset_counts,
-                             read_counts)
-        finally:
-            if old_data_dir is None:
-                os.environ.pop('DEEPCGP_DATA_DIR', None)
-            else:
-                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
+            tempfile.TemporaryDirectory() as root, data_dir_set(empty):
+        return cli_paths(torch, dev, card, rng, root, reset_counts,
+                         read_counts)
 
 
 def cli_paths(torch, dev, card: dict, rng, root: str, reset_counts,
@@ -2359,16 +2379,9 @@ def surface_phases(torch, dev, card: dict, seed: int, reset_counts,
     paths = {}
     with tempfile.TemporaryDirectory() as empty, \
             tempfile.TemporaryDirectory() as root:
-        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
-        os.environ['DEEPCGP_DATA_DIR'] = empty
-        try:
+        with data_dir_set(empty):
             exp, paths['tensorboard_cli'] = tensorboard_cli(
                 torch, card, root, reset_counts, read_counts)
-        finally:
-            if old_data_dir is None:
-                os.environ.pop('DEEPCGP_DATA_DIR', None)
-            else:
-                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
         paths['full_cov'] = full_cov_phase(torch, dev, card, exp.model, rng,
                                            reset_counts, read_counts)
         paths['diagnostics_trace'] = diagnostics_phase(
@@ -2829,6 +2842,456 @@ def upper_any_p_phase(torch, dev, card: dict, rng, reset_counts,
     return total
 
 
+# -- the last of the JAX surface: native data path, FLOPs, examples, digits
+# The native host data path at MNIST scale (a 60000 x 784 float64 fit, its
+# float32 standardisation and a gather of its rows) and on 10000
+# CIFAR-shaped images (extraction at f = 5, s = 3, and the flagship's
+# k-means draw of 384 x 100 patches), each held bit for bit against its
+# numpy version.
+NATIVE_MNIST, NATIVE_CIFAR, NATIVE_DRAW = (60000, 784), 10000, 38400
+# The example scripts on the synthetic fallback (or learnable blobs for the
+# parity scripts) at cut schedules: the flags that change, and nothing else.
+# Two chunks of 50 steps (train_steps of these flags); the parity scripts'
+# verdicts on blobs at this schedule are read, not held: their thresholds
+# are for the real data at the full schedule.
+EXAMPLE_CUTS = {'-N': '2000', '--test-every': '50', '--lr-decay-steps': '40',
+                '--test-size': '256'}
+FM_SWEEP_ARGV = ['--feature-maps', '1', '2', '--chunks', '1',
+                 '--test-every', '20']
+# Learnable blobs written in the reference's layouts (uint8-scale pixels;
+# MNIST flat, CIFAR NCHW): train and test rows.
+PARITY_BLOBS = {'mnist': (2500, 500), 'cifar10': (2400, 600)}
+# bench.py's _digits_probe configuration (bench.py:165-214) through the
+# digits CLI's flags: 2 chunks of 500 Adam steps on the real UCI scans
+# (the port's bundled copy where scikit-learn is absent), held-out accuracy
+# on the 359 test scans gated at DIGITS_MIN_ACCURACY, beside the JAX
+# package's reading (BENCH_r05.json).
+DIGITS_ARGV = ['--name', 'digits', '-M', '64,64', '--feature-maps', '10',
+               '--filter-sizes', '3,3', '--strides', '1,1', '--batch-size',
+               '64', '--lr-decay-steps', '7000', '--test-every', '500',
+               '--no-tensorboard']
+DIGITS_CHUNKS, DIGITS_MIN_ACCURACY, DIGITS_JAX_ACCURACY = 2, 0.97, 0.9889
+# The steps/s of the windows the FLOP accounting reads, by path.
+WINDOW_STEPS_PER_S = {}
+
+
+def native_phase(card: dict, seed: int) -> None:
+    """Build the native library (g++) and hold each function against its
+    numpy version, bit for bit, with both times."""
+    from deepcgp_tpu_torch import native
+    build_s = native.build()
+    rng = np.random.RandomState(seed + 7)
+    rows = []
+
+    def pair(name, fn, plain, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        native_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ref = plain(*args)
+        numpy_ms = (time.perf_counter() - t) * 1e3
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in zip(outs, refs))
+        rows.append({'function': name, 'out_shape': list(outs[0].shape),
+                     'native_ms': native_ms, 'numpy_ms': numpy_ms,
+                     'bit_equal': equal})
+        check(equal, f'native {name} differs from its numpy version')
+        return out
+
+    X = rng.randint(0, 256, size=NATIVE_MNIST).astype(np.float64)
+    X[:, :40] = 0.0                          # constant columns: scale 1.0
+    mean, std = pair('fit_scaler', native.fit_scaler, native.fit_scaler_numpy,
+                     X)
+    Xs = pair('standardize', native.standardize, native.standardize_numpy,
+              X.astype(np.float32), mean, std)
+    pair('gather_rows', native.gather_rows, native.gather_rows_numpy, Xs,
+         rng.randint(0, len(Xs), size=len(Xs)))
+    images = rng.randn(NATIVE_CIFAR, *IMAGE).astype(np.float32)
+    pair('extract_patches', native.extract_patches,
+         native.extract_patches_numpy, images, 5, 3)
+    offsets = [rng.randint(0, hi, size=NATIVE_DRAW)
+               for hi in (NATIVE_CIFAR, IMAGE[0] - 5, IMAGE[1] - 5)]
+    pair('sample_patches', native.sample_patches, native.sample_patches_numpy,
+         images, *offsets, 5)
+    emit({'phase': 'native', **card, 'build_seconds': build_s,
+          'library': str(native.library_path().relative_to(
+              native.BUILD_DIR.parents[1])),
+          'compiler': ['g++', *native.GXX_FLAGS], 'functions': rows,
+          'tolerance': 'bit-equal to the numpy version'})
+
+
+def flop_reading(model, batch: int, steps_per_s: float, peak: float) -> dict:
+    """utils/flops' counts of one step of ``model`` at ``batch`` and the
+    rates a window's steps/s gives them."""
+    from deepcgp_tpu_torch.utils import flops
+    model_flop = flops.training_step_flops(model, batch)
+    hardware_flop = flops.training_step_hardware_flops(model, batch)
+    return {'batch_size': batch, 'num_samples': model.num_samples,
+            'model_gflop_per_step': model_flop / 1e9,
+            'hardware_gflop_per_step': hardware_flop / 1e9,
+            'min_bytes_per_step': flops.training_step_min_bytes(model, batch),
+            'steps_per_s': steps_per_s,
+            'model_tflops': model_flop * steps_per_s / 1e12,
+            'hardware_tflops': hardware_flop * steps_per_s / 1e12,
+            'mfu': model_flop * steps_per_s / peak,
+            'hardware_share_of_peak': hardware_flop * steps_per_s / peak}
+
+
+def flops_phase(torch, dev, card: dict, readings: dict) -> None:
+    """The windows' FLOP readings beside the table's peak, and a measured
+    torch.matmul rate at 8192^3 in BF16 and in FP32 (TF32 off)."""
+    from deepcgp_tpu_torch.utils import flops
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          'float32 products would run in TF32')
+    n = 8192
+    matmul = {}
+    for name, dtype in (('bf16', torch.bfloat16), ('fp32', torch.float32)):
+        a = torch.randn(n, n, device=dev, dtype=dtype)
+        b = torch.randn(n, n, device=dev, dtype=dtype)
+        ms = cuda_ms(torch, lambda: a @ b, 10)
+        matmul[name] = {'ms': ms, 'tflops': 2 * n ** 3 / ms / 1e9}
+        del a, b
+    peak = flops.device_peak_flops(dev)
+    emit({'phase': 'flops', **card, 'device_name': torch.cuda.get_device_name(0),
+          'peak_tflops_bf16_dense': peak / 1e12,
+          'peak_source': 'utils/flops.GPU_PEAK_FLOPS (NVIDIA H100 data sheet)',
+          'matmul_8192': matmul,
+          'matmul_bf16_share_of_peak': matmul['bf16']['tflops'] * 1e12 / peak,
+          'windows': readings})
+    check(all(np.isfinite(r['model_gflop_per_step']) and r['steps_per_s'] > 0
+              for r in readings.values()), f'flops readings {readings}')
+
+
+def cut_argv(argv: list, cuts: dict) -> list:
+    """``argv`` with the value after each flag of ``cuts`` replaced (and a
+    flag it lacks appended with its value)."""
+    out = list(argv)
+    for flag, value in cuts.items():
+        if flag in out:
+            out[out.index(flag) + 1] = value
+        else:
+            out += [flag, value]
+    return out
+
+
+def run_counted(torch, fn, read_counts):
+    """fn() with its printed lines captured; the launches of every model
+    build (``Experiment`` builds) kept apart.  Returns (fn(), printed
+    lines, launches outside the builds, the builds' launches, the number of
+    builds, seconds).  The caller resets the counters first."""
+    from deepcgp_tpu_torch.training import experiment
+    real, builds = experiment.build_model, []
+
+    def build(*a, **k):
+        before = read_counts()
+        model = real(*a, **k)
+        builds.append(minus(read_counts(), before))
+        return model
+    out = io.StringIO()
+    experiment.build_model = build
+    try:
+        with contextlib.redirect_stdout(out):
+            t = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+    finally:
+        experiment.build_model = real
+    in_builds = launches_of()
+    for b in builds:
+        in_builds = {k: in_builds[k] + b[k] for k in in_builds}
+    return (result, out.getvalue().splitlines(),
+            minus(read_counts(), in_builds), in_builds, len(builds), seconds)
+
+
+def write_blob_npz(path: str, name: str, seed: int) -> None:
+    """Learnable blobs in the reference's file layout: uint8-scale pixels,
+    MNIST flat [n, 784], CIFAR NCHW [n, 3, 32, 32]."""
+    from deepcgp_tpu_torch.training import data
+    n_train, n_test = PARITY_BLOBS[name]
+    shape = MNIST_IMAGE if name == 'mnist' else IMAGE
+    X, y = data.learnable_blobs(n_train + n_test, shape, 10, seed)
+    pixels = np.clip(np.rint(128.0 + 48.0 * X), 0, 255).astype(np.uint8)
+    pixels = (pixels.reshape(len(X), -1) if name == 'mnist'
+              else pixels.transpose(0, 3, 1, 2))
+    np.savez(path, x_train=pixels[:n_train], y_train=y[:n_train, 0],
+             x_test=pixels[n_train:], y_test=y[n_train:, 0])
+
+
+def decoded_pngs(paths: list) -> dict:
+    """{file name: (shape, tEXt chunks)} of each PNG, decoded."""
+    from deepcgp_tpu_torch.utils import events
+    out = {}
+    for p in paths:
+        if p.endswith('.png'):
+            with open(p, 'rb') as f:
+                raw = f.read()
+            out[os.path.basename(p)] = (list(events.decode_png(raw).shape),
+                                        events.png_text(raw))
+    return out
+
+
+def example_phases(torch, card: dict, seed: int, reset_counts,
+                   read_counts) -> dict:
+    """The example scripts, each an Adam path: train_mnist (then serve and
+    inspect_model on its run), fm_sweep, both parity scripts (refused
+    without data, then on blobs) and the digits probe on the real scans.
+    Each holds its exact launches; returns each path's launches."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as empty, \
+            tempfile.TemporaryDirectory() as root:
+        with data_dir_set(empty):
+            paths.update(example_mnist_paths(torch, card, root, reset_counts,
+                                              read_counts))
+            paths['example_fm_sweep'] = example_fm_sweep(
+                torch, card, root, reset_counts, read_counts)
+        paths.update(example_parity(torch, card, seed, empty, root,
+                                    reset_counts, read_counts))
+        paths['digits_real_data'] = digits_phase(torch, card, root,
+                                                 reset_counts, read_counts)
+    return paths
+
+
+def example_mnist_paths(torch, card: dict, root: str, reset_counts,
+                        read_counts) -> dict:
+    """train_mnist's ARGV at EXAMPLE_CUTS, then serve.main and
+    inspect_model.main on its run dir."""
+    from deepcgp_tpu_torch.examples import inspect_model, serve, train_mnist
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    # Its files go under ``root``: the run and the TensorBoard log, which
+    # the ARGV leaves on.
+    cuts = dict(EXAMPLE_CUTS, **{'--log-dir': os.path.join(root, 'results'),
+                                 '--tensorboard-dir': os.path.join(root, 'tb')})
+    argv = cut_argv(train_mnist.ARGV, cuts)
+    reset_counts()
+    exp, printed, launches, in_builds, builds, seconds = run_counted(
+        torch, lambda: train_mnist.main(argv), read_counts)
+    chunks = train_steps(exp.flags)
+    steps = chunks * exp.flags.test_every
+    evals = chunks * -(-exp.flags.test_size // EVAL_BATCH)
+    # A TensorBoard entry a chunk: the minibatch ELBO over the first
+    # min(5000, N) rows in batches of 64, and layer 0 on one test image.
+    tb_elbos = -(-min(TB_ELBO_ROWS, exp.flags.N) // TB_ELBO_BATCH)
+    want = expected_launches((steps, ADAM_PER_STEP['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']),
+                             (chunks * tb_elbos, EVAL_PER_BATCH['flagship']),
+                             (chunks, {'chol_inv_base': 1, 'tri_inv_base': 1}))
+    run_dir = os.path.join(root, 'results', 'mnist_example')
+    _, rows = log_rows(run_dir)
+    elbos = [float(r['train_elbo']) for r in rows]
+    total = read_counts()
+    emit({'phase': 'example train_mnist', **card,
+          'entry': 'deepcgp_tpu_torch.examples.train_mnist.main',
+          'cuts': cuts, 'argv': argv, 'chunks': chunks, 'steps': steps,
+          'eval_batches': evals, 'seconds': seconds, 'log_csv': rows,
+          'printed': printed, 'launches': total,
+          'launches_in_builds': in_builds, 'launches_outside_builds': launches})
+    check(builds == 1 and launches == want,
+          f'train_mnist: launches {launches} outside {builds} builds, '
+          f'expected {want}')
+    check(len(rows) == chunks and all(np.isfinite(elbos)),
+          f'train_mnist: log rows {rows}')
+    paths = {'example_train_mnist': total}
+
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        acc, dens = serve.main(run_dir)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    # A warm request of 128 rows, 1000 rows in batches of 128, 32 rows'
+    # log-densities: one predict_y a batch.
+    calls = 1 + -(-1000 // 128) + 1
+    want = expected_launches((calls, EVAL_PER_BATCH['flagship']))
+    emit({'phase': 'example serve', **card,
+          'entry': 'deepcgp_tpu_torch.examples.serve.main', 'run_dir':
+          'train_mnist\'s', 'seconds': seconds, 'accuracy': acc,
+          'mean_log_density': dens, 'printed': out.getvalue().splitlines(),
+          'predict_y_calls': calls, 'launches': launches})
+    check(launches == want, f'serve: launches {launches}, expected {want}')
+    check(0.0 <= acc <= 1.0 and np.isfinite(dens) and dens <= 0.0,
+          f'serve: accuracy {acc}, log-density {dens}')
+    paths['example_serve'] = launches
+
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        written = inspect_model.main(run_dir)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    # layer_features: one propagate of 256 rows; noise_robustness: 4 noise
+    # levels x 512 rows in batches of 32.
+    calls = 1 + 4 * 512 // EVAL_BATCH
+    want = expected_launches((calls, EVAL_PER_BATCH['flagship']))
+    pngs = decoded_pngs(written)
+    names = [os.path.basename(p) for p in written]
+    emit({'phase': 'example inspect_model', **card,
+          'entry': 'deepcgp_tpu_torch.examples.inspect_model.main',
+          'seconds': seconds, 'written': names, 'pngs': pngs,
+          'printed': out.getvalue().splitlines(), 'launches': launches})
+    check(launches == want, f'inspect_model: launches {launches}, '
+          f'expected {want}')
+    check(names == ['inducing_grid.npy', 'embedding_inducing.npy',
+                    'embedding_data.npy', 'inducing_grid_layer0.png',
+                    'patch_embedding_layer0.png', 'inducing_grid_layer1.png',
+                    'noise_robustness.png']
+          and all(s[2] == 3 and 'Title' in text for s, text in pngs.values()),
+          f'inspect_model wrote {names}: {pngs}')
+    paths['example_inspect_model'] = launches
+    return paths
+
+
+def example_fm_sweep(torch, card: dict, root: str, reset_counts,
+                     read_counts) -> dict:
+    """fm_sweep.main over feature maps 1 and 2, one 20-step chunk each."""
+    from deepcgp_tpu_torch.examples import fm_sweep
+    argv = FM_SWEEP_ARGV + ['--log-dir', os.path.join(root, 'fm_sweep')]
+    reset_counts()
+    rows, printed, launches, in_builds, builds, seconds = run_counted(
+        torch, lambda: fm_sweep.main(argv), read_counts)
+    # Per point: 20 steps, an eval of the 1000 test images in the chunk's
+    # log entry and one more for the summary.
+    evals = 2 * -(-1000 // EVAL_BATCH)
+    want = expected_launches((2 * 20, ADAM_PER_STEP['flagship']),
+                             (2 * evals, EVAL_PER_BATCH['flagship']))
+    with open(os.path.join(root, 'fm_sweep', 'fm_sweep_summary.csv')) as f:
+        summary = list(csv.reader(f))
+    total = read_counts()
+    emit({'phase': 'example fm_sweep', **card,
+          'entry': 'deepcgp_tpu_torch.examples.fm_sweep.main', 'argv': argv,
+          'seconds': seconds, 'summary_csv': summary, 'printed': printed,
+          'launches': total, 'launches_in_builds': in_builds,
+          'launches_outside_builds': launches})
+    check(builds == 2 and launches == want,
+          f'fm_sweep: launches {launches} outside {builds} builds, '
+          f'expected {want}')
+    check(summary[0] == ['feature_maps', 'test_accuracy', 'train_elbo']
+          and [r[0] for r in summary[1:]] == ['1', '2']
+          and all(np.isfinite(float(r[2])) for r in summary[1:]),
+          f'fm_sweep summary {summary}')
+    return total
+
+
+def example_parity(torch, card: dict, seed: int, empty: str, root: str,
+                   reset_counts, read_counts) -> dict:
+    """Each parity script refused (2) against an empty data dir, then its
+    ``parity_argv`` at EXAMPLE_CUTS (mnist: --fast) through ``main`` on a
+    learnable-blobs file in the reference's layout."""
+    from deepcgp_tpu_torch.examples import cifar_parity, mnist_parity
+    from deepcgp_tpu_torch.training.arguments import train_steps
+    paths = {}
+    with tempfile.TemporaryDirectory() as blobs:
+        for name, module, args, per_step, per_eval in (
+                ('mnist', mnist_parity, ['--fast'],
+                 UNFUSED_PER_STEP['mnist_conv'], MNIST_SERVING_PER_CALL),
+                ('cifar', cifar_parity, [], ADAM_PER_STEP['flagship'],
+                 EVAL_PER_BATCH['flagship'])):
+            label = f'example_{name}_parity'
+            file = 'mnist' if name == 'mnist' else 'cifar10'
+            log_dir = os.path.join(root, label)
+            with data_dir_set(empty), \
+                    contextlib.redirect_stderr(io.StringIO()) as err:
+                refused = module.main(args + ['--log-dir', log_dir])
+            write_blob_npz(os.path.join(blobs, f'{file}.npz'), file, seed)
+            real_argv = module.parity_argv
+            argv = cut_argv(real_argv(log_dir, *([False, True] if args else [])),
+                            EXAMPLE_CUTS)
+            module.parity_argv = lambda *a, **k: cut_argv(real_argv(*a, **k),
+                                                          EXAMPLE_CUTS)
+            reset_counts()
+            try:
+                with data_dir_set(blobs):
+                    code, printed, launches, in_builds, builds, seconds = \
+                        run_counted(torch, lambda: module.main(
+                            args + ['--log-dir', log_dir]), read_counts)
+            finally:
+                module.parity_argv = real_argv
+            flags = module.read_args(argv)
+            chunks = train_steps(flags)
+            steps = chunks * flags.test_every
+            n_train, n_test = PARITY_BLOBS[file]
+            test_rows = n_test if name == 'mnist' else n_test + n_train - flags.N
+            # An eval in each chunk's log entry, and the script's own.
+            evals = (chunks + 1) * -(-min(flags.test_size, test_rows)
+                                     // EVAL_BATCH)
+            want = expected_launches((steps, per_step), (evals, per_eval))
+            total = read_counts()
+            emit({'phase': f'example {name}_parity', **card,
+                  'entry': f'{module.__name__}.main', 'args': args,
+                  'refused_without_data': refused,
+                  'refusal': err.getvalue().splitlines(),
+                  'data': f'learnable_blobs({n_train + n_test}, 10, {seed}) '
+                          f'as uint8-scale {file}.npz, {n_train} train rows',
+                  'cuts': EXAMPLE_CUTS, 'argv': argv, 'returned': code,
+                  'printed': printed, 'steps': steps, 'eval_batches': evals,
+                  'seconds': seconds, 'launches': total,
+                  'launches_in_builds': in_builds,
+                  'launches_outside_builds': launches})
+            check(refused == 2, f'{name} parity without data returned {refused}')
+            check(builds == 1 and launches == want,
+                  f'{name} parity: launches {launches} outside {builds} '
+                  f'builds, expected {want}')
+            verdict = f'{name}-parity: final test_accuracy='
+            check(code in (0, 1) and printed[-1].startswith(verdict)
+                  and printed[-1].endswith(('FAIL', 'PASS')[code == 0]),
+                  f'{name} parity on blobs: {code} {printed[-1:]}')
+            paths[label] = total
+    return paths
+
+
+def digits_probe(log_dir: str, device=None):
+    """DIGITS_CHUNKS chunks of the digits probe through a ``Digits``
+    experiment; returns (the concluded experiment, its held-out
+    accuracy).  ``device='cpu'`` runs it on the CPU."""
+    from deepcgp_tpu_torch import digits
+    exp = digits.Digits(digits.read_args(DIGITS_ARGV + ['--log-dir', log_dir]),
+                        device=device)
+    try:
+        for _ in range(DIGITS_CHUNKS):
+            exp.train_step()
+    finally:
+        exp.conclude()
+    return exp, exp.test_accuracy()
+
+
+def digits_phase(torch, card: dict, root: str, reset_counts,
+                 read_counts) -> dict:
+    """The digits probe on the real scans: held-out accuracy gated at
+    DIGITS_MIN_ACCURACY, exact launches."""
+    import importlib.util
+    reset_counts()
+    (exp, accuracy), printed, launches, in_builds, builds, seconds = \
+        run_counted(torch, lambda: digits_probe(os.path.join(root, 'digits')),
+                    read_counts)
+    steps = DIGITS_CHUNKS * exp.flags.test_every
+    # An eval of the 359 test scans in each log entry, and the probe's own.
+    evals = (DIGITS_CHUNKS + 1) * -(-exp.flags.test_size // EVAL_BATCH)
+    want = expected_launches((steps, ADAM_PER_STEP['flagship']),
+                             (evals, EVAL_PER_BATCH['flagship']))
+    total = read_counts()
+    emit({'phase': 'digits real data', **card, 'argv': DIGITS_ARGV,
+          'source': ('scikit-learn load_digits'
+                     if importlib.util.find_spec('sklearn') else
+                     'deepcgp_tpu_torch/training/digits.npz'),
+          'train_rows': len(exp.X_train), 'test_rows': len(exp.X_test),
+          'steps': steps, 'seconds': seconds, 'printed': printed,
+          'held_out_accuracy': accuracy,
+          'jax_package_accuracy': DIGITS_JAX_ACCURACY,
+          'min_accuracy': DIGITS_MIN_ACCURACY, 'train_elbo': exp.last_mean_elbo,
+          'launches': total, 'launches_in_builds': in_builds,
+          'launches_outside_builds': launches})
+    check(len(exp.X_train) + len(exp.X_test) == 1797,
+          'the digits are not the 1797 UCI scans')
+    check(builds == 1 and launches == want,
+          f'digits: launches {launches} outside {builds} builds, '
+          f'expected {want}')
+    check(accuracy >= DIGITS_MIN_ACCURACY,
+          f'digits held-out accuracy {accuracy} < {DIGITS_MIN_ACCURACY}')
+    return total
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper, by its COUNTERS name; each counts its
     launches in ``.launches``."""
@@ -3176,17 +3639,9 @@ def mesh_phases(torch, card: dict, seed: int, reset_counts,
                 read_counts) -> dict:
     """(a) and (b) above.  Returns each path's launches."""
     with tempfile.TemporaryDirectory() as empty, \
-            tempfile.TemporaryDirectory() as root:
-        old_data_dir = os.environ.get('DEEPCGP_DATA_DIR')
-        os.environ['DEEPCGP_DATA_DIR'] = empty
-        try:
-            paths = {'mesh_nccl_cli': mesh_nccl_cli(
-                torch, card, root, reset_counts, read_counts)}
-        finally:
-            if old_data_dir is None:
-                os.environ.pop('DEEPCGP_DATA_DIR', None)
-            else:
-                os.environ['DEEPCGP_DATA_DIR'] = old_data_dir
+            tempfile.TemporaryDirectory() as root, data_dir_set(empty):
+        paths = {'mesh_nccl_cli': mesh_nccl_cli(
+            torch, card, root, reset_counts, read_counts)}
     paths.update(mesh_gloo_phase(torch, card, seed))
     return paths
 
@@ -3236,6 +3691,8 @@ def main() -> int:
     report = cuda_build.build()
     emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
           'arch': 'sm_90a', 'libraries': report})
+    # -- the native host data path: g++, then each function vs numpy -------
+    native_phase(card, args.seed)
 
     rng = np.random.RandomState(args.seed)
     # The inputs of the checks added with the NatGrad solve's K1/K3 shapes,
@@ -3664,6 +4121,10 @@ def main() -> int:
               trace[TRAIN_WARMUP_STEPS]), 'elbo_last': float(trace[-1]),
           'max_memory_allocated_bytes': peak, **fields})
     check(failure is None, f'flagship {failure}')
+    from deepcgp_tpu_torch.utils import flops
+    peak_flops = flops.device_peak_flops(dev)
+    flop_readings = {'flagship_adam': flop_reading(model, TRAIN_BATCH,
+                                                   steps / window, peak_flops)}
 
     wall_ms, busy_ms, top, rounds = profile_device(
         torch, lambda: trainer.run_chunk(state, config, Xd, Yd, 16),
@@ -3736,6 +4197,8 @@ def main() -> int:
         torch, 'm1024', mflags, M1024_IMAGE, M1024_BATCH, args.seed, rng, dev,
         card, reset_counts, read_counts, 5, 10, WINDOW_SECONDS)
     path_launches['m1024_natgrad'] = launches
+    flop_readings['m1024_natgrad'] = flop_reading(
+        fresh, M1024_BATCH, WINDOW_STEPS_PER_S['m1024'], peak_flops)
     natgrad_profile('m1024')
     del state, Xd, Yd
     path_launches['m1024_adam'] = m1024_adam(torch, fresh, args.seed, rng, dev,
@@ -3790,6 +4253,10 @@ def main() -> int:
     # -- the mesh: the collectives on the card -------------------------------
     path_launches.update(mesh_phases(torch, card, args.seed, reset_counts,
                                      read_counts))
+    # -- the last of the JAX surface: FLOP accounting, the examples, digits -
+    flops_phase(torch, dev, card, flop_readings)
+    path_launches.update(example_phases(torch, card, args.seed, reset_counts,
+                                        read_counts))
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deepcgp_tpu_torch import native
 from deepcgp_tpu_torch.ops.kmeans import kmeans
 
 SAMPLES_PER_INDUCING_POINT = 100
@@ -16,17 +17,12 @@ SAMPLES_PER_INDUCING_POINT = 100
 
 def gather_patches(NHWC: np.ndarray, img, ys, xs, f: int) -> np.ndarray:
     """The f x f patches at the given (image, y, x) offsets, TF element
-    order, [count, f*f*C] (the port's copy of the numpy form of the JAX
-    package's ``native.sample_patches``)."""
-    n, hh, ww, c = NHWC.shape
-    img, ys, xs = np.asarray(img), np.asarray(ys), np.asarray(xs)
-    if len(img) and not ((0 <= img.min() and img.max() < n)
-                         and (0 <= ys.min() and ys.max() <= hh - f)
-                         and (0 <= xs.min() and xs.max() <= ww - f)):
-        raise IndexError('gather_patches offsets out of range')
-    win = np.lib.stride_tricks.sliding_window_view(NHWC, (f, f), axis=(1, 2))
-    patches = win[img, ys, xs]                    # [count, C, f, f]
-    return np.moveaxis(patches, 1, -1).reshape(len(img), -1)
+    order, [count, f*f*C]: gathered by the native data path for float32
+    images (the JAX package's ``native.sample_patches``), by its numpy
+    version for the float64 images of the CPU tests."""
+    if np.asarray(NHWC).dtype == np.float32:
+        return native.sample_patches(NHWC, img, ys, xs, f)
+    return native.sample_patches_numpy(NHWC, img, ys, xs, f)
 
 
 def sample_patches(NHWC: np.ndarray, count: int, patch_size: int,

@@ -11,7 +11,8 @@ over the network; here loaders resolve in order:
 2. a deterministic synthetic fallback with the same shapes/dtypes (class-
    conditional blob images), so every config stays runnable end-to-end.
 
-UCI digits come from scikit-learn's bundled copy (or a ``digits.npz``) and
+UCI digits come from scikit-learn's bundled copy, or without scikit-learn
+from the port's copy of the same arrays (``training/digits.npz``), and
 never fall back to synthetic data.
 
 Preprocessing parity:
@@ -29,6 +30,8 @@ import os
 import warnings
 
 import numpy as np
+
+from deepcgp_tpu_torch import native
 
 _SHAPES = {
     'mnist': ((28, 28), 1, 10),
@@ -91,19 +94,32 @@ _DIGITS_SPLIT_SEED = 42  # fixed: the split IS the dataset definition
 _DIGITS_TEST_FRACTION = 0.2
 
 
+# The UCI digits as scikit-learn 1.9.0's load_digits() returns them (x:
+# uint8 [1797, 64], values 0..16; y: uint8 labels), for machines without
+# scikit-learn.  UCI Optical Recognition of Handwritten Digits, E. Alpaydin
+# and C. Kaynak, CC BY 4.0.
+BUNDLED_DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              'digits.npz')
+
+
 def _load_digits_raw():
     """UCI handwritten digits (1,797 real 8x8 grayscale scans, 10 classes)
-    bundled inside scikit-learn's wheel, in the observations-style flat
-    layout ([N, 64] f64, pixel range 0..16) with a FIXED seeded 80/20
-    split.  Returns None when sklearn is unavailable so the loader falls
-    through to an npz."""
+    from scikit-learn's bundled copy, or where scikit-learn is absent from
+    the port's own copy of the same arrays (``BUNDLED_DIGITS``), in the
+    observations-style flat layout ([N, 64] f64, pixel range 0..16) with a
+    FIXED seeded 80/20 split.  Returns None when neither is there, so the
+    loader falls through to an npz."""
     try:
         from sklearn.datasets import load_digits
     except ImportError:
-        return None
-    d = load_digits()
-    X = d.data.astype(np.float64)           # [1797, 64], values 0..16
-    y = d.target.astype(np.int64)
+        if not os.path.exists(BUNDLED_DIGITS):
+            return None
+        with np.load(BUNDLED_DIGITS) as d:
+            X, y = d['x'].astype(np.float64), d['y'].astype(np.int64)
+    else:
+        d = load_digits()
+        X = d.data.astype(np.float64)       # [1797, 64], values 0..16
+        y = d.target.astype(np.int64)
     perm = np.random.RandomState(_DIGITS_SPLIT_SEED).permutation(len(X))
     X, y = X[perm], y[perm]
     n_test = int(round(len(X) * _DIGITS_TEST_FRACTION))
@@ -116,8 +132,8 @@ def load_dataset(name: str):
 
     'digits' never falls through to the synthetic generator: it is the
     repo's real-data accuracy set, and a blob substitute would report
-    synthetic accuracy under a real-data label.  Without sklearn an
-    explicit npz may stand in; otherwise this raises."""
+    synthetic accuracy under a real-data label.  Without sklearn and the
+    bundled copy an explicit npz may stand in; otherwise this raises."""
     if name == 'digits':
         loaded = _load_digits_raw() or _load_npz(name)
         if loaded is None:
@@ -137,14 +153,13 @@ def load_dataset(name: str):
 
 class StandardScaler:
     """Per-feature standardisation (sklearn-compatible subset): per-column
-    mean and population std, zero-std columns scaled by 1.0; the transform
-    in float64 for parity with the reference's f64 preprocessing."""
+    mean and population std, zero-std columns scaled by 1.0, fitted by the
+    native data path (``deepcgp_tpu_torch/native``, as the JAX package
+    fits it); the transform in float64 numpy for parity with the
+    reference's f64 preprocessing."""
 
     def fit_transform(self, X):
-        X = np.asarray(X, dtype=np.float64)
-        self.mean_ = X.mean(axis=0)
-        std = X.std(axis=0)
-        self.scale_ = np.where(std == 0, 1.0, std)
+        self.mean_, self.scale_ = native.fit_scaler(X)
         return self.transform(X)
 
     def transform(self, X):

@@ -195,15 +195,23 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack('>I', zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def encode_png(hwc: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] -> an RGB PNG, every row unfiltered."""
+def encode_png(hwc: np.ndarray, text: dict | None = None) -> bytes:
+    """uint8 [H, W, 3] -> an RGB PNG, every row unfiltered; each item of
+    ``text`` ({keyword: value}, Latin-1) becomes a ``tEXt`` chunk."""
     H, W, C = hwc.shape
     if hwc.dtype != np.uint8 or C != 3:
         raise ValueError(f'encode_png: need uint8 [H, W, 3], got '
                          f'{hwc.dtype} {hwc.shape}')
+    chunks = []
+    for key, value in (text or {}).items():
+        if not 1 <= len(key) <= 79 or '\0' in key + str(value):
+            raise ValueError(f'encode_png: tEXt keyword {key!r}')
+        chunks.append(_png_chunk(b'tEXt', key.encode('latin-1') + b'\0'
+                                 + str(value).encode('latin-1')))
     raw = b''.join(b'\x00' + hwc[y].tobytes() for y in range(H))
     return (b'\x89PNG\r\n\x1a\n'
             + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', W, H, 8, 2, 0, 0, 0))
+            + b''.join(chunks)
             + _png_chunk(b'IDAT', zlib.compress(raw))
             + _png_chunk(b'IEND', b''))
 
@@ -393,12 +401,11 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """An 8-bit grey, RGB or RGBA PNG, not interlaced -> uint8 [H, W, C],
-    every PNG row filter undone."""
+def _png_chunks(data: bytes):
+    """(kind, body) of every chunk of a PNG, CRCs checked."""
     if data[:8] != b'\x89PNG\r\n\x1a\n':
         raise ValueError('not a PNG')
-    pos, idat, hdr = 8, b'', None
+    pos = 8
     while pos < len(data):
         (n,) = struct.unpack('>I', data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -406,11 +413,29 @@ def decode_png(data: bytes) -> np.ndarray:
         (crc,) = struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])
         if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
             raise ValueError(f'PNG chunk {kind!r}: CRC mismatch')
+        yield kind, body
+        pos += 12 + n
+
+
+def png_text(data: bytes) -> dict:
+    """{keyword: value} of a PNG's ``tEXt`` chunks."""
+    out = {}
+    for kind, body in _png_chunks(data):
+        if kind == b'tEXt':
+            key, _, value = body.partition(b'\0')
+            out[key.decode('latin-1')] = value.decode('latin-1')
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit grey, RGB or RGBA PNG, not interlaced -> uint8 [H, W, C],
+    every PNG row filter undone."""
+    idat, hdr = b'', None
+    for kind, body in _png_chunks(data):
         if kind == b'IHDR':
             hdr = struct.unpack('>IIBBBBB', body)
         elif kind == b'IDAT':
             idat += body
-        pos += 12 + n
     W, H, depth, ctype, _, _, interlace = hdr
     channels = {0: 1, 2: 3, 6: 4}.get(ctype)
     if depth != 8 or channels is None or interlace:

@@ -20,9 +20,11 @@ from deepcgp_tpu.training import data as jdata
 from deepcgp_tpu.utils import log as jlog
 from deepcgp_tpu.utils import profiling as jprofiling
 
-from deepcgp_tpu_torch import cifar, digits, mnist
+from deepcgp_tpu_torch import cifar, digits, mnist, native
 from deepcgp_tpu_torch.training import arguments, data
 from deepcgp_tpu_torch.utils import log, profiling
+
+from test_torch_native import jax_native_loaded
 
 # ------------------------------------------------------------ arguments
 
@@ -158,6 +160,7 @@ def test_digits_refuses_synthetic_fallback(monkeypatch, tmp_path):
 
 
 def test_standard_scaler_matches_jax_formula():
+    jax_native_loaded()
     rng = np.random.RandomState(4)
     X = rng.rand(50, 7) * 16
     X[:, 3] = 2.0                                      # zero-std column
@@ -165,9 +168,13 @@ def test_standard_scaler_matches_jax_formula():
     a, b = ours.fit_transform(X), ref.fit_transform(X)
     assert a.dtype == np.float64
     np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
-    np.testing.assert_array_equal(ours.mean_, X.mean(0))
-    np.testing.assert_array_equal(ours.scale_, np.where(X.std(0) == 0, 1.0,
-                                                        X.std(0)))
+    # Both fit through their native data paths: the same bits, and the
+    # bits of the port's numpy version of its loop.
+    np.testing.assert_array_equal(ours.mean_, ref.mean_)
+    np.testing.assert_array_equal(ours.scale_, ref.scale_)
+    mean, scale = native.fit_scaler_numpy(X)
+    np.testing.assert_array_equal(ours.mean_, mean)
+    np.testing.assert_array_equal(ours.scale_, scale)
     assert ours.scale_[3] == 1.0 and (a[:, 3] == 0).all()
     np.testing.assert_allclose(ours.transform(X[:5]), ref.transform(X[:5]),
                                rtol=1e-12, atol=1e-12)

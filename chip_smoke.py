@@ -283,9 +283,14 @@ _T0 = time.perf_counter()
 
 def emit(obj) -> None:
     """Print one JSON line; a phase's line carries the seconds since the
-    script started."""
+    script started and the card's memory the process holds (allocated,
+    and reserved by the caching allocator, its graph pools included)."""
     if 'phase' in obj:
         obj = {**obj, 'elapsed_s': time.perf_counter() - _T0}
+        torch = sys.modules.get('torch')
+        if torch is not None and torch.cuda.is_initialized():
+            obj.update(memory_allocated_bytes=torch.cuda.memory_allocated(),
+                       memory_reserved_bytes=torch.cuda.memory_reserved())
     print(json.dumps(obj), flush=True)
 
 
@@ -1650,16 +1655,54 @@ def drive_cli(torch, fn, read_counts):
     return result, out.getvalue().splitlines(), marks, seconds
 
 
-def train_state_tensors(state) -> dict:
-    """Copies of every tensor a full-state snapshot holds."""
-    out = {f'model/{k}': v.detach().clone()
-           for k, v in state.model.state_dict().items()}
-    for moment in ('mu', 'nu'):
-        out.update({f'{moment}/{k}': v.clone()
-                    for k, v in state.opt_state[moment].items()})
-    out['count'] = state.opt_state['count'].clone()
+def state_values(state) -> dict:
+    """Copies of every tensor of a TrainState, and its generator state."""
+    out = {f'param/{k}': p.detach().clone() for k, p in state.params.items()}
+    out.update({f'buffer/{k}': b.clone()
+                for k, b in state.model.named_buffers()})
+    if state.opt_state:
+        out['count'] = state.opt_state['count'].clone()
+        for moment in ('mu', 'nu'):
+            out.update({f'{moment}/{k}': v.clone()
+                        for k, v in state.opt_state[moment].items()})
     out['step'] = state.step.clone()
+    if state.steps_back is not None:
+        out['steps_back'] = state.steps_back.clone()
+        out.update({f'prev/{k}': v.clone() for k, v in state.prev.items()})
     out['generator'] = state.generator.get_state()
+    return out
+
+
+def restore_values(torch, state, values: dict) -> None:
+    """``state_values`` copied back into the state's own tensors (their
+    storage, which the state's graphs read, kept) and its generator."""
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(values[f'param/{k}'])
+        for k, b in state.model.named_buffers():
+            b.copy_(values[f'buffer/{k}'])
+        if state.opt_state:
+            state.opt_state['count'].copy_(values['count'])
+            for moment in ('mu', 'nu'):
+                for k, v in state.opt_state[moment].items():
+                    v.copy_(values[f'{moment}/{k}'])
+        state.step.copy_(values['step'])
+        if state.steps_back is not None:
+            state.steps_back.copy_(values['steps_back'])
+            for k, v in state.prev.items():
+                v.copy_(values[f'prev/{k}'])
+    state.generator.set_state(values['generator'])
+
+
+def bit_diff(torch, a: dict, b: dict) -> dict:
+    """{name: max |a - b|} of the entries of two ``state_values`` (or
+    traces) that are not bit-equal."""
+    out = {}
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            x, y = a[k].double(), b[k].double()
+            out[k] = float((x - y).abs().max()) if x.is_floating_point() \
+                else 'differs'
     return out
 
 
@@ -1796,10 +1839,10 @@ def stop_and_resume(argv, chunks: int):
     for _ in range(chunks):
         first.train_step()
     first.conclude()
-    saved = train_state_tensors(first.state)
+    saved = state_values(first.state)
     del first
     resumed = cifar.Cifar(cifar.read_args(argv))
-    restored = train_state_tensors(resumed.state)
+    restored = state_values(resumed.state)
     resumed.run()
     return saved, restored, resumed
 
@@ -1822,8 +1865,8 @@ def cli_cifar_resume(torch, card: dict, root: str, unbroken, unbroken_rows,
     unbroken_elbos = [float(r['train_elbo']) for r in unbroken_rows[2:]]
     elbo_rel = [abs(a - b) / abs(b)
                 for a, b in zip(resumed_elbos, unbroken_elbos)]
-    final = train_state_tensors(resumed.state)
-    whole = train_state_tensors(unbroken.state)
+    final = state_values(resumed.state)
+    whole = state_values(unbroken.state)
     cols = ('global_step', 'test_accuracy', 'train_elbo')
     emit({'phase': 'cli cifar flagship resume', **card, 'argv': argv,
           'seconds': seconds, 'printed': printed, 'log_csv': rows,
@@ -2046,8 +2089,8 @@ def cli_deep3_adam(torch, dev, card: dict, rng, root: str, reset_counts,
     cols = ('global_step', 'test_accuracy', 'train_elbo')
     rows_equal = [[r[c] for c in cols] == [u[c] for c in cols]
                   for r, u in zip(rrows, rows)]
-    final = train_state_tensors(resumed.state)
-    whole = train_state_tensors(exp.state)
+    final = state_values(resumed.state)
+    whole = state_values(exp.state)
     final_equal = final.keys() == whole.keys() and all(
         bool(torch.equal(final[k], whole[k])) for k in final)
     emit({'phase': 'cli cifar deep3 identity resume', **card, 'argv': rargv,
@@ -3646,6 +3689,278 @@ def mesh_phases(torch, card: dict, seed: int, reset_counts,
     return paths
 
 
+# -- the compiled chunk: run_chunk, the eval and the Predictor as graphs --
+# Each training path (every optimizer, every route) from one snapshot: a graphed chunk (its first step
+# eager, then the capture, then replays), an eager chunk and a chunk of
+# replays alone, each from the same restored state and generator state,
+# gated bit-equal in the ELBO trace, every tensor of the state and the
+# launches.  Then eager and graphed windows in turns (E G E G) on four
+# paths.  GRAPH_AB_STEPS steps a chunk after GRAPH_AB_WARM eager steps;
+# windows of GRAPH_WINDOW_SECONDS; GRAPH_PROFILE_STEPS steps profiled.
+GRAPH_AB_STEPS, GRAPH_AB_WARM = 6, 2
+GRAPH_WINDOW_SECONDS, GRAPH_PROFILE_STEPS = 2.0, 16
+DEEP3 = dict(M='384,384,384', feature_maps='10,10', filter_sizes='5,3,3',
+             strides='2,1,1', base_kernel='rbf', last_kernel='conv',
+             white=False, identity_mean=True)
+# (label, flags, image, batch, optimizer, per-step launches, per-chunk
+# launches, parameters loaded into the build).
+GRAPH_PATHS = (
+    ('flagship adam', FLAGSHIP, IMAGE, TRAIN_BATCH, 'Adam',
+     ADAM_PER_STEP['flagship'], {}, None),
+    ('flagship sgd', FLAGSHIP, IMAGE, TRAIN_BATCH, 'SGD',
+     ADAM_PER_STEP['flagship'], {}, None),
+    ('flagship natgrad', FLAGSHIP, IMAGE, TRAIN_BATCH, 'NatGrad',
+     NATGRAD_PER_STEP['flagship'], NATGRAD_PER_CHUNK['flagship'], None),
+    ('m1024 natgrad', M1024, M1024_IMAGE, M1024_BATCH, 'NatGrad',
+     NATGRAD_PER_STEP['m1024'], NATGRAD_PER_CHUNK['m1024'], None),
+    ('mnist_conv adam', MNIST_CONV, MNIST_IMAGE, TRAIN_BATCH, 'Adam',
+     UNFUSED_PER_STEP['mnist_conv'], {}, None),
+    ('fm32 adam', FM32, IMAGE, TRAIN_BATCH, 'Adam', UNFUSED_PER_STEP['fm32'],
+     {}, {1: {'base_kernel/lengthscales': LENGTHSCALES[1]}}),
+    ('deep3 adam', DEEP3, IMAGE, TRAIN_BATCH, 'Adam', ADAM_PER_STEP['deep3'],
+     {}, None))
+GRAPH_TIMED = ('flagship adam', 'flagship natgrad', 'm1024 natgrad')
+
+
+def graph_build(torch, label, flags, image, loaded, seed, rng, dev):
+    from deepcgp_tpu_torch.models import builder as mbuilder
+    X, Y = learnable_data(rng, image)
+    model = mbuilder.build_model(
+        types.SimpleNamespace(**flags, num_samples=TRAIN_SAMPLES), image,
+        loaded, images=X, generator=torch.Generator().manual_seed(seed),
+        device=dev)
+    Xd = torch.as_tensor(X.reshape(len(X), -1), device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    return model, Xd, Yd
+
+
+def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
+                   per_chunk, seed, card, reset_counts, read_counts):
+    """The bit-equality of one training path: from one snapshot, chunks
+    run graphed (capturing), eager and graphed again (replays only).
+    Returns (state, config, the replayed chunk's launches)."""
+    from deepcgp_tpu_torch.training import trainer
+    # Plain SGD steps on the raw gradients: lr 1e-4, as the CPU tests take.
+    config = trainer.TrainConfig(optimizer=optimizer, batch_size=batch,
+                                 lr=1e-4 if optimizer == 'SGD' else 0.01,
+                                 gamma=0.001)
+    state = trainer.init_state(model, config, seed=seed)
+    trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_WARM, graphed=False)
+    snap = state_values(state)
+    runs = {}
+    for mode in ('graphed', 'eager', 'replayed'):
+        restore_values(torch, state, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        trace = trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_STEPS,
+                                  graphed=mode != 'eager')
+        torch.cuda.synchronize()
+        runs[mode] = {'seconds': time.perf_counter() - t,
+                      'trace': trace.clone(), 'state': state_values(state),
+                      'launches': read_counts(),
+                      'peak': torch.cuda.max_memory_allocated()}
+    expected = expected_launches((GRAPH_AB_STEPS, per_step), (1, per_chunk))
+    eager = runs['eager']
+    diffs = {mode: {'trace': bit_diff(torch, {'trace': runs[mode]['trace']},
+                                      {'trace': eager['trace']}),
+                    'state': bit_diff(torch, runs[mode]['state'],
+                                      eager['state'])}
+             for mode in ('graphed', 'replayed')}
+    same = {mode: not d['trace'] and not d['state']
+            for mode, d in diffs.items()}
+    cache = state.graphs
+    emit({'phase': f'graph bit-equality {label}', **card,
+          'optimizer': optimizer, 'batch_size': batch,
+          'num_samples': model.num_samples, 'warm_eager_steps': GRAPH_AB_WARM,
+          'chunk_steps': GRAPH_AB_STEPS, 'order': list(runs),
+          'bit_equal': same, 'not_bit_equal': diffs,
+          'launches': {mode: r['launches'] for mode, r in runs.items()},
+          'expected_launches': expected,
+          'seconds': {mode: r['seconds'] for mode, r in runs.items()},
+          'max_memory_allocated_bytes': {mode: r['peak']
+                                         for mode, r in runs.items()},
+          'captures': cache.captures, 'capture_seconds': cache.capture_seconds,
+          'elbo_trace': eager['trace'].tolist()})
+    check(all(same.values()), f'graph {label}: graphed and eager chunks '
+          f'differ: {diffs}')
+    check(all(r['launches'] == expected for r in runs.values()),
+          f'graph {label}: launches {[r["launches"] for r in runs.values()]},'
+          f' expected {expected}')
+    check(finite(torch, eager['trace']), f'graph {label}: an ELBO is not finite')
+    return state, config, runs['replayed']['launches']
+
+
+def graph_eval_and_serving(torch, model, seed, rng, dev, card, reset_counts,
+                           read_counts) -> dict:
+    """The flagship's eval (1000 rows: 31 batches of 32 and one of 8, two
+    graphs) and Predictor (300 and 200 rows, padded batches of BATCH),
+    eager against graphed, bit for bit, with their launches."""
+    from deepcgp_tpu_torch.serving import Predictor
+    from deepcgp_tpu_torch.training import trainer
+    X = rng.randn(1000, *IMAGE).astype(np.float32)
+    Y = rng.randint(0, 10, size=(1000, 1))
+    Xd = torch.as_tensor(X.reshape(1000, -1), device=dev)
+    Yd = torch.as_tensor(Y, device=dev)
+    evals = {}
+    for mode in ('graphed', 'eager', 'replayed'):
+        reset_counts()
+        probs = trainer.predict_probs(model, Xd, seed=seed,
+                                      batch_size=EVAL_BATCH,
+                                      graphed=mode != 'eager')
+        acc = trainer.accuracy(model, Xd, Yd, seed=seed,
+                               batch_size=EVAL_BATCH,
+                               graphed=mode != 'eager')
+        evals[mode] = (probs, acc, read_counts())
+    batches = -(-1000 // EVAL_BATCH)
+    expected = expected_launches((2 * batches, EVAL_PER_BATCH['flagship']))
+    eval_same = {m: bool(torch.equal(evals[m][0], evals['eager'][0]))
+                 and evals[m][1] == evals['eager'][1]
+                 for m in ('graphed', 'replayed')}
+    served, launches = {}, {}
+    preds = {'eager': Predictor(model, batch_size=BATCH, num_samples=SAMPLES,
+                                seed=seed, graphed=False),
+             'graphed': Predictor(model, batch_size=BATCH,
+                                  num_samples=SAMPLES, seed=seed)}
+    for mode, pred in preds.items():
+        reset_counts()
+        served[mode] = [pred.predict_proba(X[:300]), pred.predict_proba(X[:300]),
+                        pred.log_density(X[:200], Y[:200])]
+        launches[mode] = read_counts()
+    serve_batches = 2 * -(-300 // BATCH) + -(-200 // BATCH)
+    serve_expected = launches_of(chol_inv_base=serve_batches,
+                                 tri_inv_base=serve_batches,
+                                 conv_rbf_cross=serve_batches)
+    serve_same = all(np.array_equal(a, b) for a, b in
+                     zip(served['graphed'], served['eager']))
+    emit({'phase': 'graph bit-equality eval and serving', **card,
+          'eval': {'rows': 1000, 'batch_size': EVAL_BATCH,
+                   'bit_equal': eval_same,
+                   'accuracy': {m: e[1] for m, e in evals.items()},
+                   'launches': {m: e[2] for m, e in evals.items()},
+                   'expected_launches': expected},
+          'serving': {'requests': ['predict_proba 300', 'predict_proba 300',
+                                   'log_density 200'],
+                      'batch_size': BATCH, 'num_samples': SAMPLES,
+                      'bit_equal': serve_same, 'launches': launches,
+                      'expected_launches': serve_expected,
+                      'captures': preds['graphed']._graphs.captures,
+                      'capture_seconds':
+                          preds['graphed']._graphs.capture_seconds}})
+    check(all(eval_same.values()), f'graph eval: eager and graphed differ '
+          f'{eval_same}')
+    check(all(e[2] == expected for e in evals.values()),
+          f'graph eval launches {[e[2] for e in evals.values()]}, expected '
+          f'{expected}')
+    check(serve_same, 'graph serving: eager and graphed answers differ')
+    check(all(n == serve_expected for n in launches.values()),
+          f'graph serving launches {launches}, expected {serve_expected}')
+    return launches['graphed']
+
+
+def graph_windows(torch, fn, steps_each: int, rounds=('eager', 'graphed') * 2):
+    """Windows of GRAPH_WINDOW_SECONDS in turns: fn(mode) runs one chunk
+    or request of ``steps_each`` steps or images and synchronizes.
+    Returns each window's mode, count, seconds, rate and peak memory."""
+    out = []
+    for mode in rounds:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n, t = 0, time.perf_counter()
+        while time.perf_counter() - t < GRAPH_WINDOW_SECONDS:
+            fn(mode)
+            n += steps_each
+        seconds = time.perf_counter() - t
+        out.append({'mode': mode, 'count': n, 'seconds': seconds,
+                    'rate': n / seconds,
+                    'max_memory_allocated_bytes':
+                        torch.cuda.max_memory_allocated(),
+                    'memory_reserved_bytes': torch.cuda.memory_reserved()})
+    return out
+
+
+def graph_timing_line(label, unit, windows, profiles, capture, card):
+    rates = {m: [w['rate'] for w in windows if w['mode'] == m]
+             for m in ('eager', 'graphed')}
+    emit({'phase': f'graph timing {label}', **card, 'unit': unit,
+          'order': [w['mode'] for w in windows],
+          'window_seconds': GRAPH_WINDOW_SECONDS, 'windows': windows,
+          f'{unit}_per_s': rates,
+          'graphed_over_eager': min(rates['graphed']) / max(rates['eager']),
+          'profile_steps': GRAPH_PROFILE_STEPS, **capture,
+          'device_busy_share': {m: p[1] / p[0] for m, p in profiles.items()},
+          'profiles': {m: {'wall_ms': p[0], 'device_busy_ms': p[1],
+                           'profile_rounds': p[3], 'top_device_ms': p[2]}
+                       for m, p in profiles.items()}})
+
+
+def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
+                 read_counts) -> dict:
+    """The compiled chunk: every training path's graphed chunk bit-equal
+    to its eager chunk, the eval and the Predictor likewise, then eager
+    and graphed windows in turns with the graphed and eager profiles'
+    busy shares, capture seconds and peak memory.  Returns each path's
+    launches in its chunk of replays alone."""
+    from deepcgp_tpu_torch.serving import Predictor
+    from deepcgp_tpu_torch.training import trainer
+    rng = np.random.RandomState(seed + 6)
+    launches, timed = {}, {}
+    for label, flags, image, batch, optimizer, per_step, per_chunk, loaded \
+            in GRAPH_PATHS:
+        model, Xd, Yd = graph_build(torch, label, flags, image, loaded, seed,
+                                    rng, dev)
+        state, config, launches[f'graph {label}'] = graph_ab_chunk(
+            torch, label, model, optimizer, batch, Xd, Yd, per_step,
+            per_chunk, seed, card, reset_counts, read_counts)
+        if label in GRAPH_TIMED:
+            timed[label] = (state, config, Xd, Yd)
+        else:
+            del state, model
+    launches['graph eval and serving'] = graph_eval_and_serving(
+        torch, timed['flagship adam'][0].model, seed, rng, dev, card,
+        reset_counts, read_counts)
+
+    for label, (state, config, Xd, Yd) in timed.items():
+        chunk = TRAIN_CHUNK if label.startswith('flagship') else 10
+        windows = graph_windows(torch, lambda mode: (trainer.run_chunk(
+            state, config, Xd, Yd, chunk, graphed=mode == 'graphed'),
+            torch.cuda.synchronize()), chunk)
+        profiles = {mode: profile_device(torch, lambda: trainer.run_chunk(
+            state, config, Xd, Yd, GRAPH_PROFILE_STEPS,
+            graphed=mode == 'graphed'), reset_counts, read_counts)
+            for mode in ('eager', 'graphed')}
+        graph_timing_line(label, 'steps', windows, profiles, {
+            'captures': state.graphs.captures,
+            'capture_seconds': state.graphs.capture_seconds,
+            'batch_size': config.batch_size, 'chunk_steps': chunk}, card)
+    model = timed['flagship adam'][0].model
+    del timed
+    X = rng.randn(16 * BATCH, *IMAGE).astype(np.float32)
+    preds = {'eager': Predictor(model, batch_size=BATCH, num_samples=SAMPLES,
+                                seed=seed, graphed=False),
+             'graphed': Predictor(model, batch_size=BATCH,
+                                  num_samples=SAMPLES, seed=seed)}
+    served = [0]
+
+    def request(mode):
+        r = served[0] % 16
+        served[0] += 1
+        preds[mode].predict_proba(X[r * BATCH:(r + 1) * BATCH])
+
+    for mode in preds:
+        request(mode)
+    windows = graph_windows(torch, request, BATCH)
+    profiles = {mode: profile_device(torch, lambda: [
+        request(mode) for _ in range(GRAPH_PROFILE_STEPS)], reset_counts,
+        read_counts) for mode in ('eager', 'graphed')}
+    graph_timing_line('flagship serving', 'images', windows, profiles, {
+        'captures': preds['graphed']._graphs.captures,
+        'capture_seconds': preds['graphed']._graphs.capture_seconds,
+        'batch_size': BATCH, 'num_samples': SAMPLES}, card)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -4243,6 +4558,10 @@ def main() -> int:
 
     # -- depth 3's hidden-layer extraction: the route the layer takes ------
     hidden_extraction_phase(torch, dev, card, rng)
+
+    # -- the compiled chunk: graphed against eager, bit for bit and timed ---
+    path_launches.update(graph_phases(torch, dev, card, args.seed,
+                                      reset_counts, read_counts))
 
     # -- the CLI: the entry points a user runs ------------------------------
     path_launches.update(cli_phases(torch, dev, card, args.seed,

@@ -21,10 +21,40 @@ from deepcgp_tpu_torch.models.base_kernels import frozen_parameter
 from deepcgp_tpu_torch.utils.transforms import positive_backward, positive_forward
 
 
+# (n, dtype, device) -> the Gauss-Hermite points and weights: made once,
+# so that no call copies them from the host (which a CUDA graph capture
+# cannot hold).
+_GH_POINTS: dict = {}
+
+
 def _gh_points(n: int, like: torch.Tensor):
-    x, w = np.polynomial.hermite.hermgauss(n)
-    return (torch.as_tensor(x, dtype=like.dtype, device=like.device),
+    key = (n, like.dtype, like.device)
+    if key not in _GH_POINTS:
+        x, w = np.polynomial.hermite.hermgauss(n)
+        _GH_POINTS[key] = (
+            torch.as_tensor(x, dtype=like.dtype, device=like.device),
             torch.as_tensor(w, dtype=like.dtype, device=like.device))
+    return _GH_POINTS[key]
+
+
+class _ProdOfNonzero(torch.autograd.Function):
+    """``x.prod(dim)`` of factors that are never 0 (the clipped CDFs),
+    with the backward autograd takes for ``prod`` when no factor is 0,
+    grad * (prod / x), bit for bit, but without autograd's count of the
+    zero factors: that count is read on the host, and a CUDA graph
+    capture cannot hold a host sync."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        out = x.prod(dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g.unsqueeze(ctx.dim) * (out.unsqueeze(ctx.dim) / x), None
 
 
 def _cdf(x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +90,8 @@ class MultiClass:
             var[..., :, None].clamp_min(1e-10))                # [..., K, H]
         cdfs = _cdf(dist)
         cdfs = cdfs * (1.0 - oh[..., None]) + oh[..., None]
-        p = (cdfs.prod(-2) * gh_w).sum(-1) / math.sqrt(math.pi)
+        p = (_ProdOfNonzero.apply(cdfs, -2) * gh_w).sum(-1) \
+            / math.sqrt(math.pi)
         return p[..., None]
 
     def variational_expectations(self, Fmu: torch.Tensor, Fvar: torch.Tensor,

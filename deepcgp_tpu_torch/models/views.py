@@ -11,6 +11,9 @@ import torch
 from deepcgp_tpu_torch.ops.cuda_patches import tf_order_patches
 from deepcgp_tpu_torch.ops.patches import out_size
 
+# (patch_indices, device) -> the partial view's indices as a tensor.
+_INDICES: dict = {}
+
 
 @dataclasses.dataclass(frozen=True)
 class FullView:
@@ -117,9 +120,14 @@ class RandomPartialView:
         whose backward scatters to unique indices, so it is
         deterministic."""
         full = tf_order_patches(NHWC_X, self.filter_size, 1, 1)
-        idx = torch.as_tensor(self.patch_indices, dtype=torch.int64,
-                              device=NHWC_X.device)
-        return full.index_select(1, idx)
+        key = (self.patch_indices, NHWC_X.device)
+        if key not in _INDICES:
+            # Copied to the device once: a CUDA graph capture cannot hold
+            # a copy from the host.
+            _INDICES[key] = torch.as_tensor(self.patch_indices,
+                                            dtype=torch.int64,
+                                            device=NHWC_X.device)
+        return full.index_select(1, _INDICES[key])
 
     def mean_view(self, NHWC_X: torch.Tensor, NPL_patches) -> torch.Tensor:
         """A partial view hands the mean function its selected patches."""

@@ -270,11 +270,27 @@ def bwd_dz_3xtf32(NHWC_X, Z, variance, gamma, u, filter_size, stride,
 
 # Per kind, (Z, Z._version, padded copy) of the last inducing matrix: a
 # served model passes the same Z on every call, and a training step reads
-# the same Z in its forward and backward, so each copy is built once.
+# the same Z in its forward and backward, so each copy is built once and
+# rebuilt when Z is another tensor or was written in place.  A CUDA graph
+# replay runs no Python: it reads every tensor where its capture found
+# it, so a copy built outside a capture would be read stale by every
+# later replay (an eval graph captured before a training step, say), and
+# it writes Z without bumping Z._version.  So while the current stream is
+# capturing, the copy is built inside the captured region on every call
+# and kept out of the cache, and every replay empties the cache
+# (:func:`drop_padded_copies`, called by ``training.graphs``).
 _pad_cache: dict = {}
 
 
+def drop_padded_copies() -> None:
+    """Forget every padded copy: Z may have been written behind its
+    version counter's back."""
+    _pad_cache.clear()
+
+
 def _cached(kind, Z, build):
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return build(Z)
     hit = _pad_cache.get(kind)
     if hit is not None and hit[0] is Z and hit[1] == Z._version:
         return hit[2]

@@ -5,7 +5,9 @@ Each function runs the single-process code under the mesh
 (``parallel.sharding.mesh_context``): the batch's rows over the data
 ranks, a conv layer's patches and the last layer's GPs over the model
 ranks, the update replicated.  Every rank calls it with the same
-arguments.
+arguments.  Under the mesh the chunk and the eval run eagerly: their
+default (``graphed=None``) checks ``sharding.active_mesh()``, because
+the collectives are not captured into CUDA graphs.
 """
 
 from __future__ import annotations

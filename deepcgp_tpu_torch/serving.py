@@ -9,6 +9,14 @@ come from a ``torch.Generator`` seeded from ``seed`` and the batch count,
 so answers are reproducible for a given seed (the stream is not the JAX
 package's).
 
+On a CUDA device with no mesh each padded batch is a replayed CUDA graph
+(``training.graphs``), the counterpart of the JAX package's jitted
+``_probs`` and ``_dens``: one graph per entry point and batch shape,
+captured after the first such batch ran eagerly, reading the model's
+parameters where they lie and drawing from one persistent generator that
+is re-seeded before each replay exactly as the eager batch's generator is
+seeded.  ``graphed=False`` serves eagerly; the CPU and a mesh always do.
+
 With ``mesh`` (a ``parallel.mesh.Mesh`` or a spec such as 'data=2'),
 every rank of the mesh serves the same request with the same model:
 each batch's rows split over the data ranks (and the patches or GPs over
@@ -30,6 +38,7 @@ from deepcgp_tpu_torch import config
 from deepcgp_tpu_torch.models.builder import build_model, parse_ints
 from deepcgp_tpu_torch.parallel import mesh as mesh_lib
 from deepcgp_tpu_torch.parallel import multihost, sharding
+from deepcgp_tpu_torch.training import graphs
 from deepcgp_tpu_torch.utils import checkpoint
 
 
@@ -38,7 +47,7 @@ class Predictor:
 
     def __init__(self, model, *, batch_size: int = 32, num_samples: int = 5,
                  seed: int = 0, preprocessing: dict | None = None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, graphed: bool | None = None):
         self.device = config.default_device(device)
         if isinstance(mesh, str) and mesh:
             mesh = mesh_lib.make_mesh(mesh)
@@ -59,6 +68,9 @@ class Predictor:
         # from the run's preprocessing.npz).
         self.preprocessing = preprocessing
         self._calls = 0
+        # None: graphed on a CUDA device without a mesh (graphs.use_graphs).
+        self.graphed = graphed
+        self._graphs = None
 
     @classmethod
     def from_run_dir(cls, run_dir: str, image_shape, *, dtype=None,
@@ -87,6 +99,33 @@ class Predictor:
         g = torch.Generator(device=self.device)
         g.manual_seed((self.seed << 32) + self._calls)
         return g
+
+    def _serve(self, kind: str, fn, flat, Y=None) -> list:
+        """``fn(xb, yb, generator)`` over the request's padded batches;
+        returns each batch's result gathered over the data ranks and cut
+        to its true rows.  Graphed, the batch is copied into the graph of
+        (``kind``, its shape), whose generator is seeded as
+        :meth:`_generator` seeds the eager one."""
+        outs = []
+        with sharding.mesh_context(self.mesh):
+            if not graphs.use_graphs(self.graphed, self.device,
+                                     f'Predictor.{kind}'):
+                for _, n, xb, yb in self._batches(flat, Y):
+                    out = fn(xb, yb, self._generator())
+                    outs.append(sharding.gather_rows(out)[:n])
+                return outs
+            if self._graphs is None:
+                self._graphs = graphs.GraphCache(self.device)
+            g = self._graphs.generator(kind)
+            ident = graphs.tensor_key(graphs.module_tensors(self.model))
+            for _, n, xb, yb in self._batches(flat, Y):
+                self._calls += 1
+                g.manual_seed((self.seed << 32) + self._calls)
+                key = (kind, tuple(xb.shape), self.num_samples, ident)
+                out = self._graphs.run(
+                    key, lambda x, y: fn(x, y, g), (xb, yb), (g,))
+                outs.append(out[:n].clone())
+        return outs
 
     def _prepare(self, X, raw: bool) -> np.ndarray:
         """Flatten, and standardize raw inputs with the training scaler."""
@@ -124,12 +163,9 @@ class Predictor:
     def predict_proba(self, X, raw: bool = False) -> np.ndarray:
         """[N, D or H, W, C] -> [N, K] mean class probabilities."""
         flat = self._prepare(X, raw)
-        outs = []
-        with sharding.mesh_context(self.mesh):
-            for _, n, xb, _ in self._batches(flat):
-                probs, _ = self.model.predict_y(xb, self.num_samples,
-                                                generator=self._generator())
-                outs.append(sharding.gather_rows(probs.mean(0))[:n])
+        outs = self._serve('predict_proba', lambda xb, _, g: (
+            self.model.predict_y(xb, self.num_samples, generator=g)[0]
+            .mean(0)), flat)
         self._sync()
         if not outs:
             return np.empty((0, self.model.likelihood.num_classes), np.float32)
@@ -146,15 +182,12 @@ class Predictor:
         if Y.shape[0] != flat.shape[0]:
             raise ValueError(f'X has {flat.shape[0]} rows but Y has '
                              f'{Y.shape[0]} labels')
-        outs = []
-        with sharding.mesh_context(self.mesh):
-            for _, n, xb, yb in self._batches(flat, Y.astype(np.int64)):
-                # The padding rows' sentinel -1 read as class 0: their
-                # densities are dropped.
-                dens = self.model.predict_density(
-                    xb, yb.clamp_min(0), self.num_samples,
-                    generator=self._generator())
-                outs.append(sharding.gather_rows(dens)[:n, 0])
+        # The padding rows' sentinel -1 read as class 0: their densities
+        # are dropped.
+        outs = self._serve('log_density', lambda xb, yb, g: (
+            self.model.predict_density(xb, yb.clamp_min(0), self.num_samples,
+                                       generator=g)[:, 0]),
+            flat, Y.astype(np.int64))
         self._sync()
         if not outs:
             return np.empty((0,), np.float32)

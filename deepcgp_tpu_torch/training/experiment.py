@@ -6,7 +6,11 @@ iteration chunk (``trainer.run_chunk``, no host sync inside), then logs and
 snapshots parameters (`conv_gp/experiment.py:28-31,56-64`).
 
 The training set moves to the device once; each chunk syncs once, for
-its mean ELBO, and each evaluation once, for its count.  The run writes
+its mean ELBO, and each evaluation once, for its count.  On the card
+without a mesh the chunk and the eval run as replayed CUDA graphs
+(``trainer.run_chunk``'s and ``trainer.accuracy``'s default): the chunk's
+graphs live on the TrainState, so the NatGrad warm start's new state and
+a resumed run capture afresh, and the eval's on the model.  The run writes
 its files (the TensorBoard events too, under ``<tensorboard_dir>/<name>``,
 unless ``--no-tensorboard``).
 

@@ -9,6 +9,15 @@ parameters and Adam moments as they were (the reference's
 Cholesky-failure retry); the failure stays visible as a NaN in the
 returned ELBO trace.
 
+On a CUDA device with no mesh the chunk and the eval run as replayed
+CUDA graphs (``training.graphs``), the counterpart of the JAX package's jitted
+``lax.scan`` programs: one step (index draw, gather, ``train_step``) is
+captured once per state and replayed ``num_steps`` times, each replay
+writing its ELBO into a device trace at a device-held index, so the host
+does one replay a step and nothing else.  A replay reads the state's
+tensors where they lie, so ``train_step`` writes every field of the state
+in place and no field of a ``TrainState`` is ever reassigned.
+
 Optimizers, as the reference wires them:
 
 * Adam -- Adam on everything trainable;
@@ -35,7 +44,7 @@ import dataclasses
 import torch
 
 from deepcgp_tpu_torch.parallel import multihost, sharding
-from deepcgp_tpu_torch.training import optim
+from deepcgp_tpu_torch.training import graphs, optim
 
 _VARIATIONAL = ('q_mu', 'q_sqrt')
 
@@ -63,6 +72,10 @@ class TrainState:
     # the last parameters whose ELBO was seen finite, {name: tensor}.
     steps_back: torch.Tensor | None = None
     prev: dict | None = None
+    # The graphs of the chunk (``graphs.GraphCache``), made at the first
+    # graphed ``run_chunk``; a new state captures afresh.
+    graphs: graphs.GraphCache | None = dataclasses.field(default=None,
+                                                         repr=False)
 
 
 def _natgrad_names(model) -> list:
@@ -169,8 +182,8 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
                     torch.where(ok, mu[k], state.opt_state['mu'][k]))
                 state.opt_state['nu'][k].copy_(
                     torch.where(ok, nu[k], state.opt_state['nu'][k]))
-            state.opt_state['count'] = torch.where(ok, count,
-                                                   state.opt_state['count'])
+            state.opt_state['count'].copy_(
+                torch.where(ok, count, state.opt_state['count']))
         for k, u in updates.items():
             p = state.params[k]
             new[k] = p - lr.to(p.dtype) * u
@@ -184,19 +197,51 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
             else:
                 p.copy_(torch.where(ok, new[k], p))
         if natgrad:
-            state.steps_back = torch.where(ok, state.steps_back,
-                                           state.steps_back + 1.0)
-    state.step = state.step + 1
+            state.steps_back.copy_(torch.where(ok, state.steps_back,
+                                               state.steps_back + 1.0))
+        state.step.add_(1)
     return -loss
 
 
+def _state_tensors(state: TrainState) -> list:
+    """Every tensor of the state a step reads or writes."""
+    out = graphs.module_tensors(state.model)
+    if state.opt_state:
+        out += [state.opt_state['count'], *state.opt_state['mu'].values(),
+                *state.opt_state['nu'].values()]
+    out.append(state.step)
+    if state.steps_back is not None:
+        out += [state.steps_back, *state.prev.values()]
+    return out
+
+
+# The ELBOs a step graph writes before the host copies them out.
+TRACE_BLOCK = 256
+
+
 def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
-              Y_train: torch.Tensor, num_steps: int) -> torch.Tensor:
+              Y_train: torch.Tensor, num_steps: int,
+              graphed: bool | None = None) -> torch.Tensor:
     """``num_steps`` optimizer iterations on minibatches drawn uniformly,
     with replacement, from X_train [N, D] and Y_train [N, 1] (both on the
     model's device).  Returns the ELBO trace [num_steps] on the device.
     Under NatGrad one more ELBO, on a fresh minibatch, verifies the last
     commit and rolls back to ``state.prev`` when it is non-finite.
+
+    ``graphed`` (``graphs.use_graphs``): None runs the chunk as replayed
+    CUDA graphs on a CUDA device with no active mesh, and eagerly on the
+    CPU or under a mesh (whose collectives are not captured); False runs
+    it eagerly anywhere; True runs it graphed and raises on the CPU or
+    under a mesh.  Graphed, one step is captured per state (in
+    ``state.graphs``), keyed by the config, the model's sample count and
+    the identity of X_train, Y_train and every tensor of the state; the
+    first step of the first chunk runs eagerly (a real step of the chunk)
+    before the capture, and every later step is a replay, which reads the
+    state where it lies and draws from ``state.generator`` as the eager
+    step would.  Under NatGrad the final check is a second graph.  The
+    trajectory is the eager one, step for step.  A capture that fails
+    raises: a shape whose library route cannot be captured runs only with
+    ``graphed=False``.
 
     Under a mesh X_train and Y_train are this process's
     ``multihost.process_shard`` of the resident set: every rank draws the
@@ -215,30 +260,92 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
             xb, yb = X_train[idx], Y_train[idx]
         return sharding.own_rows(xb), sharding.own_rows(yb)
 
-    elbos = [train_step(state, config, *batch()) for _ in range(num_steps)]
-    if config.optimizer == 'NatGrad':
+    @torch.no_grad()
+    def final_check():
         xb, yb = batch()
-        with torch.no_grad():
-            ok = sharding.all_ok(torch.isfinite(
-                state.model.elbo(xb, yb, generator=state.generator)))
-            for k, p in state.params.items():
-                p.copy_(torch.where(ok, p, state.prev[k]))
-    return torch.stack(elbos)
+        ok = sharding.all_ok(torch.isfinite(
+            state.model.elbo(xb, yb, generator=state.generator)))
+        for k, p in state.params.items():
+            p.copy_(torch.where(ok, p, state.prev[k]))
+
+    natgrad = config.optimizer == 'NatGrad'
+    if not graphs.use_graphs(graphed, X_train.device, 'run_chunk'):
+        elbos = [train_step(state, config, *batch())
+                 for _ in range(num_steps)]
+        if natgrad:
+            final_check()
+        return torch.stack(elbos)
+
+    if state.graphs is None:
+        state.graphs = graphs.GraphCache(X_train.device)
+    cache = state.graphs
+    device = X_train.device
+    trace = cache.buffer('trace', lambda: torch.empty(
+        TRACE_BLOCK, dtype=state.model.layers[0].q_mu.dtype, device=device))
+    pos = cache.buffer('pos', lambda: torch.zeros(1, dtype=torch.int64,
+                                                  device=device))
+
+    def step():
+        elbo = train_step(state, config, *batch())
+        trace.index_copy_(0, pos, elbo.reshape(1).to(trace.dtype))
+        pos.add_(1)
+
+    key = (config, state.model.num_samples, id(state.generator),
+           graphs.tensor_key([X_train, Y_train, trace, pos,
+                              *_state_tensors(state)]))
+    gens = (state.generator,)
+    out = []
+    for start in range(0, num_steps, TRACE_BLOCK):
+        n = min(TRACE_BLOCK, num_steps - start)
+        pos.zero_()
+        for _ in range(n):
+            cache.run(('step', key), step, generators=gens)
+        out.append(trace[:n].clone())
+    if natgrad:
+        cache.run(('final check', key), final_check, generators=gens)
+    return torch.cat(out)
 
 
-def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples):
+def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples,
+                  graphed=None):
     """(mean class probabilities [n, K], labels [n, 1], rows) per batch of
     ``batch_size`` test rows, the MC draws from one generator seeded with
-    ``seed``.  Under a data axis each batch is padded to a multiple of
-    the data size (sentinel labels -1) and each rank evaluates its rows
-    of it, with the draws of the batch's true rows
+    ``seed`` and drawn across the batches.  Under a data axis each batch
+    is padded to a multiple of the data size (sentinel labels -1) and each
+    rank evaluates its rows of it, with the draws of the batch's true rows
     (``sharding.true_rows``), so that they are the single-process ones;
-    ``rows`` is the batch's count before the padding."""
+    ``rows`` is the batch's count before the padding.
+
+    Graphed (``graphs.use_graphs``: by default on a CUDA device with no
+    active mesh), each batch shape -- the full batch, and the last partial
+    one if there is one -- is one graph of ``predict_y`` and its mean over
+    the draws, in the model's graph cache (``graphs.model_cache``): a
+    batch is copied into the graph's static input and the graph replayed,
+    the first batch of a shape run eagerly before its capture.  Both
+    graphs draw from one generator of the cache, seeded with ``seed``
+    before the first batch, so the draws are the eager ones.  The
+    probabilities yielded are then the graph's static output, valid until
+    the next batch."""
     device = model.layers[0].Z.device
     dtype = model.layers[0].Z.dtype
     X = torch.as_tensor(X_test, device=device)
     X = X.reshape(X.shape[0], -1).to(dtype)
     Y = torch.as_tensor(Y_test, device=device).reshape(-1, 1)
+    if graphs.use_graphs(graphed, device, 'the eval'):
+        cache = graphs.model_cache(model)
+        g = cache.generator('eval')
+        g.manual_seed(seed)
+        ident = graphs.tensor_key(graphs.module_tensors(model))
+
+        def mean_probs(xb):
+            return model.predict_y(xb, num_samples, generator=g)[0].mean(0)
+
+        for start in range(0, X.shape[0], batch_size):
+            xb = X[start:start + batch_size]
+            key = ('eval', tuple(xb.shape), num_samples, ident)
+            probs = cache.run(key, mean_probs, (xb,), (g,))
+            yield probs, Y[start:start + batch_size], xb.shape[0]
+        return
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     for start in range(0, X.shape[0], batch_size):
@@ -252,14 +359,15 @@ def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples):
 
 @torch.no_grad()
 def correct_count(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
-                  num_samples: int = 5) -> torch.Tensor:
+                  num_samples: int = 5, graphed: bool | None = None
+                  ) -> torch.Tensor:
     """The number of test rows whose argmax class is their label, a device
     int64 (see :func:`accuracy`); under a data axis each rank counts its
     rows and the count is summed over the data group."""
     correct = torch.zeros((), dtype=torch.int64,
                           device=model.layers[0].Z.device)
     for probs, yb, _ in _eval_batches(model, X_test, Y_test, seed,
-                                      batch_size, num_samples):
+                                      batch_size, num_samples, graphed):
         correct += (probs.argmax(1)[:, None] == yb).sum()
     (correct,) = sharding.sum_over_data([correct])
     return correct
@@ -267,25 +375,28 @@ def correct_count(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
 
 @torch.no_grad()
 def predict_probs(model, X_test, seed: int = 0, batch_size: int = 32,
-                  num_samples: int = 5) -> torch.Tensor:
+                  num_samples: int = 5, graphed: bool | None = None
+                  ) -> torch.Tensor:
     """[N, K] mean class probabilities of every test row, batched and
     drawn as :func:`accuracy` does; under a data axis the rows are
     gathered, so every rank returns all of them."""
     labels = torch.zeros((X_test.shape[0], 1), dtype=torch.int64)
-    return torch.cat([sharding.gather_rows(probs)[:rows]
+    return torch.cat([sharding.gather_rows(probs)[:rows].clone()
                       for probs, _, rows in _eval_batches(
                           model, X_test, labels, seed, batch_size,
-                          num_samples)])
+                          num_samples, graphed)])
 
 
 @torch.no_grad()
 def accuracy(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
-             num_samples: int = 5) -> float:
+             num_samples: int = 5, graphed: bool | None = None) -> float:
     """Test accuracy: per batch of ``batch_size``, the mean class
     probability over ``num_samples`` MC draws, argmax, fraction correct.
     ``X_test`` [N, ...] and ``Y_test`` [N(, 1)] are arrays or tensors; a
     tensor already on the model's device is used where it lies.  One host
-    sync, for the count."""
+    sync, for the count.  ``graphed`` as in :func:`_eval_batches`: by
+    default replayed graphs on a CUDA device with no active mesh, eager
+    on the CPU or under a mesh."""
     correct = correct_count(model, X_test, Y_test, seed, batch_size,
-                            num_samples)
+                            num_samples, graphed)
     return float(correct) / torch.as_tensor(Y_test).numel()

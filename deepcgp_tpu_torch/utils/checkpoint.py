@@ -156,7 +156,10 @@ def restore_train_state(directory: str, state):
     """Restore the newest full snapshot into ``state`` (a freshly built
     TrainState of the same model, optimizer and device), in place, and
     return it.  Each tensor is copied into the state's own, so a moment
-    stored in another dtype is cast to the state's."""
+    stored in another dtype is cast to the state's, and every tensor keeps
+    its storage: the state's captured graphs (``state.graphs``) read the
+    restored values.  The generator's state is set in place too, which a
+    generator registered with those graphs takes at its next replay."""
     step = latest_train_state_step(directory)
     if step is None:
         raise FileNotFoundError(f'no state_*.pt snapshots under {directory}')
@@ -171,11 +174,11 @@ def restore_train_state(directory: str, state):
     elif opt:
         raise ValueError('the snapshot holds optimizer moments the state '
                          'has no place for')
-    state.step = saved['step'].to(state.step.device)
+    state.step.copy_(saved['step'])
     if (saved['steps_back'] is None) != (state.steps_back is None):
         raise ValueError('the snapshot and the state differ in optimizer')
     if state.steps_back is not None:
-        state.steps_back = saved['steps_back'].to(state.steps_back.device)
+        state.steps_back.copy_(saved['steps_back'])
         _copy_into(state.prev, saved['prev'], 'NatGrad prev')
     state.generator.set_state(saved['generator'])
     return state

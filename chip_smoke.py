@@ -106,6 +106,18 @@ feature maps 1 and 2; each parity script refused without its data, then
 on learnable blobs written in the reference's file layout); and the
 digits probe on the real UCI scans, its held-out accuracy gated.
 
+Last, the measurement tools (``deepcgp_tpu_torch/tools``): the roofline
+of a graphed chunk of 50 flagship Adam and of 50 M=1024 NatGrad steps,
+each ``python -m deepcgp_tpu_torch.tools.roofline`` in a process of its
+own (its buckets held to the profiler's device total, its K buckets to the
+launch counters, 'other' to at most 5% of the time, every replayed step
+joined to the eager step), the flagship's bytes audit (the hand kernels'
+bytes at PERF.md's formulas), the flagship NatGrad soak cut to 1000 steps
+and the digits NatGrad sweep cut to Adam and gamma0 0.01 at 1000 steps.
+The compiled chunk's bit-equality holds, besides the seven paths of its
+introduction, the ArcCosine + identity-mean model (NatGrad and Adam) and
+the partial view (Adam), and it runs each path eager twice.
+
 Each path is checked to have gone through the kernels (launch counters)
 and to agree with the same model on the CPU.  Each phase prints one JSON
 line; any failed check raises, so the script exits non-zero and prints no
@@ -367,7 +379,8 @@ def kernel_ms(torch, fn, kernel: str, iters: int = 50,
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages() if kernel in e.key
-                and e.device_type == torch.autograd.DeviceType.CUDA]
+                and e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, 'is_user_annotation', False)]
         check(len(hits) <= 1 and sum(e.count for e in hits) <= iters,
               f'profiler saw {[(e.key, e.count) for e in hits]} for '
               f'{iters} launches of {kernel}')
@@ -381,57 +394,15 @@ def kernel_ms(torch, fn, kernel: str, iters: int = 50,
                        f'of {rounds * iters} launches of {kernel}')
 
 
-# The device kernels each launch counter counts, by name in the profiler.
-KERNEL_NAMES = {'chol_inv_base': ('chol_factor_cluster_kernel',),
-                'chol_inv_base_upper': ('chol_upper_cluster_kernel',),
-                'tri_inv_base': ('tri_inv_strip_kernel',),
-                'conv_rbf_cross': ('conv_rbf_cross_kernel',),
-                'conv_rbf_cross_bwd': ('bwd_image_kernel', 'bwd_z_kernel'),
-                'extract_patches_transposed': ('extract_transposed_kernel',),
-                'col2im_transposed': ('col2im_transposed_kernel',)}
-PROFILE_ROUNDS = 4
-
-
 def profile_device(torch, fn, reset_counts, read_counts):
     """Run fn() under the profiler: (wall ms, device busy ms, the 12
-    device entries with the most time as [name, count, ms], rounds).
-
-    The profiler may lose a round's device events, and the busy time would
-    then read low.  So each round's launches of the port's kernels, as the
-    profiler recorded them, are held against the launch counters for the
-    same calls: a round that recorded fewer is profiled again, up to
-    PROFILE_ROUNDS; more (another kernel matched) or every round short
-    fails."""
-    from torch.profiler import ProfilerActivity, profile
-    recorded = {}
-    for rounds in range(1, PROFILE_ROUNDS + 1):
-        reset_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        made = read_counts()
-        # Device-side entries only (kernels, copies): an operator's entry
-        # repeats the time of the kernels it launched.
-        device = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        recorded = {name: sum(e.count for e in device
-                              if any(k in e.key for k in KERNEL_NAMES[name]))
-                    for name in made}
-        check(all(recorded[n] <= made[n] for n in made),
-              f'profiler recorded {recorded} for launches {made}')
-        if recorded == made:
-            events = [e for e in device if e.self_device_time_total > 0]
-            busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-            top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-            return wall_ms, busy_ms, [[e.key[:90], e.count,
-                                       e.self_device_time_total / 1e3]
-                                      for e in top], rounds
-    raise RuntimeError(f'chip_smoke check failed: in {PROFILE_ROUNDS} '
-                       f'profiled rounds the profiler recorded {recorded} '
-                       f'of launches {made}')
+    device entries with the most time as [name, count, ms], rounds), from
+    a round whose recorded launches of the port's kernels match the launch
+    counters (``utils.profiling.profile_device``: the profiler may lose a
+    round's device events, so a short round is profiled again, up to
+    ``PROFILE_ROUNDS``; more, or every round short, fails)."""
+    from deepcgp_tpu_torch.utils import profiling
+    return profiling.profile_device(fn, reset_counts, read_counts)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -2675,11 +2646,12 @@ def diagnostics_phase(torch, card: dict, exp, seed: int, root: str,
     trace_bytes = os.path.getsize(os.path.join(trace_dir, name))
     with open(os.path.join(trace_dir, name)) as f:
         names = {e.get('name', '') for e in json.load(f)['traceEvents']}
-    kernels = {k: any(any(n in e for n in KERNEL_NAMES[k]) for e in names)
+    kernels = {k: any(any(n in e for n in profiling.KERNEL_NAMES[k])
+                      for e in names)
                for k in ('chol_inv_base', 'tri_inv_base', 'conv_rbf_cross',
                          'conv_rbf_cross_bwd')}
     bwd_sides = {n: any(n in e for e in names)
-                 for n in KERNEL_NAMES['conv_rbf_cross_bwd']}
+                 for n in profiling.KERNEL_NAMES['conv_rbf_cross_bwd']}
     t = time.perf_counter()
     robust = inspect.noise_robustness(model, exp.X_test_dev, exp.Y_test_dev)
     robust_s = time.perf_counter() - t
@@ -3335,18 +3307,185 @@ def digits_phase(torch, card: dict, root: str, reset_counts,
     return total
 
 
+# The measurement tools (deepcgp_tpu_torch/tools): the roofline of a
+# graphed chunk of ROOFLINE_STEPS flagship Adam and M=1024 NatGrad steps
+# (the buckets hold the profiler's device total to ROOFLINE_TOTAL_RTOL,
+# the K buckets the launch counters, 'other' at most ROOFLINE_OTHER_MAX of
+# the time, every replayed step joined to the eager one), the flagship's
+# bytes audit (the hand kernels' rows at PERF.md's formulas), the flagship
+# NatGrad soak cut to SOAK_STEPS in chunks of SOAK_CHUNK, and the digits
+# NatGrad sweep cut to DIGITS_SWEEP at DIGITS_SWEEP_STEPS.
+ROOFLINE_STEPS, ROOFLINE_TOTAL_RTOL, ROOFLINE_OTHER_MAX = 50, 1e-3, 0.05
+ROOFLINE_TIMEOUT_S = 300
+ROOFLINE_PATHS = (('flagship adam', 'flagship'),
+                  ('m1024 natgrad', 'm1024-natgrad'))
+SOAK_STEPS, SOAK_CHUNK = 1000, 500
+DIGITS_SWEEP, DIGITS_SWEEP_STEPS = ('adam', 'ng-g1e-2'), 1000
+
+
+def roofline_phase(torch, card: dict, label: str, config: str, root: str):
+    """``python -m deepcgp_tpu_torch.tools.roofline`` on one configuration,
+    as a user runs it, in a process of its own: build, the reference step
+    (its capture), ROOFLINE_STEPS warm steps, a steady chunk, a traced
+    chunk.  Its launches are that process's counters, reset and read
+    around the traced chunk.  Returns (the roofline, the saved meta) as
+    the process saved them."""
+    from deepcgp_tpu_torch.tools import roofline
+    trace_dir = os.path.join(root, config)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'deepcgp_tpu_torch.tools.roofline', '--config',
+         config, '--steps', str(ROOFLINE_STEPS), '--trace-dir', trace_dir],
+        capture_output=True, text=True, timeout=ROOFLINE_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f'roofline {label}: exit {proc.returncode}: '
+          f'{proc.stderr[-3000:]}')
+    result = roofline.read_result(trace_dir)
+    meta = roofline.read_meta(trace_dir)
+    steps, total = result.steps, result.total_us
+    other = result.buckets.get('other', 0.0) / total
+    counts = {name: result.counts.get(bucket, 0)
+              for name, bucket in roofline.K_BUCKETS.items()}
+    emit({'phase': f'roofline {label}', **card, 'config': config,
+          'steps': steps, 'seconds': seconds,
+          'steps_per_s': result.steps_per_s,
+          'device_ms_per_step': total / steps / 1e3,
+          'profiler_device_ms_per_step': result.device_total_us / steps / 1e3,
+          'buckets_ms_per_step': {b: us / steps / 1e3 for b, us in sorted(
+              result.buckets.items(), key=lambda kv: -kv[1])},
+          'bucket_launches': result.counts,
+          'sources_ms_per_step': {b: {d: us / steps / 1e3 for d, us in v.items()}
+                                  for b, v in result.sources.items()},
+          'other_share': other, 'joined_steps': result.joined_steps,
+          'step_events': result.step_events, 'launches': result.launches,
+          'profile_rounds': result.rounds,
+          'top_kernels_ms_per_step': [
+              [n[:90], us / steps / 1e3] for n, us in sorted(
+                  result.per_name.items(), key=lambda kv: -kv[1])[:12]],
+          'tolerance': f'buckets = profiler device total within '
+                       f'{ROOFLINE_TOTAL_RTOL}; K buckets = launch counters; '
+                       f'other <= {ROOFLINE_OTHER_MAX}; every step joined'})
+    check(abs(total - result.device_total_us)
+          <= ROOFLINE_TOTAL_RTOL * result.device_total_us,
+          f'roofline {label}: buckets {total} us, profiler '
+          f'{result.device_total_us} us')
+    check(counts == result.launches, f'roofline {label}: K buckets {counts}, '
+          f'launches {result.launches}')
+    check(other <= ROOFLINE_OTHER_MAX, f'roofline {label}: other {other}')
+    check(result.joined_steps == steps, f'roofline {label}: joined '
+          f'{result.joined_steps} of {steps} steps')
+    return result, meta
+
+
+def bytes_phase(torch, card: dict, label: str, result, meta) -> None:
+    """``tools.bytes_audit`` on a roofline's traces: MB a step against the
+    model-minimal traffic; each hand kernel's bytes at PERF.md's formula
+    where it has one."""
+    from deepcgp_tpu_torch.tools import bytes_audit, roofline
+    audit = bytes_audit.audit(result, roofline.parse_trace(meta['reference']),
+                              meta)
+    hand = [{'kernel': name, 'bytes': b, 'formula_bytes': formula,
+             'shapes': shapes} for name, b, formula, shapes in audit.hand]
+    emit({'phase': f'bytes {label}', **card,
+          'us_per_step': audit.us_step, 'mb_per_step': audit.mb_step,
+          'min_mb_per_step': audit.min_bytes / 1e6,
+          'ratio_to_min': audit.mb_step * 1e6 / audit.min_bytes,
+          'program_tb_per_s': audit.mb_step / audit.us_step,
+          'inputs_from_dispatch_log': audit.fallback,
+          'events_unowned': audit.unmatched, 'hand_kernels': hand,
+          'tolerance': "each hand kernel's bytes equal PERF.md's formula "
+                       "where it has one (K1, K2, K3, K6, K7)"})
+    check(hand and all(h['formula_bytes'] in (None, h['bytes'])
+                       for h in hand), f'bytes {label}: {hand}')
+    check(audit.mb_step > 0, f'bytes {label}: no bytes')
+
+
+def soak_phase(torch, card: dict, reset_counts, read_counts) -> dict:
+    """``tools.soak`` on the flagship with NatGrad, cut to SOAK_STEPS in
+    SOAK_CHUNK-step chunks, gated SOAK OK, with its exact launches."""
+    from deepcgp_tpu_torch.tools import soak
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        model, X, Y = soak.build('flagship', 0, 'cuda')
+        reset_counts()
+        t = time.perf_counter()
+        result = soak.soak(model, X, Y, 'flagship', 'NatGrad', TRAIN_BATCH,
+                           SOAK_STEPS, SOAK_CHUNK)
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    chunks = -(-SOAK_STEPS // SOAK_CHUNK)
+    want = expected_launches((SOAK_STEPS, NATGRAD_PER_STEP['flagship']),
+                             (chunks, NATGRAD_PER_CHUNK['flagship']),
+                             (-(-len(X) // 128), EVAL_PER_BATCH['flagship']))
+    emit({'phase': 'soak flagship natgrad', **card, 'steps': SOAK_STEPS,
+          'chunk': SOAK_CHUNK, 'seconds': seconds,
+          'printed': out.getvalue().splitlines(), 'ok': result['ok'],
+          'nan_steps': result['nan_steps'], 'steps_back': result['steps_back'],
+          'train_accuracy': result['train_accuracy'],
+          'steps_per_s': result['steps_per_s'],
+          'elbo_first': float(result['elbos'][0]),
+          'elbo_last': float(result['elbos'][-1]), 'launches': launches,
+          'expected_launches': want,
+          'gate': "SOAK OK: no NaN step, steps_back 0, the last ELBO finite"})
+    check(result['ok'], f'soak: {out.getvalue()}')
+    check(launches == want, f'soak: launches {launches}, expected {want}')
+    return launches
+
+
+def digits_sweep_phase(torch, card: dict, reset_counts, read_counts) -> dict:
+    """``tools.natgrad_digits`` cut to DIGITS_SWEEP at DIGITS_SWEEP_STEPS:
+    exit code 0, its JSON printed, exact launches."""
+    from deepcgp_tpu_torch.tools import natgrad_digits
+    reset_counts()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = natgrad_digits.main(['--steps', str(DIGITS_SWEEP_STEPS),
+                                  '--only', ','.join(DIGITS_SWEEP)])
+    seconds = time.perf_counter() - t
+    launches = read_counts()
+    records = json.loads(out.getvalue())
+    evals = DIGITS_SWEEP_STEPS // 500
+    batches = evals * -(-359 // 128)
+    want = expected_launches(
+        (DIGITS_SWEEP_STEPS, ADAM_PER_STEP['flagship']),
+        (DIGITS_SWEEP_STEPS, NATGRAD_PER_STEP['flagship']),
+        (evals, NATGRAD_PER_CHUNK['flagship']),
+        (2 * batches, EVAL_PER_BATCH['flagship']))
+    emit({'phase': 'natgrad digits', **card, 'only': list(DIGITS_SWEEP),
+          'steps': DIGITS_SWEEP_STEPS, 'seconds': seconds, 'exit_code': rc,
+          'results': records, 'launches': launches,
+          'expected_launches': want})
+    check(rc == 0 and [r['tag'] for r in records] == list(DIGITS_SWEEP),
+          f'natgrad digits: exit {rc}, {records}')
+    check(launches == want, f'natgrad digits: launches {launches}, '
+          f'expected {want}')
+    return launches
+
+
+def tool_phases(torch, card: dict, reset_counts, read_counts) -> dict:
+    """The four measurement tools on the card; returns each path's
+    launches."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label, config in ROOFLINE_PATHS:
+            result, meta = roofline_phase(torch, card, label, config, root)
+            paths[f'roofline {label}'] = result.launches
+            if label == 'flagship adam':
+                bytes_phase(torch, card, label, result, meta)
+    paths['soak flagship natgrad'] = soak_phase(torch, card, reset_counts,
+                                                read_counts)
+    paths['natgrad digits'] = digits_sweep_phase(torch, card, reset_counts,
+                                                 read_counts)
+    return paths
+
+
 def kernel_counters() -> dict:
     """Every kernel wrapper, by its COUNTERS name; each counts its
     launches in ``.launches``."""
-    from deepcgp_tpu_torch.ops import cuda_cross, cuda_linalg, cuda_patches
-    return {'chol_inv_base': cuda_linalg.chol_inv_base,
-            'chol_inv_base_upper': cuda_linalg.chol_inv_base_upper,
-            'tri_inv_base': cuda_linalg.tri_inv_base,
-            'conv_rbf_cross': cuda_cross.conv_rbf_cross,
-            'conv_rbf_cross_bwd': cuda_cross.conv_rbf_cross_bwd,
-            'extract_patches_transposed':
-                cuda_patches.extract_patches_transposed,
-            'col2im_transposed': cuda_patches.col2im_transposed}
+    from deepcgp_tpu_torch.utils import profiling
+    return profiling.kernel_counters()
 
 
 # -- the mesh: the port's torch.distributed layer on the card ---------------
@@ -3698,10 +3837,15 @@ def mesh_phases(torch, card: dict, seed: int, reset_counts,
 # paths.  GRAPH_AB_STEPS steps a chunk after GRAPH_AB_WARM eager steps;
 # windows of GRAPH_WINDOW_SECONDS; GRAPH_PROFILE_STEPS steps profiled.
 GRAPH_AB_STEPS, GRAPH_AB_WARM = 6, 2
-GRAPH_WINDOW_SECONDS, GRAPH_PROFILE_STEPS = 2.0, 16
+# The chunks of a path's bit-equality, in order, each from one snapshot.
+GRAPH_AB_MODES = ('graphed', 'eager', 'replayed', 'eager again')
+GRAPH_WINDOW_SECONDS, GRAPH_PROFILE_STEPS = 1.0, 16
 DEEP3 = dict(M='384,384,384', feature_maps='10,10', filter_sizes='5,3,3',
              strides='2,1,1', base_kernel='rbf', last_kernel='conv',
              white=False, identity_mean=True)
+# cli cifar acos identity's model: the flagship's geometry, an order-0
+# ArcCosine hidden layer and the identity mean.
+ACOS_FLAGS = dict(FLAGSHIP, base_kernel='acos', identity_mean=True)
 # (label, flags, image, batch, optimizer, per-step launches, per-chunk
 # launches, parameters loaded into the build).
 GRAPH_PATHS = (
@@ -3718,17 +3862,32 @@ GRAPH_PATHS = (
     ('fm32 adam', FM32, IMAGE, TRAIN_BATCH, 'Adam', UNFUSED_PER_STEP['fm32'],
      {}, {1: {'base_kernel/lengthscales': LENGTHSCALES[1]}}),
     ('deep3 adam', DEEP3, IMAGE, TRAIN_BATCH, 'Adam', ADAM_PER_STEP['deep3'],
-     {}, None))
+     {}, None),
+    # The paths whose bits show the order of K5's gram row sums (ROADMAP
+    # C7): cli cifar acos identity's model and the partial view (a builder
+    # of its own).
+    ('acos identity natgrad', ACOS_FLAGS, IMAGE, TRAIN_BATCH, 'NatGrad',
+     NATGRAD_PER_STEP['flagship'], NATGRAD_PER_CHUNK['flagship'], None),
+    ('acos identity adam', ACOS_FLAGS, IMAGE, TRAIN_BATCH, 'Adam',
+     ADAM_PER_STEP['flagship'], {}, None),
+    ('partial view adam', 'partial view', PV_IMAGE, TRAIN_BATCH, 'Adam',
+     PV_PER_STEP, {}, None))
+# Their data come from a generator of their own, so that every earlier
+# check keeps its inputs.
+GRAPH_C7 = ('acos identity natgrad', 'acos identity adam', 'partial view adam')
 GRAPH_TIMED = ('flagship adam', 'flagship natgrad', 'm1024 natgrad')
 
 
 def graph_build(torch, label, flags, image, loaded, seed, rng, dev):
     from deepcgp_tpu_torch.models import builder as mbuilder
     X, Y = learnable_data(rng, image)
-    model = mbuilder.build_model(
-        types.SimpleNamespace(**flags, num_samples=TRAIN_SAMPLES), image,
-        loaded, images=X, generator=torch.Generator().manual_seed(seed),
-        device=dev)
+    if flags == 'partial view':
+        model = partial_view_model(torch, X, seed, dev)
+    else:
+        model = mbuilder.build_model(
+            types.SimpleNamespace(**flags, num_samples=TRAIN_SAMPLES), image,
+            loaded, images=X, generator=torch.Generator().manual_seed(seed),
+            device=dev)
     Xd = torch.as_tensor(X.reshape(len(X), -1), device=dev)
     Yd = torch.as_tensor(Y, device=dev)
     return model, Xd, Yd
@@ -3737,8 +3896,9 @@ def graph_build(torch, label, flags, image, loaded, seed, rng, dev):
 def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
                    per_chunk, seed, card, reset_counts, read_counts):
     """The bit-equality of one training path: from one snapshot, chunks
-    run graphed (capturing), eager and graphed again (replays only).
-    Returns (state, config, the replayed chunk's launches)."""
+    run graphed (capturing), eager, graphed again (replays only) and eager
+    again, each held against the first eager chunk.  Returns (state,
+    config, the replayed chunk's launches)."""
     from deepcgp_tpu_torch.training import trainer
     # Plain SGD steps on the raw gradients: lr 1e-4, as the CPU tests take.
     config = trainer.TrainConfig(optimizer=optimizer, batch_size=batch,
@@ -3748,14 +3908,14 @@ def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
     trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_WARM, graphed=False)
     snap = state_values(state)
     runs = {}
-    for mode in ('graphed', 'eager', 'replayed'):
+    for mode in GRAPH_AB_MODES:
         restore_values(torch, state, snap)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t = time.perf_counter()
         trace = trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_STEPS,
-                                  graphed=mode != 'eager')
+                                  graphed=mode in ('graphed', 'replayed'))
         torch.cuda.synchronize()
         runs[mode] = {'seconds': time.perf_counter() - t,
                       'trace': trace.clone(), 'state': state_values(state),
@@ -3767,7 +3927,7 @@ def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
                                       {'trace': eager['trace']}),
                     'state': bit_diff(torch, runs[mode]['state'],
                                       eager['state'])}
-             for mode in ('graphed', 'replayed')}
+             for mode in GRAPH_AB_MODES if mode != 'eager'}
     same = {mode: not d['trace'] and not d['state']
             for mode, d in diffs.items()}
     cache = state.graphs
@@ -3905,11 +4065,12 @@ def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
     from deepcgp_tpu_torch.serving import Predictor
     from deepcgp_tpu_torch.training import trainer
     rng = np.random.RandomState(seed + 6)
+    c7_rng = np.random.RandomState(seed + 7)
     launches, timed = {}, {}
     for label, flags, image, batch, optimizer, per_step, per_chunk, loaded \
             in GRAPH_PATHS:
         model, Xd, Yd = graph_build(torch, label, flags, image, loaded, seed,
-                                    rng, dev)
+                                    c7_rng if label in GRAPH_C7 else rng, dev)
         state, config, launches[f'graph {label}'] = graph_ab_chunk(
             torch, label, model, optimizer, batch, Xd, Yd, per_step,
             per_chunk, seed, card, reset_counts, read_counts)
@@ -4576,6 +4737,8 @@ def main() -> int:
     flops_phase(torch, dev, card, flop_readings)
     path_launches.update(example_phases(torch, card, args.seed, reset_counts,
                                         read_counts))
+    # -- the measurement tools: roofline, bytes audit, soak, digits sweep --
+    path_launches.update(tool_phases(torch, card, reset_counts, read_counts))
 
     for k in kernels:
         k['launches_by_path'] = {path: n[k['name']]

@@ -50,7 +50,9 @@
 //     to device memory (17.7 MB at the flagship) and accumulates its part
 //     of T Z in registers.  The image's gram is dealt out too: each block
 //     takes the pairs p <= q whose index in the upper triangle is its rank
-//     mod S (S is symmetric, so a pair gives both entries) and adds
+//     mod S (S is symmetric, so a pair gives both entries of E; then a
+//     warp takes a row, a lane a column, and sums the row's w_q Kd[p, q]
+//     in a fixed order, not by atomics) and adds
 //     2 S_own patches to its part, so the parts sum to T Z + 2 S patches
 //     and no block needs another's S.  At the flagship: 960 blocks of 10
 //     warps, ~103 KB of shared memory and at most 102 registers, so two
@@ -328,8 +330,8 @@ __global__ void __launch_bounds__(WIDE ? 512 : 320, WIDE ? 1 : 2)
   if (with_kdiag) {
     // This rank's share of the image's gram: the pairs p <= q whose
     // index t in the upper triangle, row by row, has t mod S == rank.
-    // E, Kd and S are symmetric (E[p,q] and E[q,p] are the same sums term
-    // for term), so each pair gives both entries.
+    // E is symmetric (E[p,q] and E[q,p] are the same sums term for term),
+    // so each pair's thread writes both entries of E into SS.
     for (int t = tid * S + rank; t < P * (P + 1) / 2; t += blockDim.x * S) {
       int p = 0, q = t;
       while (q >= P - p) {
@@ -340,17 +342,33 @@ __global__ void __launch_bounds__(WIDE ? 512 : 320, WIDE ? 1 : 2)
       float gr = 0.0f;
       for (int l = 0; l < L; ++l) gr += PsT[l * Ppad + p] * PsT[l * Ppad + q];
       const float e = pn[p] + pn[q] - 2.0f * gr;
-      const float eh = fmaxf(e, 0.0f);
-      const float kd = var * expf(gamma * eh);
-      const float base = dd * wkd[p] * wkd[q] * inv_p2 * kd;
-      const float both = p == q ? base : 2.0f * base;
-      dvar_acc += both;
-      dgam_acc += both * eh;
-      const float sv = e > 0.0f ? base * gamma : 0.0f;
-      SS[p * Sp + q] = sv;
-      SS[q * Sp + p] = sv;
-      atomicAdd(&dws[p], wkd[q] * kd);
-      if (p != q) atomicAdd(&dws[q], wkd[p] * kd);
+      SS[p * Sp + q] = e;
+      SS[q * Sp + p] = e;
+    }
+    __syncthreads();
+    // Then a warp takes a row p, a lane the columns q of the row's own
+    // entries: Kd, the gram terms of dvar and dgamma, S in place of E, and
+    // the row sum dws[p] = sum_q w_q Kd[p, q] as the lanes' sums in column
+    // order and a butterfly -- an order fixed by the geometry, so the
+    // patch-weight gradient has the same bits run to run, as atomics,
+    // which add in the order the threads arrive, would not.
+    for (int p = w; p < P; p += nwarps) {
+      float ws = 0.0f;
+      for (int q = lane; q < P; q += 32) {
+        const int a = min(p, q), b = max(p, q);
+        if ((a * P - a * (a - 1) / 2 + b - a) % S != rank) continue;
+        const float e = SS[p * Sp + q];
+        const float eh = fmaxf(e, 0.0f);
+        const float kd = var * expf(gamma * eh);
+        // w_p w_q first, so that both entries of a pair get the same bits.
+        const float base = dd * (wkd[p] * wkd[q]) * inv_p2 * kd;
+        dvar_acc += base;
+        dgam_acc += base * eh;
+        SS[p * Sp + q] = e > 0.0f ? base * gamma : 0.0f;
+        ws += wkd[q] * kd;
+      }
+      ws = warp_sum(ws);
+      if (lane == 0) dws[p] = ws;
     }
   }
 

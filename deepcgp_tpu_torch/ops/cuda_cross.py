@@ -23,12 +23,14 @@ tests; nothing on a model's path calls them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from deepcgp_tpu_torch.ops import cuda_build
 from deepcgp_tpu_torch.ops.patches import extract_patches, out_size, pixel_index
+from deepcgp_tpu_torch.utils import profiling
 
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
@@ -278,8 +280,11 @@ def bwd_dz_3xtf32(NHWC_X, Z, variance, gamma, u, filter_size, stride,
 # it writes Z without bumping Z._version.  So while the current stream is
 # capturing, the copy is built inside the captured region on every call
 # and kept out of the cache, and every replay empties the cache
-# (:func:`drop_padded_copies`, called by ``training.graphs``).
+# (:func:`drop_padded_copies`, called by ``training.graphs``).  The eager
+# run that precedes a capture builds them the same way
+# (:func:`built_every_call`), so that it launches what the replays do.
 _pad_cache: dict = {}
+_EVERY_CALL: list = []
 
 
 def drop_padded_copies() -> None:
@@ -288,8 +293,20 @@ def drop_padded_copies() -> None:
     _pad_cache.clear()
 
 
+@contextlib.contextmanager
+def built_every_call():
+    """Inside the block every padded copy is built on each call and none
+    is cached, as while a graph is captured."""
+    _EVERY_CALL.append(True)
+    try:
+        yield
+    finally:
+        _EVERY_CALL.pop()
+
+
 def _cached(kind, Z, build):
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    if _EVERY_CALL or (torch.cuda.is_available()
+                       and torch.cuda.is_current_stream_capturing()):
         return build(Z)
     hit = _pad_cache.get(kind)
     if hit is not None and hit[0] is Z and hit[1] == Z._version:
@@ -356,12 +373,14 @@ def _launch(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(Z.device).cuda_stream
     P = u.shape[0]
-    cuda_build.check(fn(NHWC_X.data_ptr(), Zp.data_ptr(), scal.data_ptr(),
-                        u.data_ptr(), wkd.data_ptr(), kzx.data_ptr(),
-                        kd.data_ptr(), N, H, W, C, filter_size, stride,
-                        dilation, M, Mpad, Lpad, fwd_group(P),
-                        int(with_kdiag), stream),
-                     'conv_rbf_cross')
+    with profiling.launch('conv_rbf_cross', (NHWC_X, Zp, scal, u, wkd),
+                          (kzx, kd)):
+        cuda_build.check(fn(NHWC_X.data_ptr(), Zp.data_ptr(),
+                            scal.data_ptr(), u.data_ptr(), wkd.data_ptr(),
+                            kzx.data_ptr(), kd.data_ptr(), N, H, W, C,
+                            filter_size, stride, dilation, M, Mpad, Lpad,
+                            fwd_group(P), int(with_kdiag), stream),
+                         'conv_rbf_cross')
     conv_rbf_cross.launches += 1
     return kzx, kd
 
@@ -423,23 +442,28 @@ def _launch_bwd(NHWC_X, Z, scal, u, wkd, filter_size, stride, dilation,
     image = cuda_build.function(
         'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_image',
         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    cuda_build.check(image(NHWC_X.data_ptr(), Zt.data_ptr(), Zp.data_ptr(),
-                           zn.data_ptr(), scal.data_ptr(), u.data_ptr(), wkd.data_ptr(),
-                           dkzx.data_ptr(), dkd.data_ptr(), T.data_ptr(),
-                           part.data_ptr(), dimg.data_ptr(), N, H, W, C,
-                           filter_size, stride, dilation, M, Mpad,
-                           int(with_kdiag), stream),
-                     'conv_rbf_cross_bwd_image')
+    with profiling.launch('conv_rbf_cross_bwd_image',
+                          (NHWC_X, Zt, Zp, zn, scal, u, wkd, dkzx, dkd),
+                          (T, part, dimg)):
+        cuda_build.check(image(NHWC_X.data_ptr(), Zt.data_ptr(),
+                               Zp.data_ptr(), zn.data_ptr(), scal.data_ptr(),
+                               u.data_ptr(), wkd.data_ptr(), dkzx.data_ptr(),
+                               dkd.data_ptr(), T.data_ptr(), part.data_ptr(),
+                               dimg.data_ptr(), N, H, W, C, filter_size,
+                               stride, dilation, M, Mpad, int(with_kdiag),
+                               stream),
+                         'conv_rbf_cross_bwd_image')
     conv_rbf_cross_bwd.launches += 1
     cluster = z_side_cluster(
         N, P, M, L, torch.cuda.get_device_properties(dev).multi_processor_count)
     zside = cuda_build.function(
         'conv_rbf_cross_bwd', 'conv_rbf_cross_bwd_z',
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    cuda_build.check(zside(NHWC_X.data_ptr(), Z.data_ptr(), T.data_ptr(),
-                           dZ.data_ptr(), N, H, W, C, filter_size, stride,
-                           dilation, M, Mpad, cluster, stream),
-                     'conv_rbf_cross_bwd_z')
+    with profiling.launch('conv_rbf_cross_bwd_z', (NHWC_X, Z, T), (dZ,)):
+        cuda_build.check(zside(NHWC_X.data_ptr(), Z.data_ptr(), T.data_ptr(),
+                               dZ.data_ptr(), N, H, W, C, filter_size, stride,
+                               dilation, M, Mpad, cluster, stream),
+                         'conv_rbf_cross_bwd_z')
     conv_rbf_cross_bwd.launches += 1
     dvar, dgamma, du, dwkd = sum_bwd_partials(part, P)
     return dimg, dZ, dvar, dgamma, du, dwkd

@@ -42,6 +42,7 @@ import ctypes
 import torch
 
 from deepcgp_tpu_torch.ops import cuda_build
+from deepcgp_tpu_torch.utils import profiling
 
 # The JAX package's panel (the NatGrad drivers' contract).
 PANEL = 64
@@ -231,8 +232,9 @@ def chol_factor_blocked(A: torch.Tensor):
         'chol_inv', 'chol_factor_blocked',
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, M,
-                        _cluster(M, B), stream), 'chol_factor_blocked')
+    with profiling.launch('chol_factor_blocked', (A,), (L, Dinv)):
+        cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B,
+                            M, _cluster(M, B), stream), 'chol_factor_blocked')
     chol_inv_base.launches += 1
     return L, Dinv
 
@@ -366,8 +368,13 @@ def chol_upper_blocked(A: torch.Tensor):
         'chol_inv', 'chol_upper_blocked',
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B, M,
-                        _upper_cluster(M, B), stream), 'chol_upper_blocked')
+    # K2 reads G's lower triangle only.
+    with profiling.launch('chol_upper_blocked',
+                          (A.element_size() * B * M * (M + 1) // 2,),
+                          (L, Dinv)):
+        cuda_build.check(fn(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B,
+                            M, _upper_cluster(M, B), stream),
+                         'chol_upper_blocked')
     chol_inv_base_upper.launches += 1
     return L, Dinv
 
@@ -611,9 +618,10 @@ def tri_inv_blocked(L: torch.Tensor,
         'tri_inv', 'tri_inv_blocked',
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    cuda_build.check(fn(L.data_ptr(),
-                        None if Dinv is None else Dinv.data_ptr(),
-                        X.data_ptr(), B, M, stream), 'tri_inv_blocked')
+    with profiling.launch('tri_inv_blocked', (L, Dinv), (X,)):
+        cuda_build.check(fn(L.data_ptr(),
+                            None if Dinv is None else Dinv.data_ptr(),
+                            X.data_ptr(), B, M, stream), 'tri_inv_blocked')
     tri_inv_base.launches += 1
     return X
 

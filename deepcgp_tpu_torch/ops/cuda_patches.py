@@ -34,6 +34,7 @@ import torch
 from deepcgp_tpu_torch.ops import cuda_build
 from deepcgp_tpu_torch.ops.patches import (extract_patches, out_size,
                                            pixel_index, transposed_patch_perm)
+from deepcgp_tpu_torch.utils import profiling
 
 
 def _out_grid(image_shape, filter_size, stride, dilation):
@@ -159,9 +160,10 @@ def _launch(what, src, out, image_shape, filter_size, stride, dilation,
                              [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                              + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    cuda_build.check(fn(src.data_ptr(), out.data_ptr(), src.shape[0],
-                        *image_shape, filter_size, stride, dilation, *grid,
-                        stream), what)
+    with profiling.launch(what, (src,), (out,)):
+        cuda_build.check(fn(src.data_ptr(), out.data_ptr(), src.shape[0],
+                            *image_shape, filter_size, stride, dilation,
+                            *grid, stream), what)
 
 
 def extract_patches_transposed(NHWC_X, filter_size, stride=1, dilation=1):

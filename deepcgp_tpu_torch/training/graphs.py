@@ -28,7 +28,12 @@ The first call of a key runs the function eagerly on the cache's side
 stream -- real work, whose result it returns -- and then captures it.
 The eager run builds the kernels, loads their libraries and fills every
 host-side cache (``cuda_linalg._max_clusters``, the Gauss-Hermite points,
-...) outside the capture; the capture itself runs no kernel.  The kernel
+...) outside the capture; the capture itself runs no kernel.  The eager
+run builds ``cuda_cross``'s padded copies of Z as the capture does, on
+every call, so it launches the kernels a replay launches, in their order
+(the region ``graph eager <name>`` of a trace; a replay is ``graph
+replay <name>``, whose graph's kernels follow the generators' seed and
+offset fills that every replay launches first).  The kernel
 wrappers' launch counters count the Python calls a capture makes: those
 counts are taken back and added again on every replay
 (:func:`counts_taken_back`, :meth:`Graph.replay`), so each counter stays
@@ -53,17 +58,14 @@ import weakref
 
 import torch
 
-from deepcgp_tpu_torch.ops import cuda_cross, cuda_linalg, cuda_patches
+from deepcgp_tpu_torch.ops import cuda_cross
 from deepcgp_tpu_torch.parallel import sharding
+from deepcgp_tpu_torch.utils import profiling
 
 
 def counted() -> tuple:
     """The kernel wrappers whose ``.launches`` count their launches."""
-    return (cuda_linalg.chol_inv_base, cuda_linalg.chol_inv_base_upper,
-            cuda_linalg.tri_inv_base, cuda_cross.conv_rbf_cross,
-            cuda_cross.conv_rbf_cross_bwd,
-            cuda_patches.extract_patches_transposed,
-            cuda_patches.col2im_transposed)
+    return tuple(profiling.kernel_counters().values())
 
 
 @contextlib.contextmanager
@@ -110,11 +112,21 @@ def module_tensors(module: torch.nn.Module) -> list:
     return list(module.parameters()) + list(module.buffers())
 
 
+def region(kind: str, key) -> str:
+    """The trace region of a graph's eager run (``kind`` 'eager') or of a
+    replay ('replay'), named by its key's first element: 'graph replay
+    step' is one optimizer step of ``run_chunk``."""
+    return f'graph {kind} {key[0] if isinstance(key, tuple) else key}'
+
+
 class Graph:
     """One captured function: its graph, its static inputs and outputs,
-    and the launches one replay makes of each counted kernel."""
+    the launches one replay makes of each counted kernel, and the trace
+    region of a replay."""
 
-    def __init__(self, graph, inputs, outputs, launches, fns):
+    def __init__(self, graph, inputs, outputs, launches, fns,
+                 region='graph replay'):
+        self.region = region
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
@@ -126,7 +138,8 @@ class Graph:
         outputs, which the next replay overwrites.  A replay writes
         tensors without bumping their version counters, so the host-side
         copies keyed by them (``cuda_cross``'s padded Z) are dropped."""
-        self.graph.replay()
+        with profiling.annotate(self.region):
+            self.graph.replay()
         cuda_cross.drop_padded_copies()
         for fn, n in zip(self.fns, self.launches):
             fn.launches += n
@@ -181,16 +194,19 @@ class GraphCache:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            out = fn(*static)
+            with profiling.annotate(region('eager', key)), \
+                    cuda_cross.built_every_call():
+                out = fn(*static)
             # A capture cannot free memory: the cached blocks go back to
             # the device first, so that the pool can take them.
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
-            self.graphs[key] = self._capture(fn, static, generators)
+            self.graphs[key] = self._capture(fn, static, generators,
+                                             region('replay', key))
         current.wait_stream(self.stream)
         return out
 
-    def _capture(self, fn, static, generators) -> Graph:
+    def _capture(self, fn, static, generators, name) -> Graph:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
@@ -210,7 +226,7 @@ class GraphCache:
             graph.capture_end()
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t
-        return Graph(graph, static, outputs, launches, fns)
+        return Graph(graph, static, outputs, launches, fns, name)
 
 
 _MODEL_CACHES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()

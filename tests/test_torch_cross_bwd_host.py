@@ -146,3 +146,129 @@ def test_padded_row_norms_of_z():
     assert zn2 is not zn
     np.testing.assert_allclose(zn2[:200].numpy(), (Z ** 2).sum(1).numpy(),
                                rtol=1e-14)
+
+
+# ------------------------------------------ the gram's row sums (ROADMAP C7)
+# The partial view's last layer (P = 64, L = 25, M = 384: a cluster of 3),
+# on images whose patches sit close, so that every off-diagonal Kd counts.
+PV = dict(H=12, W=12, C=1, f=5, s=1, M=384)
+
+
+def _gram(X, f, s, gamma):
+    """Kd [N, P, P] of the images' patches, variance 1, float64."""
+    patches = extract_patches(X, f, s, 1).to(torch.float64)
+    pn = patches.square().sum(-1)
+    E = pn[:, :, None] + pn[:, None, :] - 2.0 * patches @ patches.transpose(1, 2)
+    return torch.exp(gamma * E.clamp_min(0.0))
+
+
+def _pair_rank(P, S):
+    lo = np.minimum(np.arange(P)[:, None], np.arange(P)[None, :])
+    hi = np.maximum(np.arange(P)[:, None], np.arange(P)[None, :])
+    return (lo * P - lo * (lo - 1) // 2 + hi - lo) % S
+
+
+def _row_sums_by_warp(Kd, wkd, own, dtype):
+    """dws[p] as the image side forms it on one rank: a warp takes row p,
+    lane j the columns q = j, j + 32, ... in order, each adding its owned
+    entries' w_q Kd[p, q] in ``dtype``; then the xor butterfly over 16, 8,
+    4, 2, 1, lane 0's sum.  The order is a function of P alone."""
+    terms = (own[None] * wkd[None, None, :] * Kd).astype(dtype)
+    lanes = np.zeros(terms.shape[:2] + (32,), dtype)
+    for q in range(terms.shape[2]):
+        lanes[:, :, q % 32] = lanes[:, :, q % 32] + terms[:, :, q]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, :, np.arange(32) ^ o]
+    return lanes[:, :, 0]
+
+
+def _row_sums_by_atomics(Kd, wkd, own, order, dtype):
+    """dws[p] as shared-memory atomics form it: each owned pair (a <= b)
+    adds w_b Kd[a, b] to row a and w_a Kd[a, b] to row b, the pairs in
+    ``order`` (all of them in row order when None) -- the order in which
+    the threads happen to arrive."""
+    N, P, _ = Kd.shape
+    pairs = [(a, b) for a in range(P) for b in range(a, P) if own[a, b]]
+    out = np.zeros((N, P), dtype)
+    for i in range(len(pairs)) if order is None else order:
+        a, b = pairs[i]
+        out[:, a] = out[:, a] + (wkd[b] * Kd[:, a, b]).astype(dtype)
+        if a != b:
+            out[:, b] = out[:, b] + (wkd[a] * Kd[:, a, b]).astype(dtype)
+    return out, len(pairs)
+
+
+def test_gram_row_sums_in_a_fixed_order_match_the_pairs_and_jax():
+    """The patch-weight gradient's gram term, dwkd_p = sum_n 2 dKdiag /P^2
+    sum_q w_q Kd[p, q], formed as the image side now forms it (each rank's
+    rows by a warp in a fixed order, ROADMAP C7) equals the pairwise form
+    the atomics summed, the plain backward and the JAX package's
+    ``_bwd_call`` (interpret mode) in float64 at 1e-12."""
+    from deepcgp_tpu.models.views import FullView as JFullView
+    from deepcgp_tpu.ops import pallas_cross as jpc
+    import jax.numpy as jnp
+    H, W, C, f, s, M = (PV[k] for k in ('H', 'W', 'C', 'f', 's', 'M'))
+    rng = np.random.RandomState(7)
+    N, L = 4, f * f * C
+    X = torch.tensor(0.3 * rng.randn(N, H, W, C))
+    Z = torch.tensor(rng.randn(M, L)) * 0.3
+    Hout, Wout = (H - f) // s + 1, (W - f) // s + 1
+    P = Hout * Wout
+    var = torch.tensor(1.0, dtype=torch.float64)
+    gamma = torch.tensor(-0.5 / L, dtype=torch.float64)
+    u, wkd = torch.tensor(rng.rand(P) + 0.5) / P, torch.tensor(rng.rand(P) + 0.5)
+    dkzx, dkd = torch.zeros(N, M, dtype=torch.float64), torch.tensor(rng.randn(N))
+    S = cuda_cross.bwd_cluster(M)
+    assert (P, L, S) == (64, 25, 3)
+    Kd = _gram(X, f, s, gamma).numpy()
+    ranks = _pair_rank(P, S)
+    w = wkd.numpy()
+    dws = np.zeros((N, P))
+    for r in range(S):
+        own = (ranks == r).astype(np.float64)
+        by_warp = _row_sums_by_warp(Kd, w, own, np.float64)
+        by_pairs, _ = _row_sums_by_atomics(Kd, w, own, None, np.float64)
+        np.testing.assert_allclose(by_warp, (own[None] * w * Kd).sum(-1),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(by_warp, by_pairs, rtol=1e-12)
+        dws += by_warp
+    dwkd = (2.0 * dkd.numpy()[:, None] / P ** 2 * dws).sum(0)
+    plain = cuda_cross.conv_rbf_cross_bwd_plain(X, Z, var, gamma, u, wkd, f,
+                                                s, 1, True, dkzx, dkd)[5]
+    np.testing.assert_allclose(dwkd, plain.numpy(), rtol=1e-12)
+    # The JAX kernel takes its patch weights in transposed order.
+    perm = np.array([(p % Wout) * Hout + p // Wout for p in range(P)])
+    ut, wt = np.zeros(P), np.zeros(P)
+    ut[perm], wt[perm] = u.numpy(), w
+    view = JFullView(input_size=(H, W), filter_size=f, feature_maps=C,
+                     stride=s)
+    jdwkd = np.asarray(jpc._bwd_call(
+        jnp.asarray(X.numpy()), jnp.asarray(Z.numpy()), 1.0, float(gamma),
+        jnp.asarray(ut), jnp.asarray(wt), view, True, True,
+        jnp.asarray(dkzx.numpy()), jnp.asarray(dkd.numpy()))[5])
+    np.testing.assert_allclose(dwkd, jdwkd[perm], rtol=1e-12)
+
+
+def test_gram_row_sums_no_longer_depend_on_arrival_order():
+    """In float32 the atomics' row sums change with the order the threads
+    arrive in -- the run-to-run difference of ROADMAP C7 -- while the
+    warp's fixed order gives one answer, within float32's rounding of the
+    float64 sum."""
+    H, W, C, f, s, M = (PV[k] for k in ('H', 'W', 'C', 'f', 's', 'M'))
+    rng = np.random.RandomState(8)
+    N, L = 2, f * f * C
+    X = torch.tensor(0.3 * rng.randn(N, H, W, C))
+    Kd64 = _gram(X, f, s, -0.5 / L).numpy()
+    Kd = Kd64.astype(np.float32)
+    P = Kd.shape[1]
+    w = (rng.rand(P) + 0.5).astype(np.float32)
+    own = (_pair_rank(P, 3) == 0).astype(np.float32)
+    npairs = int(np.triu(own).sum())
+    seen = {_row_sums_by_atomics(Kd, w, own, rng.permutation(npairs),
+                                 np.float32)[0].tobytes() for _ in range(6)}
+    assert len(seen) > 1
+    by_warp = _row_sums_by_warp(Kd, w, own, np.float32)
+    assert by_warp.tobytes() == _row_sums_by_warp(Kd, w, own,
+                                                  np.float32).tobytes()
+    np.testing.assert_allclose(by_warp, (own[None] * w * Kd64).sum(-1),
+                               rtol=1e-6)

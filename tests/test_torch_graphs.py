@@ -336,6 +336,25 @@ def test_cached_rebuilds_every_call_while_capturing(kind, monkeypatch):
     assert rebuilt is not first and not torch.equal(rebuilt, first)
 
 
+@pytest.mark.parametrize('kind', ['zt', 'zp', 'zn'])
+def test_cached_builds_every_call_in_a_graphs_eager_run(kind, monkeypatch):
+    """Inside ``built_every_call`` (a graph's eager run, which precedes its
+    capture) every call builds the padded copy anew, as a capture does, so
+    the eager run launches what the replays launch; the cache keeps what
+    it had, and outside the block the copy is cached as before."""
+    build = {'zt': cuda_cross._padded_zt, 'zp': cuda_cross._padded_z,
+             'zn': cuda_cross._padded_zn}[kind]
+    monkeypatch.setattr(cuda_cross, '_pad_cache', {})
+    Z = torch.randn(5, 7)
+    first = build(Z)
+    with cuda_cross.built_every_call():
+        inside = [build(Z), build(Z)]
+    assert inside[0] is not inside[1] and inside[0] is not first
+    assert torch.equal(inside[0], first) and torch.equal(inside[1], first)
+    assert cuda_cross._pad_cache[kind][2] is first
+    assert build(Z) is first and not cuda_cross._EVERY_CALL
+
+
 def test_robust_max_gradient_equals_autograd_prod():
     """The robust-max quadrature's product of CDFs takes autograd's
     zero-free ``prod`` backward without its host-side zero count: value

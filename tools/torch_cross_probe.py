@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """K4 and K5 (``csrc/conv_rbf_cross.cu``, ``csrc/conv_rbf_cross_bwd.cu``)
 alone on the card, for comparing two trees' kernels in one call: the
-forward at chip_smoke.py's seven geometries and the backward at its five,
-each held against its plain version, with device ms per launch (the
-backward's two sides apart) and the image side's phase trace where the
-tree has one.
+forward at chip_smoke.py's seven geometries and the backward at its five
+and the partial view's last layer, each held against its plain version,
+with device ms per launch (the backward's two sides apart), whether each
+gradient is bit-equal run to run, and the image side's phase trace where
+the tree has one.
 
     python3 tools/torch_cross_probe.py [ROOT]
 
@@ -36,7 +37,8 @@ BACKWARD = (
     (256, 15, 13, 10, 3, 2, 200, True),
     (256, 15, 13, 10, 3, 2, 200, False),
     (320, 10, 10, 12, 5, 1, 384, True),
-    (320, 10, 10, 16, 5, 1, 384, True))
+    (320, 10, 10, 16, 5, 1, 384, True),
+    (320, 12, 12, 1, 5, 1, 384, True))     # the partial view: P = 64, L = 25
 
 
 def _inputs(torch, cs, rng, dev, geometry, backward):
@@ -100,6 +102,8 @@ def main() -> int:
                 'rel_err': {n: cs.rel(o, r) for n, o, r in zip(names, out, ref)},
                 'dimg_deterministic': bool(torch.equal(again[0], out[0])),
                 'dz_deterministic': bool(torch.equal(again[1], out[1])),
+                'bit_equal_run_to_run': {n: bool(torch.equal(o, g)) for n, o, g
+                                         in zip(names, out, again)},
                 'ms_image': cs.kernel_ms(torch, fn, 'bwd_image_kernel'),
                 'ms_z': cs.kernel_ms(torch, fn, 'bwd_z_kernel')}
         if hasattr(cs, 'k5_image_trace'):

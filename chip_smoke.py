@@ -85,13 +85,19 @@ blocks that are not a multiple of 32 (the identity padding).
 
 Last, the multi-process layer (``deepcgp_tpu_torch/parallel``) on the
 card: the flagship CLI as a one-rank NCCL group (``--mesh data=1
---distributed``), its log rows and launches against the plain run; then
-two spawned processes sharing the card over gloo (NCCL takes one rank a
-device), with mesh data=2 and then model=2, each holding two Adam and
-two NatGrad steps of the flagship, and under model=2 one Adam step of
-the MNIST ConvKernel and of fm32, against the same steps in one process,
-with each rank's launches; and ``Predictor(mesh='data=2')``.  One card
-shows the collectives, not a speed-up.
+--distributed``, graphed by default), its log rows and launches against
+the plain run; then the sharded programs as replayed graphs with their
+NCCL collectives captured inside, on a one-rank group: flagship Adam and
+NatGrad chunks through ``make_sharded_train_fns``, the sharded eval and
+count and ``Predictor(mesh='data=1')``, each bit-equal graphed and eager
+with exact launches and collectives, and flagship Adam and serving timed
+E G E G under the mesh; then two spawned processes sharing the card over
+gloo (NCCL takes one rank a device), with mesh data=2 and then model=2,
+each holding two Adam and two NatGrad steps of the flagship, and under
+model=2 one Adam step of the MNIST ConvKernel and of fm32, against the
+same steps in one process, with each rank's launches;
+``Predictor(mesh='data=2')``; and ``graphed=True`` refused under gloo.
+One card shows the collectives, not a speed-up.
 
 Besides, the last of the JAX package's surface: right after the kernels'
 build, the native host data path (``deepcgp_tpu_torch/native``: g++ builds
@@ -3659,10 +3665,28 @@ def mesh_child(rank: int, world: int, port: int, seed: int, out: str):
                 results[f'{spec} {label} {optimizer}'] = mesh_case(
                     torch, mesh, label, optimizer, steps, seed, dev, counters)
         results['data=2 serving'] = mesh_serving(torch, seed, dev, counters)
+        results['graphed=True'] = gloo_graphed_true(
+            torch, mesh_lib.make_mesh('data=2'), seed, dev)
         with open(os.path.join(out, f'rank{rank}.json'), 'w') as f:
             json.dump(results, f)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def gloo_graphed_true(torch, mesh, seed: int, dev) -> dict:
+    """The sharded chunk with graphed=True under the gloo mesh: the
+    ValueError's message, and the steps the state took (none)."""
+    from deepcgp_tpu_torch.parallel.train import make_sharded_train_fns
+    from deepcgp_tpu_torch.training import trainer
+    model, X, Y = mesh_model(torch, 'flagship', seed, dev)
+    config = trainer.TrainConfig(batch_size=TRAIN_BATCH)
+    state = trainer.init_state(model, config, seed=seed)
+    try:
+        make_sharded_train_fns(mesh, config)[1](state, X, Y, 1, graphed=True)
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    return {'raised': raised, 'steps': int(state.step)}
 
 
 def mesh_expected(label: str, optimizer: str, steps: int) -> dict:
@@ -3748,7 +3772,38 @@ def mesh_gloo_phase(torch, card: dict, seed: int) -> dict:
                                                   'conv_rbf_cross')),
               f'mesh gloo serving rank {r}: launches {g["launches"]}')
     paths['mesh_gloo_serving'] = served[0]['launches']
+    refused = [rk['graphed=True'] for rk in ranks]
+    emit({'phase': 'mesh gloo graphed=True', **card,
+          'entry': 'make_sharded_train_fns(...)[1](..., graphed=True)',
+          'per_rank': refused})
+    for r, g in enumerate(refused):
+        check(g['raised'] is not None and 'gloo' in g['raised']
+              and g['steps'] == 0,
+              f'mesh gloo rank {r}: graphed=True under gloo gave {g}')
     return paths
+
+
+@contextlib.contextmanager
+def one_rank_env():
+    """The environment torchrun sets for a one-rank group (a free port) in
+    the block; on exit the group, if one was made, is destroyed and the
+    environment restored."""
+    import torch.distributed as dist
+    from deepcgp_tpu_torch.parallel.train import free_port
+    env = {'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(free_port()),
+           'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0'}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def mesh_nccl_cli(torch, card: dict, root: str, reset_counts,
@@ -3757,34 +3812,24 @@ def mesh_nccl_cli(torch, card: dict, root: str, reset_counts,
     rows and launches equal.  Returns the mesh run's launches."""
     import torch.distributed as dist
     from deepcgp_tpu_torch import cifar
-    from deepcgp_tpu_torch.parallel.train import free_port
+    from deepcgp_tpu_torch.training import graphs
     runs = {}
     for label, extra in (('plain', []),
                          ('nccl', ['--mesh', 'data=1', '--distributed'])):
         argv = MESH_CLI + ['--log-dir', os.path.join(root, label), *extra]
-        env = ({'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(free_port()),
-                'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0'}
-               if extra else {})
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
         reset_counts()
-        try:
+        # The NCCL run's CLI joins the group itself (--distributed).
+        with one_rank_env() if extra else contextlib.nullcontext():
             exp, _, _, seconds = drive_cli(torch, lambda: cifar.main(argv),
                                            read_counts)
             launches = read_counts()
             backend = dist.get_backend() if dist.is_initialized() else None
             mesh = None if exp.mesh is None else exp.mesh.shape
-        finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
+            captures = (graphs.model_cache(exp.model).captures
+                        + exp.state.graphs.captures)
         _, rows = log_rows(os.path.join(root, label, 'mesh'))
         runs[label] = dict(rows=rows, launches=launches, seconds=seconds,
-                           backend=backend, mesh=mesh)
+                           backend=backend, mesh=mesh, captures=captures)
         del exp
     plain, nccl = runs['plain'], runs['nccl']
     exact = ('global_step', 'lr', 'test_accuracy')
@@ -3802,8 +3847,10 @@ def mesh_nccl_cli(torch, card: dict, root: str, reset_counts,
           'train_elbo_bit_equal': elbo_err == 0.0,
           'launches': {'plain': plain['launches'], 'nccl': nccl['launches']},
           'seconds': {'plain': plain['seconds'], 'nccl': nccl['seconds']},
+          'captures': {'plain': plain['captures'], 'nccl': nccl['captures']},
           'tolerance': 'global_step, lr and test_accuracy equal; train_elbo '
-                       'within 1e-6 relative; launches equal'})
+                       'within 1e-6 relative; launches equal; the NCCL run '
+                       'graphed (captures > 0)'})
     check(nccl['backend'] == 'nccl' and nccl['mesh'] == {'data': 1,
                                                          'model': 1},
           f'mesh nccl cli: backend {nccl["backend"]}, mesh {nccl["mesh"]}')
@@ -3814,16 +3861,109 @@ def mesh_nccl_cli(torch, card: dict, root: str, reset_counts,
                   if k != 'chol_inv_base_upper'),
           f'mesh nccl cli: launches {nccl["launches"]} vs plain '
           f'{plain["launches"]}')
+    check(nccl['captures'] > 0, 'mesh nccl cli: the NCCL run captured no '
+          'graph')
     return nccl['launches']
 
 
-def mesh_phases(torch, card: dict, seed: int, reset_counts,
+# (c) The sharded programs graphed under a one-rank NCCL group: flagship
+# Adam and NatGrad chunks through make_sharded_train_fns, the sharded eval
+# and count and Predictor(mesh='data=1'), each graphed (capturing), eager,
+# replayed (and eager again), bit-equal with exact launches and the same
+# collectives; then flagship Adam chunks and serving under the mesh, E G E
+# G.  A step's collectives at data=1: the batch's all-reduce, the
+# gradients' sum and the commit guard's MIN; NatGrad's final check adds
+# the batch and the MIN once a chunk.
+MESH_GRAPH_PATHS = (
+    ('flagship adam', 'Adam', ADAM_PER_STEP['flagship'], {}),
+    ('flagship natgrad', 'NatGrad', NATGRAD_PER_STEP['flagship'],
+     NATGRAD_PER_CHUNK['flagship']))
+MESH_STEP_COLLECTIVES, MESH_NATGRAD_CHUNK_COLLECTIVES = 3, 2
+# Steps or requests each form's profile takes: the eager profile's host
+# work holds most of the phases' time.
+MESH_PROFILE_STEPS = 8
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group in this process, from the environment
+    that torchrun would set; destroyed, and the environment restored, on
+    exit."""
+    from deepcgp_tpu_torch.parallel import multihost
+    with one_rank_env():
+        multihost.initialize_distributed()
+        yield
+
+
+def graph_mesh_phases(torch, dev, card: dict, seed: int, reset_counts,
+                      read_counts) -> dict:
+    """(c): the graph mesh nccl phases.  Returns each path's launches."""
+    import torch.distributed as dist
+    from deepcgp_tpu_torch.parallel import mesh as mesh_lib
+    from deepcgp_tpu_torch.parallel.train import make_sharded_train_fns
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 14)
+    launches, per_step = {}, {}
+    with one_rank_nccl():
+        mesh = mesh_lib.make_mesh('data=1')
+        backend = dist.get_backend(mesh.data_group)
+        check(backend == 'nccl' and mesh.distributed,
+              f'graph mesh nccl: backend {backend}')
+        for label, optimizer, steps, chunks in MESH_GRAPH_PATHS:
+            model, Xd, Yd = graph_build(torch, label, FLAGSHIP, IMAGE, None,
+                                        seed, rng, dev)
+            state, config, launches[f'graph mesh nccl {label}'], coll = \
+                graph_ab_chunk(torch, label, model, optimizer, TRAIN_BATCH,
+                               Xd, Yd, steps, chunks, seed, card,
+                               reset_counts, read_counts, mesh=mesh)
+            want = GRAPH_AB_STEPS * MESH_STEP_COLLECTIVES + (
+                MESH_NATGRAD_CHUNK_COLLECTIVES if optimizer == 'NatGrad'
+                else 0)
+            per_step[label] = coll['replayed'] / GRAPH_AB_STEPS
+            check(all(n == want for n in coll.values()),
+                  f'graph mesh nccl {label}: collectives {coll}, expected '
+                  f'{want} a chunk in every form')
+            if optimizer == 'Adam':
+                timed = (state, config, Xd, Yd)
+            else:
+                del state, model
+        state, config, Xd, Yd = timed
+        launches['graph mesh nccl eval and serving'] = graph_eval_and_serving(
+            torch, state.model, seed, rng, dev, card, reset_counts,
+            read_counts, mesh=mesh)
+        bits_s = time.perf_counter() - t0
+        chunk = make_sharded_train_fns(mesh, config)[1]
+        windows = graph_windows(torch, lambda mode: (chunk(
+            state, Xd, Yd, TRAIN_CHUNK, graphed=mode == 'graphed'),
+            torch.cuda.synchronize()), TRAIN_CHUNK)
+        profiles = {mode: profile_device(torch, lambda: chunk(
+            state, Xd, Yd, MESH_PROFILE_STEPS, graphed=mode == 'graphed'),
+            reset_counts, read_counts) for mode in ('eager', 'graphed')}
+        graph_timing_line('flagship adam', 'steps', windows, profiles, {
+            'captures': state.graphs.captures,
+            'capture_seconds': state.graphs.capture_seconds,
+            'batch_size': config.batch_size, 'chunk_steps': TRAIN_CHUNK,
+            'mesh': mesh.shape}, card, 'graph mesh nccl timing',
+            MESH_PROFILE_STEPS)
+        serving_timing(torch, state.model, seed, rng, card, reset_counts,
+                       read_counts, mesh, 'graph mesh nccl timing',
+                       MESH_PROFILE_STEPS)
+    emit({'phase': 'graph mesh nccl', **card, 'backend': backend,
+          'mesh': mesh.shape, 'collectives_per_step': per_step,
+          'bit_equality_seconds': bits_s,
+          'seconds': time.perf_counter() - t0})
+    return launches
+
+
+def mesh_phases(torch, dev, card: dict, seed: int, reset_counts,
                 read_counts) -> dict:
-    """(a) and (b) above.  Returns each path's launches."""
+    """(a), (c) and (b) above.  Returns each path's launches."""
     with tempfile.TemporaryDirectory() as empty, \
             tempfile.TemporaryDirectory() as root, data_dir_set(empty):
         paths = {'mesh_nccl_cli': mesh_nccl_cli(
             torch, card, root, reset_counts, read_counts)}
+    paths.update(graph_mesh_phases(torch, dev, card, seed, reset_counts,
+                                   read_counts))
     paths.update(mesh_gloo_phase(torch, card, seed))
     return paths
 
@@ -3894,18 +4034,24 @@ def graph_build(torch, label, flags, image, loaded, seed, rng, dev):
 
 
 def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
-                   per_chunk, seed, card, reset_counts, read_counts):
+                   per_chunk, seed, card, reset_counts, read_counts,
+                   mesh=None):
     """The bit-equality of one training path: from one snapshot, chunks
     run graphed (capturing), eager, graphed again (replays only) and eager
-    again, each held against the first eager chunk.  Returns (state,
-    config, the replayed chunk's launches)."""
+    again, each held against the first eager chunk, each chunk's
+    collectives counted, each through ``make_sharded_train_fns``'s chunk
+    under ``mesh`` (None: no mesh, ``trainer.run_chunk``).  Returns (state,
+    config, the replayed chunk's launches, each chunk's collectives)."""
+    from deepcgp_tpu_torch.parallel import sharding
+    from deepcgp_tpu_torch.parallel.train import make_sharded_train_fns
     from deepcgp_tpu_torch.training import trainer
     # Plain SGD steps on the raw gradients: lr 1e-4, as the CPU tests take.
     config = trainer.TrainConfig(optimizer=optimizer, batch_size=batch,
                                  lr=1e-4 if optimizer == 'SGD' else 0.01,
                                  gamma=0.001)
+    chunk = make_sharded_train_fns(mesh, config)[1]
     state = trainer.init_state(model, config, seed=seed)
-    trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_WARM, graphed=False)
+    chunk(state, Xd, Yd, GRAPH_AB_WARM, graphed=False)
     snap = state_values(state)
     runs = {}
     for mode in GRAPH_AB_MODES:
@@ -3913,13 +4059,16 @@ def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        collectives = sharding.collective.launches
         t = time.perf_counter()
-        trace = trainer.run_chunk(state, config, Xd, Yd, GRAPH_AB_STEPS,
-                                  graphed=mode in ('graphed', 'replayed'))
+        trace = chunk(state, Xd, Yd, GRAPH_AB_STEPS,
+                      graphed=mode in ('graphed', 'replayed'))
         torch.cuda.synchronize()
         runs[mode] = {'seconds': time.perf_counter() - t,
                       'trace': trace.clone(), 'state': state_values(state),
                       'launches': read_counts(),
+                      'collectives': sharding.collective.launches
+                      - collectives,
                       'peak': torch.cuda.max_memory_allocated()}
     expected = expected_launches((GRAPH_AB_STEPS, per_step), (1, per_chunk))
     eager = runs['eager']
@@ -3931,13 +4080,16 @@ def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
     same = {mode: not d['trace'] and not d['state']
             for mode, d in diffs.items()}
     cache = state.graphs
-    emit({'phase': f'graph bit-equality {label}', **card,
+    collectives = {mode: r['collectives'] for mode, r in runs.items()}
+    emit({'phase': (f'graph bit-equality {label}' if mesh is None
+                    else f'graph mesh nccl bit-equality {label}'), **card,
+          'mesh': None if mesh is None else mesh.shape,
           'optimizer': optimizer, 'batch_size': batch,
           'num_samples': model.num_samples, 'warm_eager_steps': GRAPH_AB_WARM,
           'chunk_steps': GRAPH_AB_STEPS, 'order': list(runs),
           'bit_equal': same, 'not_bit_equal': diffs,
           'launches': {mode: r['launches'] for mode, r in runs.items()},
-          'expected_launches': expected,
+          'expected_launches': expected, 'collectives': collectives,
           'seconds': {mode: r['seconds'] for mode, r in runs.items()},
           'max_memory_allocated_bytes': {mode: r['peak']
                                          for mode, r in runs.items()},
@@ -3949,30 +4101,51 @@ def graph_ab_chunk(torch, label, model, optimizer, batch, Xd, Yd, per_step,
           f'graph {label}: launches {[r["launches"] for r in runs.values()]},'
           f' expected {expected}')
     check(finite(torch, eager['trace']), f'graph {label}: an ELBO is not finite')
-    return state, config, runs['replayed']['launches']
+    return state, config, runs['replayed']['launches'], collectives
 
 
 def graph_eval_and_serving(torch, model, seed, rng, dev, card, reset_counts,
-                           read_counts) -> dict:
+                           read_counts, mesh=None) -> dict:
     """The flagship's eval (1000 rows: 31 batches of 32 and one of 8, two
     graphs) and Predictor (300 and 200 rows, padded batches of BATCH),
-    eager against graphed, bit for bit, with their launches."""
+    eager against graphed, bit for bit, with their launches; with
+    ``mesh``, the sharded eval and count (``make_sharded_eval_fn``,
+    ``make_sharded_accuracy_fn``) and ``Predictor(mesh=...)``, and the
+    collectives of each."""
+    from deepcgp_tpu_torch.parallel import sharding
+    from deepcgp_tpu_torch.parallel.train import (make_sharded_accuracy_fn,
+                                                  make_sharded_eval_fn)
     from deepcgp_tpu_torch.serving import Predictor
     from deepcgp_tpu_torch.training import trainer
     X = rng.randn(1000, *IMAGE).astype(np.float32)
     Y = rng.randint(0, 10, size=(1000, 1))
     Xd = torch.as_tensor(X.reshape(1000, -1), device=dev)
     Yd = torch.as_tensor(Y, device=dev)
-    evals = {}
+    if mesh is None:
+        def probs_of(graphed):
+            return trainer.predict_probs(model, Xd, seed=seed,
+                                         batch_size=EVAL_BATCH,
+                                         graphed=graphed)
+
+        def accuracy_of(graphed):
+            return trainer.accuracy(model, Xd, Yd, seed=seed,
+                                    batch_size=EVAL_BATCH, graphed=graphed)
+    else:
+        def probs_of(graphed):
+            return make_sharded_eval_fn(mesh, EVAL_BATCH)(model, Xd, seed,
+                                                          graphed)
+
+        def accuracy_of(graphed):
+            return int(make_sharded_accuracy_fn(mesh, EVAL_BATCH)(
+                model, Xd, Yd, seed, graphed)) / len(Y)
+    evals, collectives = {}, {}
     for mode in ('graphed', 'eager', 'replayed'):
         reset_counts()
-        probs = trainer.predict_probs(model, Xd, seed=seed,
-                                      batch_size=EVAL_BATCH,
-                                      graphed=mode != 'eager')
-        acc = trainer.accuracy(model, Xd, Yd, seed=seed,
-                               batch_size=EVAL_BATCH,
-                               graphed=mode != 'eager')
+        before = sharding.collective.launches
+        probs = probs_of(mode != 'eager')
+        acc = accuracy_of(mode != 'eager')
         evals[mode] = (probs, acc, read_counts())
+        collectives[f'eval {mode}'] = sharding.collective.launches - before
     batches = -(-1000 // EVAL_BATCH)
     expected = expected_launches((2 * batches, EVAL_PER_BATCH['flagship']))
     eval_same = {m: bool(torch.equal(evals[m][0], evals['eager'][0]))
@@ -3980,21 +4153,27 @@ def graph_eval_and_serving(torch, model, seed, rng, dev, card, reset_counts,
                  for m in ('graphed', 'replayed')}
     served, launches = {}, {}
     preds = {'eager': Predictor(model, batch_size=BATCH, num_samples=SAMPLES,
-                                seed=seed, graphed=False),
+                                seed=seed, graphed=False, mesh=mesh),
              'graphed': Predictor(model, batch_size=BATCH,
-                                  num_samples=SAMPLES, seed=seed)}
+                                  num_samples=SAMPLES, seed=seed, mesh=mesh)}
     for mode, pred in preds.items():
         reset_counts()
+        before = sharding.collective.launches
         served[mode] = [pred.predict_proba(X[:300]), pred.predict_proba(X[:300]),
                         pred.log_density(X[:200], Y[:200])]
         launches[mode] = read_counts()
+        collectives[f'serving {mode}'] = (sharding.collective.launches
+                                          - before)
     serve_batches = 2 * -(-300 // BATCH) + -(-200 // BATCH)
     serve_expected = launches_of(chol_inv_base=serve_batches,
                                  tri_inv_base=serve_batches,
                                  conv_rbf_cross=serve_batches)
     serve_same = all(np.array_equal(a, b) for a, b in
                      zip(served['graphed'], served['eager']))
-    emit({'phase': 'graph bit-equality eval and serving', **card,
+    emit({'phase': ('graph bit-equality eval and serving' if mesh is None
+                    else 'graph mesh nccl bit-equality eval and serving'),
+          **card, 'mesh': None if mesh is None else mesh.shape,
+          'collectives': collectives,
           'eval': {'rows': 1000, 'batch_size': EVAL_BATCH,
                    'bit_equal': eval_same,
                    'accuracy': {m: e[1] for m, e in evals.items()},
@@ -4016,6 +4195,10 @@ def graph_eval_and_serving(torch, model, seed, rng, dev, card, reset_counts,
     check(serve_same, 'graph serving: eager and graphed answers differ')
     check(all(n == serve_expected for n in launches.values()),
           f'graph serving launches {launches}, expected {serve_expected}')
+    check(collectives['eval graphed'] == collectives['eval replayed']
+          == collectives['eval eager']
+          and collectives['serving graphed'] == collectives['serving eager'],
+          f'graph eval and serving: collectives {collectives}')
     return launches['graphed']
 
 
@@ -4040,15 +4223,16 @@ def graph_windows(torch, fn, steps_each: int, rounds=('eager', 'graphed') * 2):
     return out
 
 
-def graph_timing_line(label, unit, windows, profiles, capture, card):
+def graph_timing_line(label, unit, windows, profiles, capture, card,
+                      phase='graph timing', profile_steps=GRAPH_PROFILE_STEPS):
     rates = {m: [w['rate'] for w in windows if w['mode'] == m]
              for m in ('eager', 'graphed')}
-    emit({'phase': f'graph timing {label}', **card, 'unit': unit,
+    emit({'phase': f'{phase} {label}', **card, 'unit': unit,
           'order': [w['mode'] for w in windows],
           'window_seconds': GRAPH_WINDOW_SECONDS, 'windows': windows,
           f'{unit}_per_s': rates,
           'graphed_over_eager': min(rates['graphed']) / max(rates['eager']),
-          'profile_steps': GRAPH_PROFILE_STEPS, **capture,
+          'profile_steps': profile_steps, **capture,
           'device_busy_share': {m: p[1] / p[0] for m, p in profiles.items()},
           'profiles': {m: {'wall_ms': p[0], 'device_busy_ms': p[1],
                            'profile_rounds': p[3], 'top_device_ms': p[2]}
@@ -4062,7 +4246,6 @@ def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
     and graphed windows in turns with the graphed and eager profiles'
     busy shares, capture seconds and peak memory.  Returns each path's
     launches in its chunk of replays alone."""
-    from deepcgp_tpu_torch.serving import Predictor
     from deepcgp_tpu_torch.training import trainer
     rng = np.random.RandomState(seed + 6)
     c7_rng = np.random.RandomState(seed + 7)
@@ -4071,7 +4254,7 @@ def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
             in GRAPH_PATHS:
         model, Xd, Yd = graph_build(torch, label, flags, image, loaded, seed,
                                     c7_rng if label in GRAPH_C7 else rng, dev)
-        state, config, launches[f'graph {label}'] = graph_ab_chunk(
+        state, config, launches[f'graph {label}'], _ = graph_ab_chunk(
             torch, label, model, optimizer, batch, Xd, Yd, per_step,
             per_chunk, seed, card, reset_counts, read_counts)
         if label in GRAPH_TIMED:
@@ -4097,11 +4280,22 @@ def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
             'batch_size': config.batch_size, 'chunk_steps': chunk}, card)
     model = timed['flagship adam'][0].model
     del timed
+    serving_timing(torch, model, seed, rng, card, reset_counts, read_counts)
+    return launches
+
+
+def serving_timing(torch, model, seed, rng, card, reset_counts, read_counts,
+                   mesh=None, phase='graph timing',
+                   profile_steps=GRAPH_PROFILE_STEPS):
+    """Flagship serving at batch BATCH, eager and graphed windows in turns
+    (E G E G) and both forms profiled; with ``mesh``, ``Predictor(mesh=
+    ...)``."""
+    from deepcgp_tpu_torch.serving import Predictor
     X = rng.randn(16 * BATCH, *IMAGE).astype(np.float32)
     preds = {'eager': Predictor(model, batch_size=BATCH, num_samples=SAMPLES,
-                                seed=seed, graphed=False),
+                                seed=seed, graphed=False, mesh=mesh),
              'graphed': Predictor(model, batch_size=BATCH,
-                                  num_samples=SAMPLES, seed=seed)}
+                                  num_samples=SAMPLES, seed=seed, mesh=mesh)}
     served = [0]
 
     def request(mode):
@@ -4113,13 +4307,13 @@ def graph_phases(torch, dev, card: dict, seed: int, reset_counts,
         request(mode)
     windows = graph_windows(torch, request, BATCH)
     profiles = {mode: profile_device(torch, lambda: [
-        request(mode) for _ in range(GRAPH_PROFILE_STEPS)], reset_counts,
+        request(mode) for _ in range(profile_steps)], reset_counts,
         read_counts) for mode in ('eager', 'graphed')}
     graph_timing_line('flagship serving', 'images', windows, profiles, {
         'captures': preds['graphed']._graphs.captures,
         'capture_seconds': preds['graphed']._graphs.capture_seconds,
-        'batch_size': BATCH, 'num_samples': SAMPLES}, card)
-    return launches
+        'batch_size': BATCH, 'num_samples': SAMPLES}, card, phase,
+        profile_steps)
 
 
 def main() -> int:
@@ -4731,7 +4925,7 @@ def main() -> int:
     path_launches.update(surface_phases(torch, dev, card, args.seed,
                                         reset_counts, read_counts))
     # -- the mesh: the collectives on the card -------------------------------
-    path_launches.update(mesh_phases(torch, card, args.seed, reset_counts,
+    path_launches.update(mesh_phases(torch, dev, card, args.seed, reset_counts,
                                      read_counts))
     # -- the last of the JAX surface: FLOP accounting, the examples, digits -
     flops_phase(torch, dev, card, flop_readings)

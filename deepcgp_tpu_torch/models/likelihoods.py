@@ -80,8 +80,10 @@ class MultiClass:
         """P(f_{y_n} >= f_j for all j): Y [..., 1] int labels, mu, var
         [..., K] -> [..., 1]."""
         gh_x, gh_w = _gh_points(self.num_gauss_hermite, mu)
-        oh = torch.nn.functional.one_hot(Y[..., 0].long(),
-                                         self.num_classes).to(mu.dtype)
+        # One-hot by comparison: F.one_hot on the CPU reads the labels'
+        # range on the host.
+        oh = (Y.long() == torch.arange(self.num_classes,
+                                       device=Y.device)).to(mu.dtype)
         mu_sel = (oh * mu).sum(-1)
         var_sel = (oh * var).sum(-1)
         X = mu_sel[..., None] + gh_x * torch.sqrt(

@@ -27,6 +27,17 @@ def initialised() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def collective(fn, *args, **kwargs):
+    """``fn`` (a ``torch.distributed`` collective) on its arguments,
+    synchronous on the current stream, counted in ``collective.launches``
+    (``parallel.sharding.collective``)."""
+    collective.launches += 1
+    return fn(*args, **kwargs)
+
+
+collective.launches = 0
+
+
 def world() -> tuple:
     """(world size, rank): (1, 0) without a process group."""
     if initialised():
@@ -103,7 +114,9 @@ def fetch_rows(X_local: torch.Tensor, Y_local: torch.Tensor,
     :func:`process_shard` (X_local [n, D], Y_local [n, 1]): each rank fills
     the rows it owns and zeros elsewhere, and one all-reduce over the world
     hands every rank the whole [B, D] batch and its labels (integer labels
-    ride in X's dtype, exact below 2**24)."""
+    ride in X's dtype, exact below 2**24).  Nothing is read on the host:
+    ``trainer.run_chunk`` captures it in its step, ``idx`` drawn on the
+    device from the step graph's registered generator."""
     _, rank = world()
     n = X_local.shape[0]
     lo = rank * n
@@ -114,7 +127,7 @@ def fetch_rows(X_local: torch.Tensor, Y_local: torch.Tensor,
     buf = torch.where(own, buf, torch.zeros((), dtype=buf.dtype,
                                             device=buf.device))
     if initialised():
-        dist.all_reduce(buf)
+        collective(dist.all_reduce, buf)
     D = X_local.shape[1]
     yb = buf[:, D:].round().to(Y_local.dtype)
     return buf[:, :D], yb.reshape(idx.shape[0], *Y_local.shape[1:])

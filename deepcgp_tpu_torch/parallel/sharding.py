@@ -25,6 +25,13 @@ untouched.
   the sharded axis, or None when the axis does not divide the model group
   -- then the region runs whole on every rank, with a one-time warning
   naming the shape (the counterpart of leaving GSPMD to infer).
+
+Every collective goes through :func:`collective`, which counts it in
+``collective.launches`` as the kernel wrappers count their launches (a
+captured graph's count is taken back and added per replay,
+``training.graphs``).  None of them reads a result on the host, and each
+writes into a buffer made on the current stream, so that a step with its
+collectives can be captured into a CUDA graph under NCCL.
 """
 
 from __future__ import annotations
@@ -66,6 +73,9 @@ def data_size() -> int:
     return 1 if mesh is None else mesh.data
 
 
+collective = multihost.collective
+
+
 def _all_reduce_many(tensors, group, op=dist.ReduceOp.SUM) -> list:
     """All-reduce a list of tensors as one flat buffer per dtype (one
     collective each); returns new tensors of the same shapes."""
@@ -75,7 +85,7 @@ def _all_reduce_many(tensors, group, op=dist.ReduceOp.SUM) -> list:
         by_dtype.setdefault(t.dtype, []).append(i)
     for idxs in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        dist.all_reduce(flat, op=op, group=group)
+        collective(dist.all_reduce, flat, op=op, group=group)
         pos = 0
         for i in idxs:
             n = tensors[i].numel()
@@ -140,15 +150,26 @@ def sum_over_data(tensors: list) -> list:
     return _all_reduce_many(tensors, mesh.data_group)
 
 
+def _all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """The blocks ``x`` of the ``size`` ranks of ``group`` joined along
+    ``dim`` in rank order: one ``all_gather_into_tensor`` into a flat
+    buffer."""
+    x = x.contiguous()
+    out = x.new_empty((size * x.shape[0],) + x.shape[1:])
+    collective(dist.all_gather_into_tensor, out, x, group=group)
+    if dim == 0:
+        return out
+    return out.reshape(size, *x.shape).movedim(0, dim).reshape(
+        *x.shape[:dim], size * x.shape[dim], *x.shape[dim + 1:])
+
+
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
     """The global batch's rows of a per-rank result (``t`` [n, ...], this
     data rank's rows), on every rank; no gradient."""
     mesh = active_mesh()
     if mesh is None or mesh.data == 1:
         return t
-    parts = [torch.empty_like(t) for _ in range(mesh.data)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
-    return torch.cat(parts)
+    return _all_gather(t, 0, mesh.data_group, mesh.data)
 
 
 def all_ok(ok: torch.Tensor) -> torch.Tensor:
@@ -158,7 +179,7 @@ def all_ok(ok: torch.Tensor) -> torch.Tensor:
     if mesh is None or not mesh.distributed:
         return ok
     flag = ok.to(torch.int32).reshape(1)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    collective(dist.all_reduce, flag, op=dist.ReduceOp.MIN)
     return flag[0].bool()
 
 
@@ -173,7 +194,7 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         flat = torch.cat([t.detach().reshape(-1) for t in ts])
-        dist.broadcast(flat, src=src)
+        collective(dist.broadcast, flat, src=src)
         pos = 0
         for t in ts:
             t.copy_(flat[pos:pos + t.numel()].view_as(t))
@@ -260,10 +281,7 @@ class _GatherOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, size, rank):
         ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim)
+        return _all_gather(x, dim, group, size)
 
     @staticmethod
     def backward(ctx, g):
@@ -285,7 +303,7 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.clone()
-        dist.all_reduce(y, group=group)
+        collective(dist.all_reduce, y, group=group)
         return y
 
     @staticmethod

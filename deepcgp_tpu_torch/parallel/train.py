@@ -5,9 +5,12 @@ Each function runs the single-process code under the mesh
 (``parallel.sharding.mesh_context``): the batch's rows over the data
 ranks, a conv layer's patches and the last layer's GPs over the model
 ranks, the update replicated.  Every rank calls it with the same
-arguments.  Under the mesh the chunk and the eval run eagerly: their
-default (``graphed=None``) checks ``sharding.active_mesh()``, because
-the collectives are not captured into CUDA graphs.
+arguments.  On the card under a mesh of NCCL groups the chunk, the eval
+and the count run as replayed CUDA graphs with their collectives
+captured inside (``training.graphs``), as the JAX package jits its
+sharded programs; under gloo, whose collectives run on the host, they
+run eagerly.  ``graphed`` (None, False, True) chooses as
+``graphs.use_graphs`` does.
 """
 
 from __future__ import annotations
@@ -33,46 +36,48 @@ def make_sharded_train_fns(mesh, config):
     the global batch (xb [B, D], yb [B, 1], the same on every rank; each
     rank steps on its rows); ``noise`` is the global batch's draws.
     Returns the ELBO of the global batch.
-    ``run_chunk_fn(state, X, Y, num_steps)``: ``trainer.run_chunk`` under
-    the mesh, X and Y this process's ``multihost.process_shard`` of the
-    resident set."""
+    ``run_chunk_fn(state, X, Y, num_steps, graphed=None)``:
+    ``trainer.run_chunk`` under the mesh, X and Y this process's
+    ``multihost.process_shard`` of the resident set."""
 
     def train_step_fn(state, xb, yb, noise=None):
         with mesh_context(mesh):
             xl, yl = mesh_lib.shard_batch(mesh, xb, yb)
             return trainer.train_step(state, config, xl, yl, noise=noise)
 
-    def run_chunk_fn(state, X, Y, num_steps):
+    def run_chunk_fn(state, X, Y, num_steps, graphed=None):
         with mesh_context(mesh):
-            return trainer.run_chunk(state, config, X, Y, num_steps)
+            return trainer.run_chunk(state, config, X, Y, num_steps,
+                                     graphed)
 
     return train_step_fn, run_chunk_fn
 
 
 def make_sharded_eval_fn(mesh, batch_size: int = 32, num_samples: int = 5):
-    """``eval_fn(model, X, seed) -> probs [N, K]`` on every rank: whole-set
-    class probabilities with each batch's rows over the data ranks and the
-    patches over the model ranks (``trainer.predict_probs`` under the
-    mesh)."""
+    """``eval_fn(model, X, seed, graphed=None) -> probs [N, K]`` on every
+    rank: whole-set class probabilities with each batch's rows over the
+    data ranks and the patches over the model ranks
+    (``trainer.predict_probs`` under the mesh)."""
 
-    def eval_fn(model, X, seed):
+    def eval_fn(model, X, seed, graphed=None):
         with mesh_context(mesh):
             return trainer.predict_probs(model, X, seed, batch_size,
-                                         num_samples)
+                                         num_samples, graphed)
 
     return eval_fn
 
 
 def make_sharded_accuracy_fn(mesh, batch_size: int = 32,
                              num_samples: int = 5):
-    """``acc_fn(model, X, Y, seed) -> count``: the whole-set count of
-    correct predictions (a device int64, summed over the data group, so
-    only the scalar crosses ranks); divide by the true row count."""
+    """``acc_fn(model, X, Y, seed, graphed=None) -> count``: the whole-set
+    count of correct predictions (a device int64, summed over the data
+    group, so only the scalar crosses ranks); divide by the true row
+    count."""
 
-    def acc_fn(model, X, Y, seed):
+    def acc_fn(model, X, Y, seed, graphed=None):
         with mesh_context(mesh):
             return trainer.correct_count(model, X, Y, seed, batch_size,
-                                         num_samples)
+                                         num_samples, graphed)
 
     return acc_fn
 

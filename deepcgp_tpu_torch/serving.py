@@ -9,13 +9,15 @@ come from a ``torch.Generator`` seeded from ``seed`` and the batch count,
 so answers are reproducible for a given seed (the stream is not the JAX
 package's).
 
-On a CUDA device with no mesh each padded batch is a replayed CUDA graph
-(``training.graphs``), the counterpart of the JAX package's jitted
-``_probs`` and ``_dens``: one graph per entry point and batch shape,
-captured after the first such batch ran eagerly, reading the model's
-parameters where they lie and drawing from one persistent generator that
-is re-seeded before each replay exactly as the eager batch's generator is
-seeded.  ``graphed=False`` serves eagerly; the CPU and a mesh always do.
+On a CUDA device, with no mesh or under a mesh of NCCL groups, each
+padded batch is a replayed CUDA graph (``training.graphs``), the
+counterpart of the JAX package's jitted ``_probs`` and ``_dens``: one
+graph per entry point, batch shape and mesh, captured after the first
+such batch ran eagerly, reading the model's parameters where they lie and
+drawing from one persistent generator that is re-seeded before each
+replay exactly as the eager batch's generator is seeded; under a mesh the
+graph ends in the gather of the batch's rows.  ``graphed=False`` serves
+eagerly; the CPU and a gloo mesh always do.
 
 With ``mesh`` (a ``parallel.mesh.Mesh`` or a spec such as 'data=2'),
 every rank of the mesh serves the same request with the same model:
@@ -68,7 +70,8 @@ class Predictor:
         # from the run's preprocessing.npz).
         self.preprocessing = preprocessing
         self._calls = 0
-        # None: graphed on a CUDA device without a mesh (graphs.use_graphs).
+        # None: graphed on a CUDA device without a mesh or under an NCCL
+        # mesh (graphs.use_graphs).
         self.graphed = graphed
         self._graphs = None
 
@@ -104,7 +107,7 @@ class Predictor:
         """``fn(xb, yb, generator)`` over the request's padded batches;
         returns each batch's result gathered over the data ranks and cut
         to its true rows.  Graphed, the batch is copied into the graph of
-        (``kind``, its shape), whose generator is seeded as
+        (``kind``, its shape, the mesh), whose generator is seeded as
         :meth:`_generator` seeds the eager one."""
         outs = []
         with sharding.mesh_context(self.mesh):
@@ -121,9 +124,11 @@ class Predictor:
             for _, n, xb, yb in self._batches(flat, Y):
                 self._calls += 1
                 g.manual_seed((self.seed << 32) + self._calls)
-                key = (kind, tuple(xb.shape), self.num_samples, ident)
+                key = (kind, tuple(xb.shape), self.num_samples,
+                       graphs.mesh_key(), ident)
                 out = self._graphs.run(
-                    key, lambda x, y: fn(x, y, g), (xb, yb), (g,))
+                    key, lambda x, y: sharding.gather_rows(fn(x, y, g)),
+                    (xb, yb), (g,))
                 outs.append(out[:n].clone())
         return outs
 

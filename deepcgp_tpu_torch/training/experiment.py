@@ -6,8 +6,9 @@ iteration chunk (``trainer.run_chunk``, no host sync inside), then logs and
 snapshots parameters (`conv_gp/experiment.py:28-31,56-64`).
 
 The training set moves to the device once; each chunk syncs once, for
-its mean ELBO, and each evaluation once, for its count.  On the card
-without a mesh the chunk and the eval run as replayed CUDA graphs
+its mean ELBO, and each evaluation once, for its count.  On the card,
+without a mesh or under ``--mesh`` / ``--distributed`` over NCCL, the
+chunk and the eval run as replayed CUDA graphs
 (``trainer.run_chunk``'s and ``trainer.accuracy``'s default): the chunk's
 graphs live on the TrainState, so the NatGrad warm start's new state and
 a resumed run capture afresh, and the eval's on the model.  The run writes
@@ -22,7 +23,9 @@ rank goes to 'data'; ``--mesh`` alone in one process is the one-rank
 mesh).  Every rank builds the model from the whole data set, and rank 0's
 parameters are broadcast; each rank keeps only its
 ``multihost.process_shard`` of the training set resident, the chunk and
-the evaluation run under the mesh, and rank 0 alone writes the run's
+the evaluation run under the mesh -- on the card over NCCL as replayed
+graphs with their collectives captured (the default, as without a mesh),
+over gloo eagerly -- and rank 0 alone writes the run's
 files (every rank waits at a barrier after a write, and every rank reads
 on resume).  The TensorBoard log, on rank 0, evaluates its tasks outside
 the mesh, on rank 0's shard of the training set.

@@ -45,9 +45,25 @@ The graphs of one cache share a private memory pool, in which one graph
 may reuse another's intermediate memory: a caller reads a graph's
 outputs (in stream order) before it replays another graph of the cache.
 
+Under a mesh (``parallel.sharding``) the collectives of a step are
+captured with it, as the JAX package jits its sharded programs: NCCL
+launches each on its own stream, joined to the capturing stream by
+events, so the graph holds the kernels of every rank's collective and a
+replay runs them with the rest.  The capture keeps the default, strictest
+mode ('global'); NCCL's collectives and its watchdog thread capture in
+it, as they do in 'thread_local', on the H100.  The eager run before each capture is
+where NCCL creates each group's communicator, which it cannot do inside
+a capture.  Every graph's key holds the active mesh (:func:`mesh_key`):
+a graph captured without a mesh skips every collective, and one captured
+under a mesh runs its groups'.  Each rank replays its graphs in the same
+order, as it runs its eager collectives.  The collectives count in
+``sharding.collective.launches``, taken back and added per replay as the
+kernel counters are.
+
 A capture that fails raises; nothing falls back to eager.  Eager is the
-CPU's way, a mesh's (its collectives are not captured) or the caller's
-choice (``graphed=False``), as :func:`use_graphs` decides.
+CPU's way, a gloo mesh's (gloo's collectives run on the host and cannot
+be captured) or the caller's choice (``graphed=False``), as
+:func:`use_graphs` decides.
 """
 
 from __future__ import annotations
@@ -57,6 +73,7 @@ import time
 import weakref
 
 import torch
+import torch.distributed as dist
 
 from deepcgp_tpu_torch.ops import cuda_cross
 from deepcgp_tpu_torch.parallel import sharding
@@ -86,20 +103,36 @@ def counts_taken_back(fns):
 def use_graphs(graphed, device, what: str) -> bool:
     """Whether ``what`` runs as replayed graphs: ``graphed=None`` means
     yes on a CUDA device with no active mesh (``sharding.active_mesh()``)
-    and no on the CPU or under a mesh; False means eager; True means
-    graphed, and raises on the CPU or under a mesh (the collectives of a
-    mesh are not captured)."""
+    or under a mesh whose groups (and process group) are all NCCL's, and
+    no on the CPU or under a gloo mesh; False means eager; True means
+    graphed, and raises on the CPU or under a gloo mesh (gloo's
+    collectives are not captured).  A one-rank mesh without a process
+    group has no collectives and counts as no mesh."""
     cuda = torch.device(device).type == 'cuda'
-    meshed = sharding.active_mesh() is not None
+    mesh = sharding.active_mesh()
+    gloo = mesh is not None and mesh.distributed and {
+        dist.get_backend(g) for g in (None, mesh.data_group,
+                                      mesh.model_group)} != {'nccl'}
     if graphed is None:
-        return cuda and not meshed
+        return cuda and not gloo
     if graphed and not cuda:
         raise ValueError(f'{what}: graphed=True needs a CUDA device, '
                          f'not {device}')
-    if graphed and meshed:
-        raise ValueError(f'{what}: graphed=True under a mesh; its '
-                         'collectives are not captured, so it runs eager')
+    if graphed and gloo:
+        raise ValueError(f'{what}: graphed=True under a gloo mesh; its '
+                         'collectives run on the host and are not '
+                         'captured, so it runs eager')
     return bool(graphed)
+
+
+def mesh_key() -> tuple | None:
+    """The active mesh as a graph key holds it: its shape, this rank and
+    its groups (None without a mesh)."""
+    mesh = sharding.active_mesh()
+    if mesh is None:
+        return None
+    return (mesh.data, mesh.model, mesh.rank, mesh.world_size,
+            mesh.data_group, mesh.model_group)
 
 
 def tensor_key(tensors) -> tuple:
@@ -210,7 +243,7 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        fns = counted()
+        fns = counted() + (sharding.collective,)
         t = time.perf_counter()
         with counts_taken_back(fns) as launches:
             graph.capture_begin(pool=self.pool)

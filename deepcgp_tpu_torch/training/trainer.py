@@ -9,12 +9,14 @@ parameters and Adam moments as they were (the reference's
 Cholesky-failure retry); the failure stays visible as a NaN in the
 returned ELBO trace.
 
-On a CUDA device with no mesh the chunk and the eval run as replayed
-CUDA graphs (``training.graphs``), the counterpart of the JAX package's jitted
-``lax.scan`` programs: one step (index draw, gather, ``train_step``) is
-captured once per state and replayed ``num_steps`` times, each replay
-writing its ELBO into a device trace at a device-held index, so the host
-does one replay a step and nothing else.  A replay reads the state's
+On a CUDA device, with no mesh or under a mesh of NCCL groups, the chunk
+and the eval run as replayed CUDA graphs (``training.graphs``), the
+counterpart of the JAX package's jitted ``lax.scan`` programs (sharded
+ones under a mesh): one step (index draw, gather, ``train_step``, its
+collectives included) is captured once per state and replayed
+``num_steps`` times, each replay writing its ELBO into a device trace at
+a device-held index, so the host does one replay a step and nothing
+else.  A replay reads the state's
 tensors where they lie, so ``train_step`` writes every field of the state
 in place and no field of a ``TrainState`` is ever reassigned.
 
@@ -229,12 +231,13 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
     commit and rolls back to ``state.prev`` when it is non-finite.
 
     ``graphed`` (``graphs.use_graphs``): None runs the chunk as replayed
-    CUDA graphs on a CUDA device with no active mesh, and eagerly on the
-    CPU or under a mesh (whose collectives are not captured); False runs
-    it eagerly anywhere; True runs it graphed and raises on the CPU or
-    under a mesh.  Graphed, one step is captured per state (in
-    ``state.graphs``), keyed by the config, the model's sample count and
-    the identity of X_train, Y_train and every tensor of the state; the
+    CUDA graphs on a CUDA device with no active mesh or under an NCCL
+    mesh, and eagerly on the CPU or under a gloo mesh (whose collectives
+    are not captured); False runs it eagerly anywhere; True runs it
+    graphed and raises on the CPU or under a gloo mesh.  Graphed, one step
+    is captured per state (in ``state.graphs``), keyed by the config, the
+    model's sample count, the active mesh (``graphs.mesh_key``) and the
+    identity of X_train, Y_train and every tensor of the state; the
     first step of the first chunk runs eagerly (a real step of the chunk)
     before the capture, and every later step is a replay, which reads the
     state where it lies and draws from ``state.generator`` as the eager
@@ -247,7 +250,9 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
     ``multihost.process_shard`` of the resident set: every rank draws the
     same global indices from the replicated generator, the batch is
     assembled from the rows each rank owns (``multihost.fetch_rows``) and
-    each rank steps on its rows of it."""
+    each rank steps on its rows of it; graphed, each rank's step graph
+    holds its collectives (the batch's all-reduce, the gradients' sum,
+    the commit guard's MIN)."""
     sharded = sharding.active_mesh() is not None
     N = X_train.shape[0] * (multihost.world()[0] if sharded else 1)
 
@@ -291,6 +296,7 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
         pos.add_(1)
 
     key = (config, state.model.num_samples, id(state.generator),
+           graphs.mesh_key(),
            graphs.tensor_key([X_train, Y_train, trace, pos,
                               *_state_tensors(state)]))
     gens = (state.generator,)
@@ -307,25 +313,28 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
 
 
 def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples,
-                  graphed=None):
-    """(mean class probabilities [n, K], labels [n, 1], rows) per batch of
-    ``batch_size`` test rows, the MC draws from one generator seeded with
-    ``seed`` and drawn across the batches.  Under a data axis each batch
-    is padded to a multiple of the data size (sentinel labels -1) and each
-    rank evaluates its rows of it, with the draws of the batch's true rows
-    (``sharding.true_rows``), so that they are the single-process ones;
-    ``rows`` is the batch's count before the padding.
+                  graphed, kind, finish):
+    """``finish(probs, yb)`` and the batch's true row count, per batch of
+    ``batch_size`` test rows: ``probs`` [n, K] are the mean class
+    probabilities of this rank's rows, ``yb`` [n, 1] their labels, the MC
+    draws from one generator seeded with ``seed`` and drawn across the
+    batches.  Under a data axis each batch is padded to a multiple of the
+    data size (sentinel labels -1) and each rank evaluates its rows of it,
+    with the draws of the batch's true rows (``sharding.true_rows``), so
+    that they are the single-process ones.
 
     Graphed (``graphs.use_graphs``: by default on a CUDA device with no
-    active mesh), each batch shape -- the full batch, and the last partial
-    one if there is one -- is one graph of ``predict_y`` and its mean over
-    the draws, in the model's graph cache (``graphs.model_cache``): a
-    batch is copied into the graph's static input and the graph replayed,
-    the first batch of a shape run eagerly before its capture.  Both
-    graphs draw from one generator of the cache, seeded with ``seed``
-    before the first batch, so the draws are the eager ones.  The
-    probabilities yielded are then the graph's static output, valid until
-    the next batch."""
+    active mesh or under an NCCL mesh), each batch shape -- the full
+    batch, and the last partial one if there is one -- is one graph of
+    ``predict_y``, its mean over the draws and ``finish`` (its collectives
+    included) in the model's graph cache (``graphs.model_cache``), keyed
+    by ``kind``, the shape, the true rows and the active mesh: a batch is
+    copied into the graph's static inputs and the graph replayed, the
+    first batch of a shape run eagerly before its capture.  Both graphs
+    draw from one generator of the cache, seeded with ``seed`` before the
+    first batch, so the draws are the eager ones.  What ``finish``
+    returned is then the graph's static output, valid until the next
+    batch."""
     device = model.layers[0].Z.device
     dtype = model.layers[0].Z.dtype
     X = torch.as_tensor(X_test, device=device)
@@ -334,27 +343,40 @@ def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples,
     if graphs.use_graphs(graphed, device, 'the eval'):
         cache = graphs.model_cache(model)
         g = cache.generator('eval')
-        g.manual_seed(seed)
         ident = graphs.tensor_key(graphs.module_tensors(model))
-
-        def mean_probs(xb):
-            return model.predict_y(xb, num_samples, generator=g)[0].mean(0)
-
-        for start in range(0, X.shape[0], batch_size):
-            xb = X[start:start + batch_size]
-            key = ('eval', tuple(xb.shape), num_samples, ident)
-            probs = cache.run(key, mean_probs, (xb,), (g,))
-            yield probs, Y[start:start + batch_size], xb.shape[0]
-        return
-    g = torch.Generator(device=device)
+    else:
+        cache, g = None, torch.Generator(device=device)
     g.manual_seed(seed)
+
+    def batch(xb, yb, rows):
+        with sharding.true_rows(rows):
+            probs, _ = model.predict_y(xb, num_samples, generator=g)
+        return finish(probs.mean(0), yb)
+
     for start in range(0, X.shape[0], batch_size):
         rows = min(batch_size, X.shape[0] - start)
         xb, yb = sharding.split_rows(X[start:start + batch_size],
                                      Y[start:start + batch_size])
-        with sharding.true_rows(rows):
-            probs, _ = model.predict_y(xb, num_samples, generator=g)
-        yield probs.mean(0), yb, rows
+        if cache is None:
+            yield batch(xb, yb, rows), rows
+            continue
+        key = (kind, tuple(xb.shape), rows, num_samples, graphs.mesh_key(),
+               ident)
+        yield cache.run(key, lambda x, y: batch(x, y, rows), (xb, yb),
+                        (g,)), rows
+
+
+def _sum_counts(model, count, graphed):
+    """``count`` summed over the data group: one graph of the all-reduce
+    where the eval runs graphed under a mesh that spans processes, else
+    ``sharding.sum_over_data``."""
+    mesh = sharding.active_mesh()
+    if (mesh is None or not mesh.distributed
+            or not graphs.use_graphs(graphed, count.device, 'the eval')):
+        return sharding.sum_over_data([count])[0]
+    return graphs.model_cache(model).run(
+        ('eval sum', graphs.mesh_key()),
+        lambda c: sharding.sum_over_data([c])[0], (count,)).clone()
 
 
 @torch.no_grad()
@@ -366,11 +388,12 @@ def correct_count(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
     rows and the count is summed over the data group."""
     correct = torch.zeros((), dtype=torch.int64,
                           device=model.layers[0].Z.device)
-    for probs, yb, _ in _eval_batches(model, X_test, Y_test, seed,
-                                      batch_size, num_samples, graphed):
-        correct += (probs.argmax(1)[:, None] == yb).sum()
-    (correct,) = sharding.sum_over_data([correct])
-    return correct
+    for count, _ in _eval_batches(
+            model, X_test, Y_test, seed, batch_size, num_samples, graphed,
+            'eval count', lambda probs, yb: (probs.argmax(1)[:, None]
+                                             == yb).sum()):
+        correct += count
+    return _sum_counts(model, correct, graphed)
 
 
 @torch.no_grad()
@@ -381,10 +404,9 @@ def predict_probs(model, X_test, seed: int = 0, batch_size: int = 32,
     drawn as :func:`accuracy` does; under a data axis the rows are
     gathered, so every rank returns all of them."""
     labels = torch.zeros((X_test.shape[0], 1), dtype=torch.int64)
-    return torch.cat([sharding.gather_rows(probs)[:rows].clone()
-                      for probs, _, rows in _eval_batches(
-                          model, X_test, labels, seed, batch_size,
-                          num_samples, graphed)])
+    return torch.cat([probs[:rows].clone() for probs, rows in _eval_batches(
+        model, X_test, labels, seed, batch_size, num_samples, graphed,
+        'eval', lambda probs, _: sharding.gather_rows(probs))])
 
 
 @torch.no_grad()
@@ -395,8 +417,8 @@ def accuracy(model, X_test, Y_test, seed: int = 0, batch_size: int = 32,
     ``X_test`` [N, ...] and ``Y_test`` [N(, 1)] are arrays or tensors; a
     tensor already on the model's device is used where it lies.  One host
     sync, for the count.  ``graphed`` as in :func:`_eval_batches`: by
-    default replayed graphs on a CUDA device with no active mesh, eager
-    on the CPU or under a mesh."""
+    default replayed graphs on a CUDA device with no active mesh or under
+    an NCCL mesh, eager on the CPU or under a gloo mesh."""
     correct = correct_count(model, X_test, Y_test, seed, batch_size,
                             num_samples, graphed)
     return float(correct) / torch.as_tensor(Y_test).numel()

@@ -236,19 +236,23 @@ def test_default_runs_eager_on_the_cpu():
         assert torch.equal(a, b)
 
 
-def test_use_graphs_decides_by_device_and_mesh():
+def test_use_graphs_decides_by_device_and_mesh(monkeypatch):
     """None: graphed on a CUDA device without a mesh, eager on the CPU and
-    under a mesh; True raises where None would run eager; False is eager
-    everywhere."""
+    under a gloo mesh (an NCCL mesh: tests/test_torch_graphs_mesh.py);
+    True raises where None would run eager; False is eager everywhere."""
     cuda, cpu = torch.device('cuda'), torch.device('cpu')
     assert graphs.use_graphs(None, cuda, 'x') is True
     assert graphs.use_graphs(None, cpu, 'x') is False
     assert graphs.use_graphs(False, cuda, 'x') is False
     assert graphs.use_graphs(True, 'cuda', 'x') is True
-    with sharding.mesh_context(types.SimpleNamespace(data=2, model=1)):
+    monkeypatch.setattr(torch.distributed, 'get_backend',
+                        lambda group=None: 'gloo')
+    with sharding.mesh_context(types.SimpleNamespace(
+            data=2, model=1, distributed=True, data_group='data group',
+            model_group='model group')):
         assert graphs.use_graphs(None, cuda, 'x') is False
         assert graphs.use_graphs(False, cuda, 'x') is False
-        with pytest.raises(ValueError, match='under a mesh'):
+        with pytest.raises(ValueError, match='under a gloo mesh'):
             graphs.use_graphs(True, cuda, 'x')
     with pytest.raises(ValueError, match='CUDA device'):
         graphs.use_graphs(True, cpu, 'x')

@@ -1,0 +1,9 @@
+"""Device milliseconds a training step in the conditional's source bucket
+(``ops/conditional.py``: the whitening products and the q_sqrt term),
+over the traced stretch's replayed steps."""
+
+
+def read(r):
+    if r.kind != 'train' or not r.sources or 'qsqrt-term' not in r.sources:
+        return None
+    return r.sources['qsqrt-term'] / 1e3 / r.units

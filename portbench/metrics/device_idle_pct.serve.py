@@ -1,0 +1,8 @@
+"""Share of the traced stretch of requests in which no operation ran on
+the device, in percent."""
+
+
+def read(r):
+    if r.kind != 'serve' or not r.window_s:
+        return None
+    return 100.0 * (1.0 - r.busy_s / r.window_s)

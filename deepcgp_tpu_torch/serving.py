@@ -25,6 +25,15 @@ each batch's rows split over the data ranks (and the patches or GPs over
 the model ranks, ``parallel.sharding``), the batch's draws are the
 single-process ones, and the answers are gathered, so every rank returns
 the whole [N, K].
+
+Each request is a span of ``utils.profiling`` (``predict_proba`` or
+``log_density``, carrying the Predictor's request count) over its
+phases: ``serve prepare`` (flatten, standardize), ``serve h2d`` (pad and
+move to the card), ``serve key`` (the graph key's walk over the model's
+tensors), each batch's replay (``graph replay <kind>``; eager: ``serve
+batch``), ``serve wait`` (the synchronize) and ``serve finish`` (the
+copies out and back to the host).  A trace or a recording names the
+host's time and the card's idle time by them.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ from deepcgp_tpu_torch.models.builder import build_model, parse_ints
 from deepcgp_tpu_torch.parallel import mesh as mesh_lib
 from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.training import graphs
-from deepcgp_tpu_torch.utils import checkpoint
+from deepcgp_tpu_torch.utils import checkpoint, profiling
 
 
 class Predictor:
@@ -70,6 +79,7 @@ class Predictor:
         # from the run's preprocessing.npz).
         self.preprocessing = preprocessing
         self._calls = 0
+        self._requests = 0
         # None: graphed on a CUDA device without a mesh or under an NCCL
         # mesh (graphs.use_graphs).
         self.graphed = graphed
@@ -114,13 +124,15 @@ class Predictor:
             if not graphs.use_graphs(self.graphed, self.device,
                                      f'Predictor.{kind}'):
                 for _, n, xb, yb in self._batches(flat, Y):
-                    out = fn(xb, yb, self._generator())
-                    outs.append(sharding.gather_rows(out)[:n])
+                    with profiling.annotate('serve batch', device=True):
+                        out = fn(xb, yb, self._generator())
+                        outs.append(sharding.gather_rows(out)[:n])
                 return outs
             if self._graphs is None:
                 self._graphs = graphs.GraphCache(self.device)
             g = self._graphs.generator(kind)
-            ident = graphs.tensor_key(graphs.module_tensors(self.model))
+            with profiling.annotate('serve key'):
+                ident = graphs.tensor_key(graphs.module_tensors(self.model))
             for _, n, xb, yb in self._batches(flat, Y):
                 self._calls += 1
                 g.manual_seed((self.seed << 32) + self._calls)
@@ -128,9 +140,32 @@ class Predictor:
                        graphs.mesh_key(), ident)
                 out = self._graphs.run(
                     key, lambda x, y: sharding.gather_rows(fn(x, y, g)),
-                    (xb, yb), (g,))
-                outs.append(out[:n].clone())
+                    (xb, yb), (g,), request=self._requests)
+                with profiling.annotate('serve finish', device=True):
+                    outs.append(out[:n].clone())
         return outs
+
+    def _request(self, kind: str, fn, X, raw: bool, Y=None, width=()):
+        """One request, a span of its own: ``fn`` over the prepared rows'
+        batches (:meth:`_serve`), then the wait for the card and the
+        answers gathered on the host as float32 [N, *width]."""
+        self._requests += 1
+        with profiling.annotate(kind, request=self._requests):
+            with profiling.annotate('serve prepare'):
+                flat = self._prepare(X, raw)
+                if Y is not None:
+                    Y = np.asarray(Y).reshape(-1, 1)
+                    if Y.shape[0] != flat.shape[0]:
+                        raise ValueError(f'X has {flat.shape[0]} rows but Y '
+                                         f'has {Y.shape[0]} labels')
+                    Y = Y.astype(np.int64)
+            outs = self._serve(kind, fn, flat, Y)
+            with profiling.annotate('serve wait'):
+                self._sync()
+            with profiling.annotate('serve finish', device=True):
+                if not outs:
+                    return np.empty((0, *width), np.float32)
+                return torch.cat(outs).cpu().numpy().astype(np.float32)
 
     def _prepare(self, X, raw: bool) -> np.ndarray:
         """Flatten, and standardize raw inputs with the training scaler."""
@@ -151,11 +186,12 @@ class Predictor:
         transfer; under a mesh, this data rank's rows of each batch."""
         N = flat.shape[0]
         B = self.batch_size
-        if Y is None:
-            Y = np.zeros((N, 1), np.int64)
-        flat, Y = multihost.pad_rows(flat, Y, B)
-        Xd = torch.as_tensor(flat).to(self.device, self.dtype)
-        Yd = torch.as_tensor(Y).to(self.device)
+        with profiling.annotate('serve h2d', device=True):
+            if Y is None:
+                Y = np.zeros((N, 1), np.int64)
+            flat, Y = multihost.pad_rows(flat, Y, B)
+            Xd = torch.as_tensor(flat).to(self.device, self.dtype)
+            Yd = torch.as_tensor(Y).to(self.device)
         rows = slice(None) if self.mesh is None else self.mesh.rows(B)
         for start in range(0, N, B):
             yield (start, min(B, N - start), Xd[start:start + B][rows],
@@ -167,14 +203,9 @@ class Predictor:
 
     def predict_proba(self, X, raw: bool = False) -> np.ndarray:
         """[N, D or H, W, C] -> [N, K] mean class probabilities."""
-        flat = self._prepare(X, raw)
-        outs = self._serve('predict_proba', lambda xb, _, g: (
+        return self._request('predict_proba', lambda xb, _, g: (
             self.model.predict_y(xb, self.num_samples, generator=g)[0]
-            .mean(0)), flat)
-        self._sync()
-        if not outs:
-            return np.empty((0, self.model.likelihood.num_classes), np.float32)
-        return torch.cat(outs).cpu().numpy().astype(np.float32)
+            .mean(0)), X, raw, width=(self.model.likelihood.num_classes,))
 
     def predict(self, X, raw: bool = False) -> np.ndarray:
         """[N, ...] -> [N] argmax class labels."""
@@ -182,18 +213,8 @@ class Predictor:
 
     def log_density(self, X, Y, raw: bool = False) -> np.ndarray:
         """Per-point predictive log p(y | x), [N]."""
-        flat = self._prepare(X, raw)
-        Y = np.asarray(Y).reshape(-1, 1)
-        if Y.shape[0] != flat.shape[0]:
-            raise ValueError(f'X has {flat.shape[0]} rows but Y has '
-                             f'{Y.shape[0]} labels')
         # The padding rows' sentinel -1 read as class 0: their densities
         # are dropped.
-        outs = self._serve('log_density', lambda xb, yb, g: (
+        return self._request('log_density', lambda xb, yb, g: (
             self.model.predict_density(xb, yb.clamp_min(0), self.num_samples,
-                                       generator=g)[:, 0]),
-            flat, Y.astype(np.int64))
-        self._sync()
-        if not outs:
-            return np.empty((0,), np.float32)
-        return torch.cat(outs).cpu().numpy().astype(np.float32)
+                                       generator=g)[:, 0]), X, raw, Y=Y)

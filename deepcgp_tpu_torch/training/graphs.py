@@ -31,9 +31,11 @@ host-side cache (``cuda_linalg._max_clusters``, the Gauss-Hermite points,
 ...) outside the capture; the capture itself runs no kernel.  The eager
 run builds ``cuda_cross``'s padded copies of Z as the capture does, on
 every call, so it launches the kernels a replay launches, in their order
-(the region ``graph eager <name>`` of a trace; a replay is ``graph
-replay <name>``, whose graph's kernels follow the generators' seed and
-offset fills that every replay launches first).  The kernel
+(the span ``graph eager <name>`` of a trace or a recording; a replay is
+``graph replay <name>``, whose graph's kernels follow the generators'
+seed and offset fills that every replay launches first; the capture is
+``graph capture <name>``, and counts in
+``profiling.COUNTERS['graph captures']``).  The kernel
 wrappers' launch counters count the Python calls a capture makes: those
 counts are taken back and added again on every replay
 (:func:`counts_taken_back`, :meth:`Graph.replay`), so each counter stays
@@ -146,16 +148,16 @@ def module_tensors(module: torch.nn.Module) -> list:
 
 
 def region(kind: str, key) -> str:
-    """The trace region of a graph's eager run (``kind`` 'eager') or of a
-    replay ('replay'), named by its key's first element: 'graph replay
-    step' is one optimizer step of ``run_chunk``."""
+    """The span of a graph's eager run (``kind`` 'eager'), of its capture
+    ('capture') or of a replay ('replay'), named by its key's first
+    element: 'graph replay step' is one optimizer step of ``run_chunk``."""
     return f'graph {kind} {key[0] if isinstance(key, tuple) else key}'
 
 
 class Graph:
     """One captured function: its graph, its static inputs and outputs,
-    the launches one replay makes of each counted kernel, and the trace
-    region of a replay."""
+    the launches one replay makes of each counted kernel, and the span of
+    a replay."""
 
     def __init__(self, graph, inputs, outputs, launches, fns,
                  region='graph replay'):
@@ -166,12 +168,13 @@ class Graph:
         self.launches = launches
         self.fns = fns
 
-    def replay(self):
+    def replay(self, request=None):
         """Launch the graph on the current stream; returns its static
         outputs, which the next replay overwrites.  A replay writes
         tensors without bumping their version counters, so the host-side
-        copies keyed by them (``cuda_cross``'s padded Z) are dropped."""
-        with profiling.annotate(self.region):
+        copies keyed by them (``cuda_cross``'s padded Z) are dropped.
+        The replay is a span carrying ``request``, with its device work."""
+        with profiling.annotate(self.region, request=request, device=True):
             self.graph.replay()
         cuda_cross.drop_padded_copies()
         for fn, n in zip(self.fns, self.launches):
@@ -212,30 +215,33 @@ class GraphCache:
             t = self.buffers[name] = make()
         return t
 
-    def run(self, key, fn, inputs=(), generators=()):
+    def run(self, key, fn, inputs=(), generators=(), request=None):
         """``fn(*inputs)`` (its outputs: tensors, or None) through the graph
         of ``key``: a replay after the inputs are copied into the static
         ones; or, the first time, an eager run on the side stream followed
         by the capture of ``fn`` on static copies of the inputs, with
-        ``generators`` registered (every generator ``fn`` draws from)."""
+        ``generators`` registered (every generator ``fn`` draws from).
+        The replay or the eager run is a span carrying ``request``."""
         entry = self.graphs.get(key)
         if entry is not None:
             for static, x in zip(entry.inputs, inputs):
                 static.copy_(x)
-            return entry.replay()
+            return entry.replay(request)
         static = [x.clone() for x in inputs]
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            with profiling.annotate(region('eager', key)), \
+            with profiling.annotate(region('eager', key), request=request,
+                                    device=True), \
                     cuda_cross.built_every_call():
                 out = fn(*static)
             # A capture cannot free memory: the cached blocks go back to
             # the device first, so that the pool can take them.
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
-            self.graphs[key] = self._capture(fn, static, generators,
-                                             region('replay', key))
+            with profiling.annotate(region('capture', key)):
+                self.graphs[key] = self._capture(fn, static, generators,
+                                                 region('replay', key))
         current.wait_stream(self.stream)
         return out
 
@@ -258,6 +264,7 @@ class GraphCache:
                 raise
             graph.capture_end()
         self.captures += 1
+        profiling.COUNTERS['graph captures'] += 1
         self.capture_seconds += time.perf_counter() - t
         return Graph(graph, static, outputs, launches, fns, name)
 

@@ -47,6 +47,7 @@ import torch
 
 from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.training import graphs, optim
+from deepcgp_tpu_torch.utils import profiling
 
 _VARIATIONAL = ('q_mu', 'q_sqrt')
 
@@ -78,6 +79,8 @@ class TrainState:
     # graphed ``run_chunk``; a new state captures afresh.
     graphs: graphs.GraphCache | None = dataclasses.field(default=None,
                                                          repr=False)
+    # The run_chunk calls so far, the request of each call's span.
+    chunks: int = dataclasses.field(default=0, repr=False, compare=False)
 
 
 def _natgrad_names(model) -> list:
@@ -273,43 +276,47 @@ def run_chunk(state: TrainState, config: TrainConfig, X_train: torch.Tensor,
         for k, p in state.params.items():
             p.copy_(torch.where(ok, p, state.prev[k]))
 
-    natgrad = config.optimizer == 'NatGrad'
-    if not graphs.use_graphs(graphed, X_train.device, 'run_chunk'):
-        elbos = [train_step(state, config, *batch())
-                 for _ in range(num_steps)]
+    state.chunks += 1
+    with profiling.annotate('run_chunk', request=state.chunks):
+        natgrad = config.optimizer == 'NatGrad'
+        if not graphs.use_graphs(graphed, X_train.device, 'run_chunk'):
+            elbos = [train_step(state, config, *batch())
+                     for _ in range(num_steps)]
+            if natgrad:
+                final_check()
+            return torch.stack(elbos)
+
+        if state.graphs is None:
+            state.graphs = graphs.GraphCache(X_train.device)
+        cache = state.graphs
+        device = X_train.device
+        trace = cache.buffer('trace', lambda: torch.empty(
+            TRACE_BLOCK, dtype=state.model.layers[0].q_mu.dtype,
+            device=device))
+        pos = cache.buffer('pos', lambda: torch.zeros(1, dtype=torch.int64,
+                                                      device=device))
+
+        def step():
+            elbo = train_step(state, config, *batch())
+            trace.index_copy_(0, pos, elbo.reshape(1).to(trace.dtype))
+            pos.add_(1)
+
+        key = (config, state.model.num_samples, id(state.generator),
+               graphs.mesh_key(),
+               graphs.tensor_key([X_train, Y_train, trace, pos,
+                                  *_state_tensors(state)]))
+        gens = (state.generator,)
+        out = []
+        for start in range(0, num_steps, TRACE_BLOCK):
+            n = min(TRACE_BLOCK, num_steps - start)
+            pos.zero_()
+            for i in range(n):
+                cache.run(('step', key), step, generators=gens,
+                          request=start + i)
+            out.append(trace[:n].clone())
         if natgrad:
-            final_check()
-        return torch.stack(elbos)
-
-    if state.graphs is None:
-        state.graphs = graphs.GraphCache(X_train.device)
-    cache = state.graphs
-    device = X_train.device
-    trace = cache.buffer('trace', lambda: torch.empty(
-        TRACE_BLOCK, dtype=state.model.layers[0].q_mu.dtype, device=device))
-    pos = cache.buffer('pos', lambda: torch.zeros(1, dtype=torch.int64,
-                                                  device=device))
-
-    def step():
-        elbo = train_step(state, config, *batch())
-        trace.index_copy_(0, pos, elbo.reshape(1).to(trace.dtype))
-        pos.add_(1)
-
-    key = (config, state.model.num_samples, id(state.generator),
-           graphs.mesh_key(),
-           graphs.tensor_key([X_train, Y_train, trace, pos,
-                              *_state_tensors(state)]))
-    gens = (state.generator,)
-    out = []
-    for start in range(0, num_steps, TRACE_BLOCK):
-        n = min(TRACE_BLOCK, num_steps - start)
-        pos.zero_()
-        for _ in range(n):
-            cache.run(('step', key), step, generators=gens)
-        out.append(trace[:n].clone())
-    if natgrad:
-        cache.run(('final check', key), final_check, generators=gens)
-    return torch.cat(out)
+            cache.run(('final check', key), final_check, generators=gens)
+        return torch.cat(out)
 
 
 def _eval_batches(model, X_test, Y_test, seed, batch_size, num_samples,

@@ -21,6 +21,7 @@ from deepcgp_tpu_torch.parallel import sharding
 from deepcgp_tpu_torch.parallel.train import free_port, run_processes
 from deepcgp_tpu_torch.serving import Predictor
 from deepcgp_tpu_torch.training import graphs, trainer
+from deepcgp_tpu_torch.utils import profiling
 
 IMAGE = (12, 12, 1)
 
@@ -192,6 +193,26 @@ def test_collectives_are_taken_back_and_added_per_replay(monkeypatch):
     for _ in range(2):
         graph.replay()
     assert sharding.collective.launches == before + 6
+
+
+def test_graph_captures_count_one_per_capture(monkeypatch):
+    """profiling.COUNTERS['graph captures'] counts each capture beside the
+    cache's own count, and a replay, a span carrying its request, counts
+    none."""
+    monkeypatch.setattr(torch.cuda, 'CUDAGraph', _FakeCUDAGraph)
+    before = profiling.COUNTERS['graph captures']
+    cache = _cache()
+    graph = cache._capture(lambda: None, [], (), 'graph replay step')
+    cache._capture(lambda: None, [], (), 'graph replay predict_proba')
+    assert profiling.COUNTERS['graph captures'] == before + 2
+    assert cache.captures == 2
+    with profiling.recording() as rec:
+        for step in range(3):
+            graph.replay(request=step)
+    assert profiling.COUNTERS['graph captures'] == before + 2
+    assert [(s.name, s.request) for s in rec.spans] == [
+        ('graph replay step', 0), ('graph replay step', 1),
+        ('graph replay step', 2)]
 
 
 def test_gather_rows_is_one_flat_all_gather(monkeypatch):

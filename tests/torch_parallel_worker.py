@@ -220,7 +220,7 @@ class RecordingCache:
             self.buffers[name] = make()
         return self.buffers[name]
 
-    def run(self, key, fn, inputs=(), generators=()):
+    def run(self, key, fn, inputs=(), generators=(), request=None):
         self.keys.append(key)
         with host_read_mode(self.reads):
             return fn(*[x.clone() for x in inputs])

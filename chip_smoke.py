@@ -2896,6 +2896,266 @@ DIGITS_CHUNKS, DIGITS_MIN_ACCURACY, DIGITS_JAX_ACCURACY = 2, 0.97, 0.9889
 WINDOW_STEPS_PER_S = {}
 
 
+# The Adam step's kernels (ops/cuda_adam.py) against the trainer's plain
+# route: steps from one state (the NaN planted in one gradient at step
+# ADAM_FUSED_NAN_STEP), calls timed a pass, the graphed trainer's steps.
+ADAM_FUSED_STEPS, ADAM_FUSED_NAN_STEP, ADAM_FUSED_TIMED = 5, 2, 50
+ADAM_FUSED_PROFILED, ADAM_FUSED_CHUNK = 5, 6
+
+
+def adam_leaf_sets(torch, dev, seed: int):
+    """The Adam leaves of the benchmark's two configurations from fresh
+    builds on random images: {name: (params, Adam state)} and the
+    flagship model.  'mnist m1024' keeps the fresh q_sqrt [10, 1024, 1024]
+    (bf16 moments) in the Cholesky factor's column-major layout, 'mnist
+    m1024 row-major' holds it row-major, as a loaded snapshot does;
+    'cifar flagship' has float32 moments only."""
+    from deepcgp_tpu_torch.models import builder as mbuilder
+    from deepcgp_tpu_torch.training import optim
+    rng = np.random.RandomState(seed)
+    sets, models = {}, {}
+    for name, flags, image in (('cifar flagship', FLAGSHIP, IMAGE),
+                               ('mnist m1024', M1024, M1024_IMAGE)):
+        X = rng.randn(TRAIN_IMAGES, *image).astype(np.float32)
+        model = mbuilder.build_model(
+            types.SimpleNamespace(**flags, num_samples=TRAIN_SAMPLES), image,
+            images=X, generator=torch.Generator().manual_seed(seed),
+            device=dev)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        sets[name] = (params, optim.adam_init(params,
+                                              optim.bf16_leaf_order(model)))
+        models[name] = (model, X)
+    params = {k: p.contiguous() for k, p in sets['mnist m1024'][0].items()}
+    sets['mnist m1024 row-major'] = (params, optim.adam_init(
+        params, optim.bf16_leaf_order(models['mnist m1024'][0])))
+    return sets, models['cifar flagship']
+
+
+def adam_clone(torch, params: dict, state: dict):
+    """A copy of (params, Adam state), each tensor in its own layout."""
+    def like(t):
+        return torch.empty_like(t).copy_(t)
+    return ({k: like(p) for k, p in params.items()},
+            {'count': state['count'].clone(),
+             'mu': {k: like(t) for k, t in state['mu'].items()},
+             'nu': {k: like(t) for k, t in state['nu'].items()},
+             'salt_index': dict(state['salt_index'])})
+
+
+def adam_kernel_step(torch, params, state, grads, step):
+    """The trainer's kernel branch: one finiteness flag, the step's
+    scalars, the update committed in place where the flag holds."""
+    from deepcgp_tpu_torch.ops import cuda_adam
+    from deepcgp_tpu_torch.training import optim
+    items = cuda_adam.leaves(params, grads, state)
+    ok = cuda_adam.all_finite(items)
+    lr = optim.learning_rate_schedule(0.01, 100000)(step, torch.float32)
+    count, salt0 = optim.adam_count(state['count'])
+    cuda_adam.adam_step(items, *optim.adam_bias(count, torch.float32), lr,
+                        salt0, ok)
+    state['count'].copy_(torch.where(ok, count, state['count']))
+    step.add_(1)
+    return ok
+
+
+def adam_plain_step(torch, params, state, grads, step):
+    """The trainer's plain branch, as it was before the kernels."""
+    from deepcgp_tpu_torch.training import optim
+    ok = torch.ones((), dtype=torch.bool, device=step.device)
+    for g in grads.values():
+        ok = ok & torch.isfinite(g).all()
+    lr = optim.learning_rate_schedule(0.01, 100000)(step, torch.float32)
+    updates, mu, nu, count = optim.adam_updates(grads, state)
+    for k in grads:
+        state['mu'][k].copy_(torch.where(ok, mu[k], state['mu'][k]))
+        state['nu'][k].copy_(torch.where(ok, nu[k], state['nu'][k]))
+    state['count'].copy_(torch.where(ok, count, state['count']))
+    for k, u in updates.items():
+        p = params[k]
+        p.copy_(torch.where(ok, p - lr.to(p.dtype) * u, p))
+    step.add_(1)
+    return ok
+
+
+def adam_differs(torch, a, b) -> list:
+    """[(tensor, differing elements)] where two (params, state) pairs are
+    not bit-identical (integer views, layouts equal)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int64: torch.int64}
+    pairs = [(f'p {k}', a[0][k], b[0][k]) for k in a[0]]
+    pairs += [(f'{m} {k}', a[1][m][k], b[1][m][k]) for m in ('mu', 'nu')
+              for k in a[1][m]]
+    pairs.append(('count', a[1]['count'], b[1]['count']))
+    out = []
+    for name, x, y in pairs:
+        if x.stride() != y.stride():
+            out.append((name, 'layout'))
+        elif not torch.equal(x.view(ints[x.dtype]), y.view(ints[y.dtype])):
+            out.append((name, int((x.view(ints[x.dtype])
+                                   != y.view(ints[y.dtype])).sum())))
+    return out
+
+
+def adam_grads(torch, params: dict, step: int, seed: int) -> dict:
+    """Row-major gradients of step ``step`` (each leaf at its own scale),
+    a NaN in the largest leaf's at ADAM_FUSED_NAN_STEP."""
+    gen = torch.Generator(device=params[next(iter(params))].device)
+    gen.manual_seed(seed * 1000 + step)
+    out = {}
+    for i, (k, p) in enumerate(params.items()):
+        scale = 10.0 ** (i % 5 - 3)
+        out[k] = torch.randn(p.shape, generator=gen, device=p.device) * scale
+    if step == ADAM_FUSED_NAN_STEP:
+        big = max(out, key=lambda k: out[k].numel())
+        out[big].view(-1)[out[big].numel() // 3] = float('nan')
+    return out
+
+
+def adam_fused_phase(torch, dev, card: dict, seed: int) -> None:
+    """The Adam kernels against the trainer's plain route at both
+    configurations' leaf sets: ADAM_FUSED_STEPS steps eager and as a
+    captured step replayed, from one state and the same gradients, the
+    step with a NaN gradient leaving everything as it was; p, mu, nu and
+    count bit-identical after every step; 2 launches a step (one table),
+    none for CPU tensors; each pass timed (queued_ms) beside its byte
+    bound and the plain route; then a graphed trainer chunk of the
+    flagship with the kernels' launches on every step."""
+    from deepcgp_tpu_torch.ops import cuda_adam
+    from deepcgp_tpu_torch.training import optim, trainer
+    from deepcgp_tpu_torch.utils import profiling
+    sets, (flagship, X) = adam_leaf_sets(torch, dev, seed)
+    for name, (params, state) in sets.items():
+        tables = -(-len(params) // cuda_adam.MAX_LEAVES)
+        mapped = [k for k, p in params.items()
+                  if state['mu'][k].dtype == torch.bfloat16
+                  and cuda_adam.index_map(p.shape, p.stride()) is not None]
+        # Eager.
+        kern, plain = adam_clone(torch, params, state), adam_clone(
+            torch, params, state)
+        ksteps = torch.zeros((), dtype=torch.int64, device=dev)
+        psteps = torch.zeros((), dtype=torch.int64, device=dev)
+        eager, oks = [], []
+        launches = cuda_adam.adam_step.launches
+        for i in range(ADAM_FUSED_STEPS):
+            grads = adam_grads(torch, params, i, seed)
+            before = adam_clone(torch, *kern)
+            ok_k = adam_kernel_step(torch, *kern, grads, ksteps)
+            ok_p = adam_plain_step(torch, *plain, grads, psteps)
+            oks.append((bool(ok_k), bool(ok_p)))
+            eager.append(adam_differs(torch, kern, plain))
+            if i == ADAM_FUSED_NAN_STEP:
+                check(adam_differs(torch, kern, before) == [],
+                      f'adam fused {name}: the NaN step changed the state')
+        eager_launches = cuda_adam.adam_step.launches - launches
+        # Captured once, replayed a step; gradients copied into its inputs.
+        kern, plain = adam_clone(torch, params, state), adam_clone(
+            torch, params, state)
+        ksteps.zero_()
+        psteps.zero_()
+        static = {k: torch.zeros(p.shape, device=dev)
+                  for k, p in params.items()}
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        launches = cuda_adam.adam_step.launches
+        with torch.cuda.graph(graph):
+            adam_kernel_step(torch, *kern, static, ksteps)
+        capture_launches = cuda_adam.adam_step.launches - launches
+        replayed = []
+        for i in range(ADAM_FUSED_STEPS):
+            grads = adam_grads(torch, params, i, seed)
+            for k, g in grads.items():
+                static[k].copy_(g)
+            graph.replay()
+            adam_plain_step(torch, *plain, grads, psteps)
+            replayed.append(adam_differs(torch, kern, plain))
+        torch.cuda.synchronize()
+        del graph
+        check(all(d == [] for d in eager) and all(d == [] for d in replayed),
+              f'adam fused {name}: not bit-identical to the plain route: '
+              f'eager {eager}, replayed {replayed}')
+        check(all(a == b for a, b in oks)
+              and [a for a, _ in oks] == [i != ADAM_FUSED_NAN_STEP
+                                          for i in range(ADAM_FUSED_STEPS)],
+              f'adam fused {name}: finiteness flags {oks}')
+        check(eager_launches == 2 * tables * ADAM_FUSED_STEPS
+              and capture_launches == 2 * tables,
+              f'adam fused {name}: launches {eager_launches} eager, '
+              f'{capture_launches} captured, tables {tables}')
+        # The passes timed, beside their byte bounds and the plain route.
+        kern = adam_clone(torch, params, state)
+        grads = adam_grads(torch, params, 0, seed)
+        items = cuda_adam.leaves(kern[0], grads, kern[1])
+        count, salt0 = optim.adam_count(kern[1]['count'])
+        c1, c2 = optim.adam_bias(count, torch.float32)
+        lr = torch.tensor(1e-6, device=dev)
+        ok = torch.ones((), dtype=torch.bool, device=dev)
+        finite_ms = queued_ms(torch, lambda: cuda_adam.all_finite(items),
+                              ADAM_FUSED_TIMED)
+        update_ms = queued_ms(torch, lambda: cuda_adam.adam_step(
+            items, c1, c2, lr, salt0, ok), ADAM_FUSED_TIMED)
+        # The plain route launches hundreds of kernels a call, more than
+        # the device's queue holds while it spins: its device-busy time
+        # comes from the profiler, and its wall time beside it.
+        plain = adam_clone(torch, params, state)
+        wall_ms, busy_ms, _, _ = profiling.profile_device(lambda: [
+            adam_plain_step(torch, *plain, grads, psteps)
+            for _ in range(ADAM_FUSED_PROFILED)])
+        plain_ms = busy_ms / ADAM_FUSED_PROFILED
+        plain_wall_ms = wall_ms / ADAM_FUSED_PROFILED
+        n16 = sum(p.numel() for k, p in params.items()
+                  if state['mu'][k].dtype == torch.bfloat16)
+        n = sum(p.numel() for p in params.values())
+        update_bytes = 20 * n16 + 28 * (n - n16)
+        cpu_launches = cuda_adam.adam_step.launches
+        cpu = [cuda_adam.Leaf(*(torch.zeros(8) for _ in range(4)))]
+        cuda_adam.adam_step(cpu, *optim.adam_bias(
+            torch.ones((), dtype=torch.int64), torch.float32),
+            torch.tensor(0.01), torch.zeros((), dtype=torch.int64),
+            cuda_adam.all_finite(cpu))
+        cpu_launches = cuda_adam.adam_step.launches - cpu_launches
+        check(cpu_launches == 0, f'adam fused: {cpu_launches} launches on '
+                                 'the CPU')
+        emit({'phase': 'adam fused', **card, 'leaf_set': name,
+              'leaves': len(params), 'tables': tables, 'elements': n,
+              'bf16_elements': n16, 'mapped_leaves': mapped,
+              'steps': ADAM_FUSED_STEPS, 'nan_step': ADAM_FUSED_NAN_STEP,
+              'eager_bit_identical': True, 'replayed_bit_identical': True,
+              'launches_per_step': eager_launches / ADAM_FUSED_STEPS,
+              'capture_launches': capture_launches, 'cpu_launches': 0,
+              'finite_ms': finite_ms,
+              'finite_bound_ms': 4 * n / HBM_BYTES_PER_S * 1e3,
+              'update_ms': update_ms,
+              'update_bound_ms': update_bytes / HBM_BYTES_PER_S * 1e3,
+              'update_bytes': update_bytes, 'plain_ms': plain_ms,
+              'plain_wall_ms': plain_wall_ms,
+              'timing': f'queued_ms over {ADAM_FUSED_TIMED} calls a pass; '
+                        'the bound is the bytes at 3.35 TB/s; plain_ms the '
+                        "device-busy ms of the trainer's plain finite check, "
+                        f'update and commit, profiled over '
+                        f'{ADAM_FUSED_PROFILED} calls (plain_wall_ms their '
+                        'wall ms)'})
+    # The graphed trainer: every step of a chunk through the kernels.
+    config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
+                                 batch_size=TRAIN_BATCH)
+    state = trainer.init_state(flagship, config, seed=seed)
+    Xd = torch.as_tensor(X.reshape(TRAIN_IMAGES, -1), device=dev)
+    Yd = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, 10, size=(TRAIN_IMAGES, 1)), device=dev)
+    launches = cuda_adam.adam_step.launches
+    steps = profiling.COUNTERS['fused adam steps']
+    trace = trainer.run_chunk(state, config, Xd, Yd, ADAM_FUSED_CHUNK)
+    torch.cuda.synchronize()
+    launches = cuda_adam.adam_step.launches - launches
+    steps = profiling.COUNTERS['fused adam steps'] - steps
+    check(launches == 2 * ADAM_FUSED_CHUNK and steps == 2
+          and bool(torch.isfinite(trace).all()),
+          f'adam fused trainer: {launches} launches, {steps} fused steps '
+          f'taken by train_step for a graphed chunk of {ADAM_FUSED_CHUNK}')
+    emit({'phase': 'adam fused trainer', **card, 'config': FLAGSHIP,
+          'chunk': ADAM_FUSED_CHUNK, 'launches': launches,
+          'train_step_calls': steps, 'elbo_last': float(trace[-1])})
+
+
 def native_phase(card: dict, seed: int) -> None:
     """Build the native library (g++) and hold each function against its
     numpy version, bit for bit, with both times."""
@@ -4319,6 +4579,8 @@ def serving_timing(torch, model, seed, rng, card, reset_counts, read_counts,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--only', choices=['adam'], default=None,
+                    help='build, then run this phase alone')
     args = ap.parse_args()
 
     import torch
@@ -4363,6 +4625,14 @@ def main() -> int:
           'arch': 'sm_90a', 'libraries': report})
     # -- the native host data path: g++, then each function vs numpy -------
     native_phase(card, args.seed)
+    # -- the Adam step's kernels against the trainer's plain route ----------
+    adam_fused_phase(torch, dev, card, args.seed)
+    if args.only == 'adam':
+        emit({'ok': True, 'only': args.only,
+              'device': {'platform': 'gpu',
+                         'kind': torch.cuda.get_device_name(0),
+                         'count': torch.cuda.device_count()}})
+        return 0
 
     rng = np.random.RandomState(args.seed)
     # The inputs of the checks added with the NatGrad solve's K1/K3 shapes,

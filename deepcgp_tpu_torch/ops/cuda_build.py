@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 SOURCES = ('chol_inv', 'tri_inv', 'conv_rbf_cross', 'conv_rbf_cross_bwd',
-           'patches')
+           'patches', 'adam')
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

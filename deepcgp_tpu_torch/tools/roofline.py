@@ -12,7 +12,8 @@ events (kernels, copies, sets; the device spans of annotated regions are
 not device work) two ways:
 
 * ``BUCKETS``, by kernel name, first match wins: K1-K7 by the names in
-  ``utils.profiling.KERNEL_NAMES``, cuBLAS's ``align1`` SIMT products
+  ``utils.profiling.KERNEL_NAMES``, the Adam step's two kernels
+  (``ops/cuda_adam.py``), cuBLAS's ``align1`` SIMT products
   apart from the other products, float64 kernels, ``tril``, reductions,
   copies and sets, elementwise kernels;
 * ``SOURCE_BUCKETS``, by the port's function that launched the kernel.
@@ -104,7 +105,9 @@ LAUNCHES = {'chol_factor_blocked': 'chol_factor_cluster_kernel',
             'conv_rbf_cross_bwd_image': 'bwd_image_kernel',
             'conv_rbf_cross_bwd_z': 'bwd_z_kernel',
             'extract_patches_transposed': 'extract_transposed_kernel',
-            'col2im_transposed': 'col2im_transposed_kernel'}
+            'col2im_transposed': 'col2im_transposed_kernel',
+            'adam_all_finite': 'adam_finite_kernel',
+            'adam_update': 'adam_update_kernel'}
 # An aten operator's region under OpBytes: 'aten#<dispatch index>'.
 OP_REGION = 'aten#'
 
@@ -120,6 +123,7 @@ K_BUCKETS = {'chol_inv_base': 'K1 chol_factor',
 # device names (``utils.profiling.KERNEL_NAMES``), then the library's.
 BUCKETS = [(bucket, '|'.join(map(re.escape, profiling.KERNEL_NAMES[c])))
            for c, bucket in K_BUCKETS.items()] + [
+    ('adam step', r'adam_finite_kernel|adam_update_kernel'),
     ('gemm simt align1', r'simt.*align1|align1.*simt'),
     ('float64', r'double|f64|dgemm|dsyrk|dtrsm|dpotrf|zgemm'),
     ('chol/solve library', r'trsm|potrf|potrs|trtri|getrf|cusolver|syevd'),
@@ -145,7 +149,7 @@ SOURCE_BUCKETS = [
                    r'cuda_linalg\.py'),
     ('kl', r'linalg\.py:(_?gauss_kl|syrk_sum)|layers\.py:KL|dgp\.py:prior_kl'),
     ('qsqrt-term', r'conditional\.py'),
-    ('optimizer', r'optim\.py|trainer\.py:train_step$'),
+    ('optimizer', r'optim\.py|cuda_adam\.py|trainer\.py:train_step$'),
     ('sampling/likelihood', r'likelihoods\.py|layers\.py:_sample|'
                             r'dgp\.py:propagate'),
     ('elbo', r'dgp\.py|trainer\.py:loss_and_grads$'),

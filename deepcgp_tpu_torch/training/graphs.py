@@ -77,14 +77,17 @@ import weakref
 import torch
 import torch.distributed as dist
 
-from deepcgp_tpu_torch.ops import cuda_cross
+from deepcgp_tpu_torch.ops import cuda_adam, cuda_cross
 from deepcgp_tpu_torch.parallel import sharding
 from deepcgp_tpu_torch.utils import profiling
 
 
 def counted() -> tuple:
-    """The kernel wrappers whose ``.launches`` count their launches."""
-    return tuple(profiling.kernel_counters().values())
+    """The kernel wrappers whose ``.launches`` count their launches: the
+    model's kernels and the Adam step's (``cuda_adam.adam_step``, counted
+    apart from the model's, whose launches a path has by its shapes)."""
+    return tuple(profiling.kernel_counters().values()) + (
+        cuda_adam.adam_step,)
 
 
 @contextlib.contextmanager

@@ -163,31 +163,57 @@ def adam_init(params: dict, bf16_order: list | None = None) -> dict:
             'salt_index': {k: order.index(k) for k in big}}
 
 
+def adam_count(count: torch.Tensor):
+    """(count + 1, the step's dither salt): the step count after a step
+    from ``count`` and the salt its bf16 moment streams start from."""
+    count = count + 1
+    return count, (count * 0x9E3779B9) & _U32
+
+
+def adam_bias(count: torch.Tensor, dtype):
+    """The bias corrections (1 - b1^count, 1 - b2^count) in ``dtype``."""
+    c = count.to(dtype)
+    c1 = 1.0 - torch.pow(torch.full_like(c, ADAM_B1), c)
+    c2 = 1.0 - torch.pow(torch.full_like(c, ADAM_B2), c)
+    return c1, c2
+
+
+def moment_salt(salt0, leaf: int):
+    """The first moment's salt of the bf16 leaf numbered ``leaf``; the
+    second moment's is this plus 0x85EBCA77 (mod 2^32)."""
+    return (salt0 + ((2 * leaf * 0x85EBCA77) & _U32)) & _U32
+
+
+def adam_leaf(g, m_old, v_old, c1, c2, salt0, leaf: int):
+    """One leaf's update and proposed moments, stored in the moments' own
+    dtype (bf16 by stochastic rounding from the step's ``salt0``, as the
+    bf16 leaf numbered ``leaf``)."""
+    m = ADAM_B1 * m_old.to(g.dtype) + (1.0 - ADAM_B1) * g
+    v = ADAM_B2 * v_old.to(g.dtype) + (1.0 - ADAM_B2) * g.square()
+    u = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+    if m_old.dtype == torch.bfloat16:
+        s = moment_salt(salt0, leaf)
+        return u, _sr_to_bf16(m, s), _sr_to_bf16(v, (s + 0x85EBCA77) & _U32)
+    return u, m, v
+
+
 def adam_updates(grads: dict, state: dict):
     """optax ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8, no eps_root)
     with the moments upcast to the gradient's dtype for the update and
     stored back in their own dtype (bf16 by stochastic rounding, one
     dither stream per step, leaf and moment): (updates, proposed moments,
     proposed count).  Nothing is written: the trainer commits the
-    proposals only when the step is finite."""
-    count = state['count'] + 1
-    salt0 = (count * 0x9E3779B9) & _U32
+    proposals only when the step is finite.  The step's scalars are
+    computed once per gradient dtype."""
+    count, salt0 = adam_count(state['count'])
+    bias = {}
     updates, mu, nu = {}, {}, {}
     for k, g in grads.items():
-        c = count.to(g.dtype)
-        c1 = 1.0 - torch.pow(torch.full_like(c, ADAM_B1), c)
-        c2 = 1.0 - torch.pow(torch.full_like(c, ADAM_B2), c)
-        m_old, v_old = state['mu'][k], state['nu'][k]
-        m = ADAM_B1 * m_old.to(g.dtype) + (1.0 - ADAM_B1) * g
-        v = ADAM_B2 * v_old.to(g.dtype) + (1.0 - ADAM_B2) * g.square()
-        updates[k] = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
-        if m_old.dtype == torch.bfloat16:
-            leaf = state['salt_index'][k]
-            s = (salt0 + ((2 * leaf * 0x85EBCA77) & _U32)) & _U32
-            mu[k] = _sr_to_bf16(m, s)
-            nu[k] = _sr_to_bf16(v, (s + 0x85EBCA77) & _U32)
-        else:
-            mu[k], nu[k] = m, v
+        if g.dtype not in bias:
+            bias[g.dtype] = adam_bias(count, g.dtype)
+        updates[k], mu[k], nu[k] = adam_leaf(
+            g, state['mu'][k], state['nu'][k], *bias[g.dtype], salt0,
+            state['salt_index'].get(k, 0))
     return updates, mu, nu, count
 
 

@@ -22,7 +22,10 @@ in place and no field of a ``TrainState`` is ever reassigned.
 
 Optimizers, as the reference wires them:
 
-* Adam -- Adam on everything trainable;
+* Adam -- Adam on everything trainable; on the card with every leaf
+  float32, the finiteness check, the update and its guarded commit are
+  two kernel launches over all leaves (``ops/cuda_adam.py``), bit for bit
+  the ``torch.where`` route the CPU keeps;
 * SGD -- plain gradient descent;
 * NatGrad -- a natural-gradient step on every layer's (q_mu, q_sqrt) and
   an Adam step on the rest, both from one backward pass.  A finite NatGrad
@@ -45,6 +48,7 @@ import dataclasses
 
 import torch
 
+from deepcgp_tpu_torch.ops import cuda_adam
 from deepcgp_tpu_torch.parallel import multihost, sharding
 from deepcgp_tpu_torch.training import graphs, optim
 from deepcgp_tpu_torch.utils import profiling
@@ -170,13 +174,29 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
             new[a], new[b] = mu_new, W_new
         ok = ok & ng_ok
     adam_grads = {k: g for k, g in grads.items() if k not in new}
-    for g in adam_grads.values():
-        ok = ok & torch.isfinite(g).all()
+    # Adam on the card in float32: the finiteness pass and the update with
+    # its commit are two launches over every leaf (ops/cuda_adam.py).
+    fused = cuda_adam.route(config.optimizer, state.params.values())
+    if fused:
+        leaves = cuda_adam.leaves(state.params, adam_grads, state.opt_state)
+        ok = ok & cuda_adam.all_finite(leaves)
+    else:
+        for g in adam_grads.values():
+            ok = ok & torch.isfinite(g).all()
     ok = sharding.all_ok(ok)
     lr = optim.learning_rate_schedule(config.lr, config.lr_decay_steps,
                                       config.lr_staircase)(state.step,
                                                            loss.dtype)
     with torch.no_grad():
+        if fused:
+            count, salt0 = optim.adam_count(state.opt_state['count'])
+            cuda_adam.adam_step(leaves, *optim.adam_bias(count, lr.dtype),
+                                lr, salt0, ok)
+            state.opt_state['count'].copy_(
+                torch.where(ok, count, state.opt_state['count']))
+            state.step.add_(1)
+            profiling.COUNTERS['fused adam steps'] += 1
+            return -loss
         if config.optimizer == 'SGD':
             updates = adam_grads
         else:

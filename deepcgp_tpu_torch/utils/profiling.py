@@ -14,7 +14,7 @@
   ``summary`` of what it recorded: wall and device-busy time, each
   span's count, total and self ms, the device's idle time by span;
 * ``COUNTERS`` -- process-wide counts of the program's events
-  (``'graph captures'``);
+  (``'graph captures'``, ``'fused adam steps'``);
 * ``launch(name, reads, writes)`` -- the region of one hand-kernel launch
   (the kernels are loaded by ``ctypes``, so without it no operator owns
   their launches in a trace), which also tells the observers of
@@ -75,7 +75,9 @@ def trace(log_dir: str, **options):
 # Process-wide counts of the program's events, always on; a caller reads
 # one before and after a stretch.  'graph captures': the CUDA graphs
 # ``training.graphs.GraphCache`` captured (a key that changed on every
-# call would recapture in a timed window).
+# call would recapture in a timed window); 'fused adam steps': the
+# ``trainer.train_step`` calls that took the Adam kernels (eager steps and
+# captures: a replay repeats its capture's step without a call).
 COUNTERS: collections.Counter = collections.Counter()
 
 # What annotate returns while nothing traces or records.

@@ -304,11 +304,11 @@ def test_counted_are_the_kernel_wrappers():
     """Every wrapper whose counter a replay adds to counts in an int
     ``.launches``, each one once."""
     fns = graphs.counted()
-    assert len({id(fn) for fn in fns}) == len(fns) == 7
+    assert len({id(fn) for fn in fns}) == len(fns) == 8
     assert {fn.__name__ for fn in fns} == {
         'chol_inv_base', 'chol_inv_base_upper', 'tri_inv_base',
         'conv_rbf_cross', 'conv_rbf_cross_bwd', 'extract_patches_transposed',
-        'col2im_transposed'}
+        'col2im_transposed', 'adam_step'}
     assert all(isinstance(fn.launches, int) for fn in fns)
 
 

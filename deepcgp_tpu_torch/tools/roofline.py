@@ -141,8 +141,11 @@ BUCKETS = [(bucket, '|'.join(map(re.escape, profiling.KERNEL_NAMES[c])))
 # Bucket attribution by the port's frames that launched a kernel (outer to
 # inner, 'module/file.py:function' joined by ' > '; a '$' anchors the
 # innermost), first match wins: the counterpart of the JAX tool's metadata
-# match.
+# match.  'natgrad' comes first: everything the natural-gradient step runs
+# (``optim.natgrad_step_with_backoff`` and what it calls, K2 and K3 of its
+# solve too).
 SOURCE_BUCKETS = [
+    ('natgrad', r'optim\.py:natgrad'),
     ('conv-Kuf', r'(conv_kernels|base_kernels|distances|cuda_cross|'
                  r'cuda_patches|ops/patches|views|mean_functions)\.py'),
     ('chol/solve', r'linalg\.py:(chol|cholesky|tri_inv|upper|_bigchol)|'

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from deepcgp_tpu_torch.ops import cuda_linalg, linalg
+from deepcgp_tpu_torch.utils import profiling
 
 # Leaves from this size on get bf16 stochastic-rounding moments under the
 # JAX package's default 'auto' storage.
@@ -290,13 +291,17 @@ def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
     triangle, I + gamma tril(X), and solve W R^-T by
     ``cuda_linalg.chol_right_solve_upper``, which reads only that
     triangle.  The library route builds the symmetric G and takes the
-    library factor of the index-reversed G and one triangular solve."""
+    library factor of the index-reversed G and one triangular solve.  Each
+    call counts its route in ``profiling.COUNTERS['natgrad route
+    <route>']``."""
     mu, W = q_mu.T, torch.tril(q_sqrt)                  # [R, M], [R, M, M]
     dmu, dW = dq_mu.T, torch.tril(dq_sqrt)
     XtW = W.transpose(-1, -2) @ dW
     M = W.shape[-1]
     eye = torch.eye(M, dtype=W.dtype, device=W.device)
-    if natgrad_route(W.dtype, M) != 'library':
+    route = natgrad_route(W.dtype, M)
+    profiling.COUNTERS[f'natgrad route {route}'] += 1
+    if route != 'library':
         W_new = cuda_linalg.chol_right_solve_upper(
             gamma * torch.tril(XtW) + eye, W)
     else:
@@ -321,6 +326,16 @@ def natgrad_update_theta(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma):
     mu_new, W_new = _natural_to_meanvarsqrt(theta1 - gamma * deta1,
                                             theta2 - gamma * deta2)
     return mu_new.T, W_new
+
+
+def commit_verified(p, prev, new, ok, loss_ok) -> None:
+    """NatGrad's guarded commit of one leaf, in place: ``new`` where
+    ``ok`` holds, else the verified value.  A non-finite loss means ``p``
+    (the last commit) is poisoned, so the verified value is then
+    ``prev``'s; ``prev`` takes the verified value."""
+    verified = torch.where(loss_ok, p, prev)
+    prev.copy_(verified)
+    p.copy_(torch.where(ok, new, verified))
 
 
 def natgrad_step_with_backoff(params: list, grads: list, gamma, steps_back):

@@ -34,7 +34,8 @@ Optimizers, as the reference wires them:
   parameters whose ELBO was seen finite, a non-finite loss rolls the model
   back to them, and ``steps_back`` grows so the gamma schedule retries
   smaller.  ``run_chunk`` ends with one more ELBO that verifies the last
-  commit.
+  commit.  The natural-gradient half and its commit are the span
+  ``natgrad update`` (``utils.profiling.annotate``).
 
 The trainable set is ``model.parameters()``: the layers' raw kernel
 parameters, Z, q_mu, q_sqrt and the patch weights.  The KL anchors Z0 are
@@ -158,32 +159,39 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
     grads = dict(zip(names, summed))
     loss_ok = torch.isfinite(loss)
     natgrad = config.optimizer == 'NatGrad'
-    new = {}
-    ok = loss_ok
-    if natgrad:
-        # Both halves from the one gradient evaluation above.
-        names = _natgrad_names(state.model)
-        gamma = optim.gamma_schedule(state.step, state.steps_back,
-                                     config.gamma).to(xb.dtype)
-        with torch.no_grad():
-            proposals, _, ng_ok = optim.natgrad_step_with_backoff(
-                [(state.params[a], state.params[b]) for a, b in names],
-                [(grads[a], grads[b]) for a, b in names], gamma,
-                state.steps_back)
-        for (a, b), (mu_new, W_new) in zip(names, proposals):
-            new[a], new[b] = mu_new, W_new
-        ok = ok & ng_ok
-    adam_grads = {k: g for k, g in grads.items() if k not in new}
+    pairs = _natgrad_names(state.model) if natgrad else []
+    variational = {k for pair in pairs for k in pair}
+    adam_grads = {k: g for k, g in grads.items() if k not in variational}
     # Adam on the card in float32: the finiteness pass and the update with
     # its commit are two launches over every leaf (ops/cuda_adam.py).
     fused = cuda_adam.route(config.optimizer, state.params.values())
+    ok = loss_ok
     if fused:
         leaves = cuda_adam.leaves(state.params, adam_grads, state.opt_state)
         ok = ok & cuda_adam.all_finite(leaves)
     else:
         for g in adam_grads.values():
             ok = ok & torch.isfinite(g).all()
-    ok = sharding.all_ok(ok)
+    if not natgrad:
+        ok = sharding.all_ok(ok)
+    else:
+        # Both halves from the one gradient evaluation above: the natural
+        # gradient's proposals, the step's guard and their commit.
+        with profiling.annotate('natgrad update'), torch.no_grad():
+            gamma = optim.gamma_schedule(state.step, state.steps_back,
+                                         config.gamma).to(xb.dtype)
+            proposals, _, ng_ok = optim.natgrad_step_with_backoff(
+                [(state.params[a], state.params[b]) for a, b in pairs],
+                [(grads[a], grads[b]) for a, b in pairs], gamma,
+                state.steps_back)
+            ok = sharding.all_ok(ok & ng_ok)
+            for (a, b), proposal in zip(pairs, proposals):
+                for k, new in zip((a, b), proposal):
+                    optim.commit_verified(state.params[k], state.prev[k],
+                                          new, ok, loss_ok)
+            state.steps_back.copy_(torch.where(ok, state.steps_back,
+                                               state.steps_back + 1.0))
+        profiling.COUNTERS['natgrad updates'] += 1
     lr = optim.learning_rate_schedule(config.lr, config.lr_decay_steps,
                                       config.lr_staircase)(state.step,
                                                            loss.dtype)
@@ -211,19 +219,11 @@ def train_step(state: TrainState, config: TrainConfig, xb, yb, noise=None):
                 torch.where(ok, count, state.opt_state['count']))
         for k, u in updates.items():
             p = state.params[k]
-            new[k] = p - lr.to(p.dtype) * u
-        for k, p in state.params.items():
+            new = p - lr.to(p.dtype) * u
             if natgrad:
-                # A non-finite loss means the current parameters (the last
-                # commit) are poisoned: fall back to the verified ones.
-                verified = torch.where(loss_ok, p, state.prev[k])
-                state.prev[k].copy_(verified)
-                p.copy_(torch.where(ok, new[k], verified))
+                optim.commit_verified(p, state.prev[k], new, ok, loss_ok)
             else:
-                p.copy_(torch.where(ok, new[k], p))
-        if natgrad:
-            state.steps_back.copy_(torch.where(ok, state.steps_back,
-                                               state.steps_back + 1.0))
+                p.copy_(torch.where(ok, new, p))
         state.step.add_(1)
     return -loss
 

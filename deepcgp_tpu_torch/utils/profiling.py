@@ -14,7 +14,8 @@
   ``summary`` of what it recorded: wall and device-busy time, each
   span's count, total and self ms, the device's idle time by span;
 * ``COUNTERS`` -- process-wide counts of the program's events
-  (``'graph captures'``, ``'fused adam steps'``);
+  (``'graph captures'``, ``'fused adam steps'``, ``'natgrad updates'``,
+  ``'natgrad route <route>'``);
 * ``launch(name, reads, writes)`` -- the region of one hand-kernel launch
   (the kernels are loaded by ``ctypes``, so without it no operator owns
   their launches in a trace), which also tells the observers of
@@ -76,8 +77,13 @@ def trace(log_dir: str, **options):
 # one before and after a stretch.  'graph captures': the CUDA graphs
 # ``training.graphs.GraphCache`` captured (a key that changed on every
 # call would recapture in a timed window); 'fused adam steps': the
-# ``trainer.train_step`` calls that took the Adam kernels (eager steps and
-# captures: a replay repeats its capture's step without a call).
+# ``trainer.train_step`` calls that took the Adam kernels; 'natgrad
+# updates': the ``train_step`` calls that took the natural-gradient step;
+# 'natgrad route upper' / 'panels' / 'library': the ``optim.
+# natgrad_update`` calls by the route of their solve
+# (``optim.natgrad_route``).  A counter counts Python calls, eager steps
+# and captures: it does not run inside a replay, which repeats its
+# capture's step without a call.
 COUNTERS: collections.Counter = collections.Counter()
 
 # What annotate returns while nothing traces or records.

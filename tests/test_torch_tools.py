@@ -95,7 +95,7 @@ STEP = [
      'qsqrt-term', 'bwd', 60),
     ('bwd_image_kernel', 'K5 conv_rbf_cross_bwd', 'conv-Kuf', 'bwd', 70),
     ('bwd_z_kernel', 'K5 conv_rbf_cross_bwd', 'conv-Kuf', 'bwd', 25),
-    ('chol_upper_cluster_kernel', 'K2 chol_upper', 'chol/solve', 'fwd', 45),
+    ('chol_upper_cluster_kernel', 'K2 chol_upper', 'natgrad', 'fwd', 45),
     ('extract_transposed_kernel', 'K6 extract_patches', 'conv-Kuf', 'fwd', 8),
     ('col2im_transposed_kernel', 'K7 col2im', 'conv-Kuf', 'bwd', 9),
 ]
@@ -160,7 +160,7 @@ def reference_trace(path):
          790, 40, tid=20, **{'Sequence number': 8, 'Fwd thread id': 1})
     launch_region('conv_rbf_cross_bwd_image', STEP[7][0], 795, tid=20)
     launch_region('conv_rbf_cross_bwd_z', STEP[8][0], 810, tid=20)
-    w.frame('training/optim.py(240): natgrad_update', 850, 60)
+    w.frame('training/optim.py(240): natgrad_update', 850, 15)
     w.frame('ops/cuda_linalg.py(360): chol_upper_blocked', 851, 10)
     launch_region('chol_upper_blocked', STEP[9][0], 852)
     w.frame('ops/cuda_patches.py(170): extract_patches_transposed', 870, 10)

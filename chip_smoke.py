@@ -40,12 +40,13 @@ stochastic-rounding moment store, and five NatGrad steps at M = 1088,
 above K1's largest matrix, where the solve takes K2 on the whole G, one
 step of it against the CPU and 16 under the profiler.
 
-Then the unfused last-layer route, whose geometries the fused K4/K5 pair
-does not take: K6 (patch extraction in transposed order) and K7 (its
-col2im) against their plain versions, and Adam training of
+Then K5's row-tiled image side (P > 64) against its plain version, the
+unfused last-layer route's K6 (patch extraction in transposed order) and
+K7 (its col2im) against theirs, and Adam training of
 
 * the paper's MNIST single-layer ConvKernel (28x28x1, filter 5, stride 1,
-  M=1024, batch 32, S=10: P = 576), whose trained snapshot is then served;
+  M=1024, batch 32, S=10: P = 576), on the fused route since the row-tiled
+  image side, whose trained snapshot is then served;
 * the CIFAR fm32 configuration (M=384,384, 32 feature maps, filters 5,5,
   strides 3,1, batch 32, S=10: a last layer with L = 800), where K7
   carries the hidden layer's gradient, and one step of it from the
@@ -61,8 +62,8 @@ the flagship's argv on learnable blobs, held to a held-out accuracy.
 
 Then the models the JAX CLI builds beyond the flagship's, through the
 same entry point: a 3-layer stack with the identity mean (32x32x3,
-M=384,384,384, 10 and 10 feature maps, filters 5,3,3, strides 2,1,1: an
-unfused last layer over P = 100, L = 90) trained with Adam, served, and
+M=384,384,384, 10 and 10 feature maps, filters 5,3,3, strides 2,1,1: a
+fused last layer over P = 100, L = 90) trained with Adam, served, and
 stopped and resumed bit for bit, then trained with NatGrad after an Adam
 warm start (the solve's [30, 384, 384] batch on K2); and the flagship's
 geometry with an ArcCosine hidden layer and the identity mean on learnable
@@ -186,32 +187,37 @@ NATGRAD_PER_STEP = {
               'conv_rbf_cross': 0, 'conv_rbf_cross_bwd': 0},
     'm1088': {'chol_inv_base_upper': 1, 'tri_inv_base': 1},
     'deep3': {'chol_inv_base': 1, 'chol_inv_base_upper': 1, 'tri_inv_base': 2,
-              'extract_patches_transposed': 1, 'col2im_transposed': 2}}
+              'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 3,
+              'col2im_transposed': 1}}
 NATGRAD_PER_CHUNK = {
     'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1},
     'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
     'm1088': {},
-    'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
-              'extract_patches_transposed': 1}}
+    'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1, 'conv_rbf_cross': 1}}
 # NatGrad above K1's largest matrix: the M=1024 configuration at M = 1088.
 # No configuration of the repo goes past M = 1024 (BASELINE.md's sweep ends
 # there); this path drives K2 beyond K1's largest matrix through the
 # trainer, and Kuu through the library route.
 M1088 = dict(M1024, M='1088')
-# The unfused route's configurations (examples/mnist_parity.py --m1024, and
-# BASELINE.md's CIFAR fm32 sweep point), their launches per Adam step, and
-# the MNIST snapshot's launches per predict_y.
+# The patch last layers' configurations (examples/mnist_parity.py --m1024,
+# and BASELINE.md's CIFAR fm32 sweep point), their launches per Adam step,
+# and the MNIST snapshot's launches per predict_y.  MNIST's ConvKernel
+# (P = 576, L = 25) takes the fused route, K5's image side in row tiles;
+# fm32 (L = 800) the unfused one.
 MNIST_CONV = dict(M='1024', feature_maps='', filter_sizes='5', strides='1',
                   base_kernel='rbf', last_kernel='conv', white=False,
                   identity_mean=False)
 MNIST_IMAGE = (28, 28, 1)
 FM32 = dict(FLAGSHIP, feature_maps='32')
-UNFUSED_PER_STEP = {
+PATCH_PER_STEP = {
     'mnist_conv': {'chol_inv_base': 1, 'tri_inv_base': 1,
-                   'extract_patches_transposed': 1},
+                   'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 2},
     'fm32': {'chol_inv_base': 1, 'tri_inv_base': 1,
              'extract_patches_transposed': 1, 'col2im_transposed': 1}}
-MNIST_SERVING_PER_CALL = UNFUSED_PER_STEP['mnist_conv']
+MNIST_SERVING_PER_CALL = {'chol_inv_base': 1, 'tri_inv_base': 1,
+                          'conv_rbf_cross': 1}
+# The patch last layers that take the fused route.
+PATCH_FUSED = ('mnist_conv',)
 UNFUSED_WARMUP_STEPS, UNFUSED_CHUNK, UNFUSED_WINDOW_SECONDS = 5, 10, 5.0
 # The CLI paths: the entry points' argv, the JAX package's CLI flags.  The
 # flagship CIFAR run: 5 chunks of 20 Adam steps, an eval of 1000 test
@@ -234,7 +240,7 @@ CLI_BLOBS = CLI_FLAGSHIP + ['--name', 'blobs', '--test-every', '100',
 BLOB_IMAGES, BLOB_TRAIN, BLOB_CHUNKS, BLOB_MIN_ACCURACY = 2560, 2048, 6, 0.95
 # Depth 3: tests/test_deep_stack.py's geometry at CIFAR's 32x32x3 and the
 # flagship's widths (M = 384 a layer, 10 feature maps) with the identity
-# mean: 14x14x10 -> 12x12x10 -> an unfused ConvKernel last layer over
+# mean: 14x14x10 -> 12x12x10 -> a fused ConvKernel last layer over
 # P = 100, L = 90.  Adam: 3 chunks of 10 steps, an eval of 256 images
 # after each, then the same run stopped after a chunk and resumed.  NatGrad:
 # 10 warm Adam steps, then 3 chunks of 10 NatGrad steps whose solve
@@ -270,21 +276,22 @@ WINDOW_CHUNKS, WINDOW_CHUNK, WINDOW_PROFILE_STEPS = 3, 10, 8
 EVAL_BATCH = 32
 # Depth 3 factors its five [384, 384] grams (two hidden layers' Kuu and KL
 # prior, the last layer's Kuu) in one K1 + K3 pair; its hidden layers'
-# extraction is a strided copy, and only the unfused last layer launches
-# K6.  The backward launches K7 twice: once for the last layer, once for
-# the second hidden layer's extraction of a sample (layer 1 reads images,
-# which need no gradient).
+# extraction is a strided copy, and its last layer (P = 100, L = 90) takes
+# the fused route: K4, and in the backward K5's row-tiled image side, its
+# col2im (a sample needs d images) and the Z side.  The backward launches
+# K7 once, for the second hidden layer's extraction of a sample (layer 1
+# reads images, which need no gradient).
 EVAL_PER_BATCH = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
                                'conv_rbf_cross': 1},
                   'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
                   'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
-                            'extract_patches_transposed': 1}}
+                            'conv_rbf_cross': 1}}
 ADAM_PER_STEP = {'flagship': {'chol_inv_base': 1, 'tri_inv_base': 1,
                               'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 2},
                  'm1024': {'chol_inv_base': 1, 'tri_inv_base': 1},
                  'deep3': {'chol_inv_base': 1, 'tri_inv_base': 1,
-                           'extract_patches_transposed': 1,
-                           'col2im_transposed': 2}}
+                           'conv_rbf_cross': 1, 'conv_rbf_cross_bwd': 3,
+                           'col2im_transposed': 1}}
 # Every launch counter, in the order of the kernels line.
 COUNTERS = ('chol_inv_base', 'chol_inv_base_upper', 'tri_inv_base',
             'conv_rbf_cross', 'conv_rbf_cross_bwd',
@@ -1157,25 +1164,121 @@ def k4_trace(torch, img, Z, variance, gamma, u, wkd, f, s, d,
     Mpad, Lpad = Zp.shape
     kzx = torch.empty(N, M, device=img.device)
     kd = torch.empty(N, device=img.device)
+    kdpart = torch.empty(N, cuda_cross.fwd_gram_pairs(u.shape[0]),
+                         device=img.device)
     scal = torch.stack([variance, gamma]).float()
     trace = torch.zeros(32, dtype=torch.int64, device=img.device)
     fn = cuda_build.function(
         'conv_rbf_cross', 'conv_rbf_cross_traced',
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 2)
     for _ in range(2):
         trace.zero_()
         cuda_build.check(fn(
             img.data_ptr(), Zp.data_ptr(), scal.data_ptr(), u.data_ptr(),
-            wkd.data_ptr(), kzx.data_ptr(), kd.data_ptr(), N, H, W, C, f, s,
-            d, M, Mpad, Lpad, cuda_cross.fwd_group(u.shape[0]),
-            int(with_kdiag), trace.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), 'traced')
+            wkd.data_ptr(), kzx.data_ptr(), kd.data_ptr(), kdpart.data_ptr(),
+            N, H, W, C, f, s, d, M, Mpad, Lpad,
+            cuda_cross.fwd_group(u.shape[0]), int(with_kdiag),
+            trace.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            'traced')
     torch.cuda.synchronize()
     t = trace.cpu().tolist()
-    items = cuda_cross.fwd_grid(N, u.shape[0], M, with_kdiag)[1]
+    items = -(-M // cuda_cross.FWD_COLS) + int(with_kdiag)
     return {('gram' if with_kdiag and y == items - 1 else f'columns {y}'):
             dict(zip(('setup', 'loop', 'epilogue'), t[3 * y:3 * y + 3]))
             for y in range(min(items, 8))}
+
+
+# The row-tiled image side (P > 64): (N, H, W, C, f, stride, M,
+# with_kdiag, with d images).  The MNIST ConvKernel's training batch with
+# and without d images (its images are data: without), its serving batch,
+# a small M, and CIFAR with strides 2,1 (P = 100, L = 250).
+K5_TILED = ((TRAIN_BATCH, 28, 28, 1, 5, 1, 1024, True, False),
+            (TRAIN_BATCH, 28, 28, 1, 5, 1, 1024, True, True),
+            (BATCH, 28, 28, 1, 5, 1, 1024, True, False),
+            (TRAIN_BATCH, 28, 28, 1, 5, 1, 200, False, True),
+            (TRAIN_BATCH * TRAIN_SAMPLES, 14, 14, 10, 5, 1, 384, True, True))
+
+
+def k5_tiled_phase(torch, dev, card: dict, rng, var, gamma) -> None:
+    """K5 with the row-tiled image side at K5_TILED against its plain
+    version (each gradient within 1e-3 of its largest magnitude, as the
+    cluster side's rows) and float64, every gradient bit-equal run to run,
+    no d images unless asked, and the device ms of the image side, its
+    col2im and the Z side beside their bounds."""
+    from deepcgp_tpu_torch.ops import cuda_cross
+    names = ('images', 'Z', 'variance', 'gamma', 'u', 'wkd')
+    for N, H, W, C, f, s, M, kd_on, with_dimg in K5_TILED:
+        img = torch.as_tensor(rng.randn(N, H, W, C), dtype=torch.float32,
+                              device=dev)
+        Z = torch.as_tensor(patches_of(rng, rng.randn(32, H, W, C), M, f),
+                            dtype=torch.float32, device=dev)
+        P = ((H - f) // s + 1) * ((W - f) // s + 1)
+        L = f * f * C
+        w = torch.as_tensor(rng.rand(P) + 0.5, dtype=torch.float32,
+                            device=dev)
+        dkzx = torch.as_tensor(rng.randn(N, M), dtype=torch.float32,
+                               device=dev)
+        dkd = torch.as_tensor(rng.randn(N), dtype=torch.float32, device=dev)
+        a = (img, Z, var, gamma, w / P, w, f, s, 1, kd_on, dkzx, dkd)
+        check(cuda_cross.bwd_route(P, L) == 'tiled', f'K5 tiled P={P}')
+        before = cuda_cross.conv_rbf_cross_bwd.tiled_launches
+        out = cuda_cross.conv_rbf_cross_bwd(*a, with_dimg)
+        torch.cuda.synchronize()
+        again = cuda_cross.conv_rbf_cross_bwd(*a, with_dimg)
+        ref = cuda_cross.conv_rbf_cross_bwd_plain(*a, with_dimg)
+        ref64 = cuda_cross.conv_rbf_cross_bwd_plain(
+            *(t.double() for t in a[:6]), *a[6:10],
+            *(t.double() for t in a[10:]), with_dimg)
+        got = [(n, o, r, r64, g) for n, o, r, r64, g
+               in zip(names, out, ref, ref64, again) if r is not None]
+        errs = {n: rel(o, r) for n, o, r, _, _ in got}
+        bits = {n: bool(torch.equal(o, g)) for n, o, _, _, g in got}
+        fn = lambda: cuda_cross.conv_rbf_cross_bwd(*a, with_dimg)  # noqa: E731
+        ms_image = kernel_ms(torch, fn, 'bwd_image_kernel_tiled')
+        ms_z = kernel_ms(torch, fn, 'bwd_z_kernel')
+        ms_col2im = (kernel_ms(torch, fn, 'bwd_image_kernel_col2im')
+                     if with_dimg else 0.0)
+        Mpad = -(-M // 128) * 128
+        R = -(-P // 128)
+        # The image side: the cross products 2NPML, the gram's pairs a <= b
+        # (~N P^2 L), with d images T Z and the gram's products again;
+        # reading the images and Z, writing T [N, P, Mpad].
+        ops = 2 * N * P * M * L + (N * P * P * L if kd_on else 0)
+        if with_dimg:
+            ops *= 2
+        image_bound = bound_ms(4 * (N * H * W * C + M * L + N * M + N
+                                    + N * P * Mpad), ops)
+        ops_z = 2 * N * P * M * L
+        z_bound = bound_ms(4 * (N * P * Mpad + N * H * W * C + 2 * M * L),
+                           ops_z)
+        line = {'phase': 'K5 tiled conv_rbf_cross_bwd', **card,
+                'geometry': dict(N=N, H=H, W=W, C=C, f=f, stride=s, M=M,
+                                 with_kdiag=kd_on, with_dimg=with_dimg),
+                'P': P, 'L': L, 'row_tiles': R,
+                'plan': {k: v for k, v in cuda_cross.tiled_plan(
+                    N, P, M, L, kd_on, with_dimg).items()
+                    if k in ('units', 'grid', 'slots', 'Lx', 'smem')},
+                'dimg_none': out[0] is None, 'rel_err': errs,
+                'rel_dist_f64': {
+                    'kernel': {n: rel(o.double(), r64)
+                               for n, o, _, r64, _ in got},
+                    'plain': {n: rel(r.double(), r64)
+                              for n, _, r, r64, _ in got}},
+                'bit_equal_run_to_run': bits,
+                'tolerance': 'each gradient within 1e-3 of its largest '
+                             'magnitude, as the cluster image side',
+                'ms_image_side': ms_image, 'ms_col2im': ms_col2im,
+                'ms_z_side': ms_z, 'call_ms': cuda_ms(torch, fn, 20),
+                'image_side_bound_ms': image_bound[0],
+                'image_side_bound_by': image_bound[1],
+                'image_side_tc_bound_ms': 3 * ops / TF32_OPS_PER_S * 1e3,
+                'z_side_bound_ms': z_bound[0], 'z_side_bound_by': z_bound[1],
+                'tiled_launches': cuda_cross.conv_rbf_cross_bwd.tiled_launches
+                - before}
+        emit(line)
+        check(max(errs.values()) <= 1e-3 and all(bits.values())
+              and (out[0] is None) == (not with_dimg),
+              f'K5 tiled {line["geometry"]}: errors {errs}, bits {bits}')
 
 
 K5_PHASES = ('setup', 'gram', 'cross', 'T', 'TZ', 'cluster_sync_1',
@@ -1246,7 +1349,8 @@ def patches_phases(torch, dev, card: dict, rng, new_rng, deep) -> list:
     tensors one float past 16-byte alignment (the kernels then move single
     floats), then, from ``deep``, depth 3's second hidden layer
     ([320, 14, 14, 10], f3 s1 -> [320, 144, 90]: its extraction's backward
-    is K7) and its unfused last layer ([320, 12, 12, 10] -> [320, 100, 90]).
+    is K7) and its last layer's patches ([320, 12, 12, 10] -> [320, 100,
+    90]).
     K6 must equal its plain version bit for bit (it moves values
     untouched), K7 lie within 1e-6 of the largest magnitude (float32 sums
     in another order) and give the same bits in two launches; K6's split,
@@ -1390,13 +1494,14 @@ def learnable_data(rng, image):
     return X, Y
 
 
-def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
-                 card: dict, reset_counts, read_counts, loaded=None):
-    """Adam training of an unfused-route configuration from a fresh build
+def patch_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
+               card: dict, reset_counts, read_counts, loaded=None):
+    """Adam training of a patch last layer's configuration (on the route
+    PATCH_FUSED says) from a fresh build
     (``loaded``: per-layer parameters the build takes instead of its
     defaults): UNFUSED_WARMUP_STEPS steps, then UNFUSED_CHUNK-step
     ``run_chunk`` calls for UNFUSED_WINDOW_SECONDS, the launch counters
-    checked against UNFUSED_PER_STEP; one step's loss and gradients against
+    checked against PATCH_PER_STEP; one step's loss and gradients against
     the CPU; then 16 steps under the profiler.  Returns (state, launches)."""
     from deepcgp_tpu_torch.models import builder as mbuilder
     from deepcgp_tpu_torch.ops import cuda_cross
@@ -1410,8 +1515,10 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     last = model.layers[-1].kernel
-    check(not cuda_cross.fused_fits(last),
-          f'{label}: the last layer would take the fused route')
+    fused = label in PATCH_FUSED
+    check(cuda_cross.fused_fits(last) == fused,
+          f'{label}: the last layer would not take the '
+          f'{"fused" if fused else "unfused"} route')
     config = trainer.TrainConfig(optimizer='Adam', lr=0.01,
                                  batch_size=TRAIN_BATCH)
     state = trainer.init_state(model, config, seed=seed)
@@ -1420,6 +1527,11 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
           f'{label}: Adam moment storage {stores}')
     Xd = torch.as_tensor(X.reshape(TRAIN_IMAGES, -1), device=dev)
     Yd = torch.as_tensor(Y, device=dev)
+    # The route of each Kzx_NM_and_Kdiag call: the eager step before the
+    # capture and the capture count, replays run no Python.
+    from deepcgp_tpu_torch.utils import profiling
+    routes0 = {r: profiling.COUNTERS[f'cross route {r}']
+               for r in ('fused', 'unfused')}
     warm = trainer.run_chunk(state, config, Xd, Yd, UNFUSED_WARMUP_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1431,12 +1543,17 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
         torch.cuda.synchronize()
     window = time.perf_counter() - t_window
     launches = read_counts()
+    routes = {r: profiling.COUNTERS[f'cross route {r}'] - routes0[r]
+              for r in routes0}
+    check(routes['fused' if fused else 'unfused'] > 0
+          and routes['unfused' if fused else 'fused'] == 0,
+          f'{label}: cross routes counted {routes}')
     peak = torch.cuda.max_memory_allocated()
     steps = UNFUSED_CHUNK * len(traces)
     trace = torch.cat([warm] + traces).cpu().numpy()
     check(bool(np.isfinite(trace).all()), f'{label} Adam: an ELBO is not finite')
     expected = launches_of(**{k: n * steps
-                              for k, n in UNFUSED_PER_STEP[label].items()})
+                              for k, n in PATCH_PER_STEP[label].items()})
     check(launches == expected, f'{label} Adam: launches {launches} for '
           f'{steps} steps, expected {expected}')
     fields, failure = adam_step_vs_cpu(torch, state, config, Xd, Yd,
@@ -1450,7 +1567,7 @@ def unfused_adam(torch, label: str, flags: dict, image, seed: int, rng, dev,
           'warmup_steps': UNFUSED_WARMUP_STEPS, 'chunk_steps': UNFUSED_CHUNK,
           'window_steps': steps, 'window_seconds': window,
           'steps_per_s': steps / window, 'launches': launches,
-          'launches_per_step': UNFUSED_PER_STEP[label],
+          'launches_per_step': PATCH_PER_STEP[label], 'cross_routes': routes,
           'moment_dtypes': stores, 'elbo_first': float(trace[0]),
           'elbo_window_start': float(trace[UNFUSED_WARMUP_STEPS]),
           'elbo_last': float(trace[-1]),
@@ -1500,7 +1617,8 @@ def mnist_conv_serving(torch, model, step: int, dev, card: dict, rng,
                        reset_counts, read_counts) -> dict:
     """The trained MNIST ConvKernel snapshot served through
     ``Predictor.from_run_dir`` at batch BATCH, S=SAMPLES: a window of
-    batch-sized requests with 1 K1 + 1 K3 + 1 K6 per predict_y, and the
+    batch-sized requests with 1 K1 + 1 K3 + 1 K4 per predict_y (the fused
+    route), and the
     probabilities of 32 rows against the same snapshot on the CPU in
     float32 and float64 with the same noise.  Returns the launches."""
     from deepcgp_tpu_torch.serving import Predictor
@@ -3466,7 +3584,7 @@ def example_parity(torch, card: dict, seed: int, empty: str, root: str,
     with tempfile.TemporaryDirectory() as blobs:
         for name, module, args, per_step, per_eval in (
                 ('mnist', mnist_parity, ['--fast'],
-                 UNFUSED_PER_STEP['mnist_conv'], MNIST_SERVING_PER_CALL),
+                 PATCH_PER_STEP['mnist_conv'], MNIST_SERVING_PER_CALL),
                 ('cifar', cifar_parity, [], ADAM_PER_STEP['flagship'],
                  EVAL_PER_BATCH['flagship'])):
             label = f'example_{name}_parity'
@@ -3774,7 +3892,7 @@ MESH_CLI = CLI_FLAGSHIP[:-1] + ['--name', 'mesh', '--test-every', '10',
 # between; then Predictor(mesh='data=2') on a
 # request of MESH_REQUEST rows.  The flagship starts from the seed's
 # snapshot (trained-looking q_sqrt, the last layer at lengthscale 25, so
-# that every gradient resolves in float32), the unfused configurations
+# that every gradient resolves in float32), the patch-kernel configurations
 # from a build on MESH_IMAGES seeded images with every q_mu moved off 0
 # by 0.05 x a seeded normal (at q_mu = 0 all class means are 0, the
 # robust-max likelihood is symmetric in them, and the gradients of the
@@ -3955,8 +4073,8 @@ def mesh_expected(label: str, optimizer: str, steps: int) -> dict:
     (on its rows, or replicated)."""
     per = {('flagship', 'Adam'): ADAM_PER_STEP['flagship'],
            ('flagship', 'NatGrad'): NATGRAD_PER_STEP['flagship'],
-           ('mnist_conv', 'Adam'): UNFUSED_PER_STEP['mnist_conv'],
-           ('fm32', 'Adam'): UNFUSED_PER_STEP['fm32']}[label, optimizer]
+           ('mnist_conv', 'Adam'): PATCH_PER_STEP['mnist_conv'],
+           ('fm32', 'Adam'): PATCH_PER_STEP['fm32']}[label, optimizer]
     return expected_launches((steps, per))
 
 
@@ -4258,8 +4376,8 @@ GRAPH_PATHS = (
     ('m1024 natgrad', M1024, M1024_IMAGE, M1024_BATCH, 'NatGrad',
      NATGRAD_PER_STEP['m1024'], NATGRAD_PER_CHUNK['m1024'], None),
     ('mnist_conv adam', MNIST_CONV, MNIST_IMAGE, TRAIN_BATCH, 'Adam',
-     UNFUSED_PER_STEP['mnist_conv'], {}, None),
-    ('fm32 adam', FM32, IMAGE, TRAIN_BATCH, 'Adam', UNFUSED_PER_STEP['fm32'],
+     PATCH_PER_STEP['mnist_conv'], {}, None),
+    ('fm32 adam', FM32, IMAGE, TRAIN_BATCH, 'Adam', PATCH_PER_STEP['fm32'],
      {}, {1: {'base_kernel/lengthscales': LENGTHSCALES[1]}}),
     ('deep3 adam', DEEP3, IMAGE, TRAIN_BATCH, 'Adam', ADAM_PER_STEP['deep3'],
      {}, None),
@@ -4691,9 +4809,11 @@ def main() -> int:
         (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 10, 5, 1, 384, True),
         (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 12, 5, 1, 384, True),
         (TRAIN_BATCH * TRAIN_SAMPLES, 10, 10, 16, 5, 1, 384, True),
-        # Past the fused route but within K4's envelope: the MNIST
-        # ConvKernel geometry (P = 576), one image a block in row tiles.
+        # The MNIST ConvKernel geometry (P = 576), one image a block in
+        # row tiles, the gram's pairs of row tiles a block each: the
+        # training batch and the serving batch.
         (TRAIN_BATCH, 28, 28, 1, 5, 1, 1024, True),
+        (BATCH, 28, 28, 1, 5, 1, 1024, True),
     ]
     # The rows added with the tensor-core K4 draw from a generator of their
     # own, so that every earlier check keeps its inputs.
@@ -4735,7 +4855,9 @@ def main() -> int:
                     'plain': float(max((kzx_p.double() - kzx_64).abs().max(),
                                        (kd_p.double() - kd_64).abs().max()))},
                 'ms': ms, 'achieved_tflops': ops / ms / 1e9,
-                'tc_bound_ms': 3 * ops / TF32_OPS_PER_S * 1e3}
+                'tc_bound_ms': 3 * ops / TF32_OPS_PER_S * 1e3,
+                'bound_ms': bound_ms(4 * (N * H * W * C + M * L4 + 2 * Pn + 2
+                                          + N * M + N), ops)[0]}
         check(ok, f'K4 {line["geometry"]}: max abs err {err}')
         if k4 is None:
             nbytes = 4 * (N * H * W * C + M * L4 + 2 * Pn + 2 + N * M + N)
@@ -4888,6 +5010,8 @@ def main() -> int:
                   'shape': f'N={N} {H}x{W}x{C} f={f} M={M}'}
         emit(line)
     kernels.append(k5)
+    k5_tiled_phase(torch, dev, card, np.random.RandomState(args.seed + 7),
+                   var, gamma)
 
     # -- K6 and K7: the unfused route's extraction and its col2im -----------
     # The rows added with the staged K6 draw from a generator of their own.
@@ -5158,10 +5282,10 @@ def main() -> int:
     natgrad_profile('m1088')
     del state, Xd, Yd
 
-    # -- the unfused route: MNIST's single-layer ConvKernel, CIFAR fm32 -----
-    state, launches = unfused_adam(torch, 'mnist_conv', MNIST_CONV,
-                                   MNIST_IMAGE, args.seed, rng, dev, card,
-                                   reset_counts, read_counts)
+    # -- the patch last layers: MNIST's ConvKernel (fused), fm32 (unfused) --
+    state, launches = patch_adam(torch, 'mnist_conv', MNIST_CONV,
+                                 MNIST_IMAGE, args.seed, rng, dev, card,
+                                 reset_counts, read_counts)
     path_launches['mnist_conv_adam'] = launches
     path_launches['mnist_conv_serving'] = mnist_conv_serving(
         torch, state.model, int(state.step), dev, card, rng, reset_counts,
@@ -5176,7 +5300,7 @@ def main() -> int:
     # (tools/torch_grad_witness.py): the check would hold noise to noise.
     # One step at the default init is checked after the window, with layer
     # 1's leaves below FM32_DEFAULT_FLOOR in float64 read, not held.
-    _, path_launches['fm32_adam'] = unfused_adam(
+    _, path_launches['fm32_adam'] = patch_adam(
         torch, 'fm32', FM32, IMAGE, args.seed, rng, dev, card, reset_counts,
         read_counts, loaded={1: {'base_kernel/lengthscales': LENGTHSCALES[1]}})
     fm32_default_init_step(torch, args.seed, rng, dev, card)

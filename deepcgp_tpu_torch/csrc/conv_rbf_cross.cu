@@ -35,7 +35,12 @@
 // 108 rows; P > 128: one image in row tiles of 128), so the u-weighted sum
 // over p closes inside the block: no atomics, the same sums every run.
 // Its blockIdx.y picks a 128-column tile of M or, with Kdiag, the gram of
-// its rows with themselves.  8 warps, 4 x 2, each a 32 x 64 tile: 2 x 8
+// its rows with themselves; past one row tile, one pair a <= b of the
+// image's row tiles a block (15 at P = 576), so that the gram, which one
+// block walked tile pair by tile pair before (25 pairs against a Kzx
+// block's 5 tiles: 0.55 of 0.063 ms at N = 32), leaves no tail.  Those
+// blocks write their parts of Kdiag, an off-diagonal pair's twice, for
+// the wrapper to sum.  8 warps, 4 x 2, each a 32 x 64 tile: 2 x 8
 // m16n8 tiles, 64 float32 accumulators a lane; m16n8 tiles that hold no
 // pair that counts (padding rows, columns past M, and in the gram pairs
 // of two images) are skipped.
@@ -252,8 +257,9 @@ __global__ void __launch_bounds__(kThreads, 2) conv_rbf_cross_kernel(
     const float* __restrict__ img, const float* __restrict__ Zp,
     const float* __restrict__ scal, const float* __restrict__ u,
     const float* __restrict__ wkd, float* __restrict__ kzx,
-    float* __restrict__ kd, Geo geo, int N, int M, int Mpad, int Lpad,
-    int group, int with_kdiag, long long* __restrict__ trace) {
+    float* __restrict__ kd, float* __restrict__ kdpart, Geo geo, int N,
+    int M, int Mpad, int Lpad, int group, int with_kdiag,
+    long long* __restrict__ trace) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Araw = smem;                        // [kStages][kRows][kLdA]
@@ -278,8 +284,19 @@ __global__ void __launch_bounds__(kThreads, 2) conv_rbf_cross_kernel(
   const int gimg = min(group, N - n0);
   const int nrt = P > kRows ? (P + kRows - 1) / kRows : 1;
   const int mtiles = Mpad / kCols;
-  const bool gram = static_cast<int>(blockIdx.y) == mtiles;
+  const bool gram = static_cast<int>(blockIdx.y) >= mtiles;
   const bool self = gram && nrt == 1;        // the gram's columns are its rows
+  // Past one row tile, each gram block takes one pair a <= b of row tiles
+  // (numbered row by row) and writes its part of Kdiag to kdpart.
+  int ga = 0, gb = 0;
+  if (gram && nrt > 1) {
+    int t = static_cast<int>(blockIdx.y) - mtiles;
+    while (t >= nrt - ga) {
+      t -= nrt - ga;
+      ++ga;
+    }
+    gb = ga + t;
+  }
   const int m0 = blockIdx.y * kCols;
   const float var = scal[0], gamma = scal[1];
   const int nk = (L + kKC - 1) / kKC;
@@ -296,15 +313,14 @@ __global__ void __launch_bounds__(kThreads, 2) conv_rbf_cross_kernel(
   if (!with_kdiag && blockIdx.y == 0 && tid < gimg) kd[n0 + tid] = 0.0f;
 
   float run = 0.0f;     // Kzx, P > 128: thread tid's column over the tiles
-  float kdrun = 0.0f;   // the gram, P > 128: thread 0's sum over the tiles
   const float* x = img + static_cast<size_t>(n0) * geo.HWC;
-  const int nct = gram ? nrt : 1;
-  for (int rt = 0; rt < nrt; ++rt) {
+  const bool pair = gram && nrt > 1;
+  for (int rt = pair ? ga : 0; rt < (pair ? ga + 1 : nrt); ++rt) {
     const int rows = tile_rows(geo, nrt, gimg, rt);
     for (int r = tid; r < kRows; r += kThreads)
       roff[r] = row_info(geo, nrt, gimg, rt, r, rimg[r], rp[r]);
     if (gram) rs[tid] = 0.0f;  // 2 x kRows = kThreads entries
-    for (int ct = 0; ct < nct; ++ct) {
+    for (int ct = pair ? gb : 0; ct < (pair ? gb + 1 : 1); ++ct) {
       const int cols = gram ? tile_rows(geo, nrt, gimg, ct) : min(kCols, M - m0);
       if (gram && !self) {
         for (int r = tid; r < kRows; r += kThreads) {
@@ -559,8 +575,11 @@ __global__ void __launch_bounds__(kThreads, 2) conv_rbf_cross_kernel(
           kd[n0 + tid] = s * inv_p2;
         }
       } else if (tid == 0) {
-        for (int r = 0; r < rows; ++r) kdrun += rs[r] + rs[kRows + r];
-        if (rt == nrt - 1) kd[n0] = kdrun * inv_p2;
+        float s = 0.0f;
+        for (int r = 0; r < rows; ++r) s += rs[r] + rs[kRows + r];
+        const int npairs = nrt * (nrt + 1) / 2;
+        kdpart[static_cast<size_t>(n0) * npairs + blockIdx.y - mtiles] =
+            (ga == gb ? 1.0f : 2.0f) * s * inv_p2;
       }
       __syncthreads();             // rs is cleared for the next row tile
     }
@@ -575,10 +594,10 @@ extern "C" size_t conv_rbf_cross_smem_bytes() {
 }
 
 static int launch(const float* img, const float* Zp, const float* scal,
-                  const float* u, const float* wkd, float* kzx, float* kd, int N,
-                  int H, int W, int C, int f, int stride, int dilation, int M,
-                  int Mpad, int Lpad, int group, int with_kdiag,
-                  long long* trace, void* stream) {
+                  const float* u, const float* wkd, float* kzx, float* kd,
+                  float* kdpart, int N, int H, int W, int C, int f, int stride,
+                  int dilation, int M, int Mpad, int Lpad, int group,
+                  int with_kdiag, long long* trace, void* stream) {
   Geo g;
   g.H = H;
   g.W = W;
@@ -612,11 +631,15 @@ static int launch(const float* img, const float* Zp, const float* scal,
       if (dev < kMaxDevices) opted[dev] = true;
     }
   }
-  const dim3 grid((N + group - 1) / group, Mpad / kCols + (with_kdiag ? 1 : 0));
+  const int nrt = (g.P + kRows - 1) / kRows;
+  const int grams = !with_kdiag ? 0 : nrt > 1 ? nrt * (nrt + 1) / 2 : 1;
+  if (with_kdiag && nrt > 1 && kdpart == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + group - 1) / group, Mpad / kCols + grams);
   conv_rbf_cross_kernel<<<grid, kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      img, Zp, scal, u, wkd, kzx, kd, g, N, M, Mpad, Lpad, group, with_kdiag,
-      trace);
+      img, Zp, scal, u, wkd, kzx, kd, kdpart, g, N, M, Mpad, Lpad, group,
+      with_kdiag, trace);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -624,16 +647,20 @@ static int launch(const float* img, const float* Zp, const float* scal,
 // 128, Lpad of 16, Lpad >= L); scal [2] = (variance, gamma); u [P] and wkd
 // [P] in TF patch order: contiguous float32 on the device.  `group` whole
 // images a block (group * P <= 128), or 1 where P > 128.  Writes kzx [N, M]
-// and kd [N] (zeros unless with_kdiag).  Launches on `stream`, allocates
-// nothing, and returns the first CUDA error.
+// and kd [N] (zeros unless with_kdiag) -- but where P > 128, with Kdiag,
+// the parts of Kdiag of each pair a <= b of R = ceil(P / 128) row tiles
+// into kdpart [N, R (R + 1) / 2] instead, for the caller to sum.  Launches
+// on `stream`, allocates nothing, and returns the first CUDA error.
 extern "C" int conv_rbf_cross(const float* img, const float* Zp,
                               const float* scal, const float* u,
-                              const float* wkd, float* kzx, float* kd, int N,
-                              int H, int W, int C, int f, int stride,
-                              int dilation, int M, int Mpad, int Lpad,
-                              int group, int with_kdiag, void* stream) {
-  return launch(img, Zp, scal, u, wkd, kzx, kd, N, H, W, C, f, stride,
-                dilation, M, Mpad, Lpad, group, with_kdiag, nullptr, stream);
+                              const float* wkd, float* kzx, float* kd,
+                              float* kdpart, int N, int H, int W, int C,
+                              int f, int stride, int dilation, int M, int Mpad,
+                              int Lpad, int group, int with_kdiag,
+                              void* stream) {
+  return launch(img, Zp, scal, u, wkd, kzx, kd, kdpart, N, H, W, C, f,
+                stride, dilation, M, Mpad, Lpad, group, with_kdiag, nullptr,
+                stream);
 }
 
 // The same launch, adding the clock64() cycles of the setup, the k-loop
@@ -641,9 +668,10 @@ extern "C" int conv_rbf_cross(const float* img, const float* Zp,
 // (< 8) into trace [32] (zeroed by the caller): [3 y + phase].
 extern "C" int conv_rbf_cross_traced(
     const float* img, const float* Zp, const float* scal, const float* u,
-    const float* wkd, float* kzx, float* kd, int N, int H, int W, int C, int f,
-    int stride, int dilation, int M, int Mpad, int Lpad, int group,
-    int with_kdiag, long long* trace, void* stream) {
-  return launch(img, Zp, scal, u, wkd, kzx, kd, N, H, W, C, f, stride,
-                dilation, M, Mpad, Lpad, group, with_kdiag, trace, stream);
+    const float* wkd, float* kzx, float* kd, float* kdpart, int N, int H,
+    int W, int C, int f, int stride, int dilation, int M, int Mpad, int Lpad,
+    int group, int with_kdiag, long long* trace, void* stream) {
+  return launch(img, Zp, scal, u, wkd, kzx, kd, kdpart, N, H, W, C, f,
+                stride, dilation, M, Mpad, Lpad, group, with_kdiag, trace,
+                stream);
 }

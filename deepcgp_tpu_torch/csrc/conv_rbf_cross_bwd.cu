@@ -39,14 +39,16 @@
 //
 // Design: two launches.  dZ sums over every image, and one [M, L] partial
 // per image would be 123 MB at the flagship, so the work splits:
-//  1. image side, one thread-block cluster per image, one block per
-//     128-column tile of M (S = Mpad / 128 blocks, at most 8; a block takes
-//     the tiles rank, rank + S, ...), two warps per 8-row group, one a
-//     64-column half of each tile.  A block holds the image's patch matrix
-//     (transposed) in shared memory, streams its tile of Z through a
-//     two-stage cp.async ring (8 KB a stage: 16 rows of Z^T for the cross
-//     products, then whole rows of Z for T Z), recomputes its tile of the
-//     cross-covariance (8 rows x 2 columns a lane), writes T [N, P, Mpad]
+//  1. image side, for P <= 64 (for P > 64 bwd_image_kernel_tiled, below,
+//     whose d images take a third launch), one thread-block cluster per
+//     image, one block per 128-column tile of M (S = Mpad / 128 blocks, at
+//     most 8; a block takes the tiles rank, rank + S, ...), two warps per
+//     8-row group, one a 64-column half of each tile.  A block holds the
+//     image's patch matrix (transposed) in shared memory, streams its tile
+//     of Z through a two-stage cp.async ring (8 KB a stage: 16 rows of
+//     Z^T for the cross products, then whole rows of Z for T Z),
+//     recomputes its tile of the cross-covariance (8 rows x 2 columns a
+//     lane), writes T [N, P, Mpad]
 //     to device memory (17.7 MB at the flagship) and accumulates its part
 //     of T Z in registers.  The image's gram is dealt out too: each block
 //     takes the pairs p <= q whose index in the upper triangle is its rank
@@ -899,6 +901,730 @@ __global__ void __launch_bounds__(kZThreads) bwd_z_kernel(
   cluster.sync();                  // no rank reads another's memory after this
 }
 
+// ---------------------------------------------------------------------------
+// The image side in row tiles, for P > 64 (bwd_image_kernel_tiled).
+//
+// The cluster kernel above needs a whole image's patches and its P x P
+// gram S in one block's shared memory, and two warps per 8 patch rows:
+// P <= 64.  At the MNIST ConvKernel's geometry (28 x 28 images, f = 5:
+// P = 576, L = 25; M = 1024) the gram alone would take 1.3 MB, and one
+// cluster an image would leave most of the card idle at N = 32.
+//
+// What bounds it there: writing T, not the products.  At N = 32 the cross
+// terms are 2 N P M L = 0.94 GFLOP and the gram's tile pairs p-tile <=
+// q-tile ~0.3 GFLOP: 3 x 1.25 GFLOP as split-TF32 tensor-core products,
+// ~0.008 ms at 495 TFLOP/s, ~0.012 ms at mma.sync's ~310; T [N, P, Mpad]
+// is 75.5 MB, 0.0225 ms at 3.35 TB/s; the exponentials, N P (M + P / 2)
+// = 24 M, ~0.007 ms on the SFU.
+//
+// Design: the work is dealt out in units, one block a unit, so that it
+// spreads over the card (at N = 32: 32 x 5 x 8 = 1,280 cross units and
+// 32 x 15 gram units):
+//  - blockIdx.x the unit, blockIdx.y the image.  Units 0 .. R T - 1 are
+//    the cross terms of a 128-row tile of the image's patches (R tiles)
+//    by a 128-column tile of M (T tiles); the rest, with Kdiag, the gram's
+//    tile pairs a <= b, numbered row by row.  The cross and gram units of
+//    one image sit next to each other in launch order, so the gram leaves
+//    no tail.
+//  - The products are K4's (csrc/conv_rbf_cross.cu): split-TF32
+//    mma.sync.m16n8k8, 8 warps of 32 x 64, k-chunks of 16 patch elements
+//    through a three-stage cp.async ring, the patch rows gathered from the
+//    image (im2col fused), Z's rows from the padded Zp, the row norms from
+//    the fragments; a diagonal gram pair reads its columns from its rows.
+//  - The epilogue works on the accumulator fragments: the exponential,
+//    the masks, T (stored to Tg by float2) and, per unit, the partials of
+//    du (a row tile's), dwkd (the rows of tile a, and of tile b for an
+//    off-diagonal pair, which counts both entries of each of its pairs),
+//    dvar and dgamma, summed across lanes by shuffles and across warps in
+//    a fixed order.  Each partial goes to a slot of its own in device
+//    memory (du [N, R, T, 128], dwkd [N, R, R, 128]: slot [a][b] holds
+//    tile b's share of tile a's rows; scalars [N, units, 2]), and the
+//    wrapper sums the slots in a fixed order: no atomics, the same bits
+//    every run.
+//  - The image gradient only when asked (DX).  The unit then puts its
+//    tile of T, or of S, into shared memory (in the ring's space) and
+//    forms its share of dpatches, T Z or (S + S^T) patches, on the tensor
+//    cores in split TF32 again: 128 rows by 32 patch elements at a time
+//    over 16-row chunks of Z (or of the partner tile's patches), into
+//    slot [tile][unit's column] of [N, R, T + R, 128, Lx], with the row
+//    sums beside them.  bwd_image_kernel_col2im then sums each element's
+//    slots in order, adds the row-sum term and col2im's by a gather.
+// The Z side (bwd_z_kernel) splits over the N P rows of T and takes any P.
+
+constexpr int kTR = 128;        // patch rows of a row tile
+constexpr int kTC = 128;        // columns of a tile: inducing points or patches
+constexpr int kTKC = 16;        // patch elements a k-chunk
+constexpr int kTStages = 3;     // cp.async ring depth
+constexpr int kTThreads = 256;
+constexpr int kTLdA = kTKC + 4;   // raw patch rows: conflict-free fragments
+constexpr int kTLdB = kTKC + 4;   // split columns (float2): the same
+constexpr int kTLdE = kTC + 4;    // the tile of T or S
+constexpr int kTArawFloats = kTStages * kTR * kTLdA;
+constexpr int kTBrawFloats = kTStages * kTC * kTKC;
+constexpr int kTBsFloats = 2 * kTC * kTLdB * 2;
+constexpr int kTPipeFloats = kTArawFloats + kTBrawFloats + kTBsFloats;
+constexpr int kXL = 32;           // dpatches: patch elements a product chunk
+constexpr int kXK = 16;           // dpatches: rows of B a k-chunk
+constexpr int kXLd = kXL + 4;     // its split tile (float2): conflict-free
+static_assert(kTR * kTLdE + kXK * kXL + 2 * kXK * kXLd <= kTPipeFloats,
+              "the tile of T or S and the dpatches staging alias the ring");
+// The ring, Z's (or the partner tile's) norms, row sums [2 kinds][2 warps]
+// [128], column sums [2 kinds][4 warps][128], the row tables [2][128] and
+// the warps' scalars.
+constexpr int kTSmemFloats =
+    kTPipeFloats + kTC + 4 * kTR + 8 * kTC + 2 * kTR + 16;
+
+struct TGeo {
+  int H, W, C, f, stride, dilation, Hout, Wout, P, L, HWC;
+};
+
+// 4 bytes, zero-filled when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4z(float* smem, const float* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void split_u(float x, uint32_t& hi, uint32_t& lo) {
+  const float2 s = split_tf32(x);
+  hi = __float_as_uint(s.x);
+  lo = __float_as_uint(s.y);
+}
+
+// Offset of patch element l (TF order: fy, fx, c) from its patch's first.
+__device__ __forceinline__ int element_offset(const TGeo& g, int l) {
+  const int fC = g.f * g.C;
+  const int fy = l / fC, rem = l - fy * fC;
+  const int fx = rem / g.C;
+  return (fy * g.dilation * g.W + fx * g.dilation) * g.C + rem - fx * g.C;
+}
+
+// Bit 8 i + j: the warp's m-tile i (rows r0 + 16 i) and n-tile j (columns
+// c0 + 8 j) hold a row and a column within the tile.  Warp-uniform.
+__device__ __forceinline__ uint32_t tile_mask(int rows, int cols, int r0,
+                                              int c0) {
+  uint32_t mask = 0;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 8; ++j)
+      if (r0 + 16 * i < rows && c0 + 8 * j < cols) mask |= 1u << (8 * i + j);
+  return mask;
+}
+
+// One k-step (8 patch elements) of a warp's 32 x 64 tile (K4's kstep):
+// four n-tiles at a time, the three passes over their eight tiles one
+// after another.  B comes from the split float2 tile or, for a diagonal
+// gram pair (SELF), from the raw patch rows, split here.
+template <bool MASKED, bool SELF>
+__device__ __forceinline__ void tile_kstep(float (&acc)[2][8][4],
+                                           const uint32_t (&ah)[2][4],
+                                           const uint32_t (&al)[2][4],
+                                           const float* A, const float2* B,
+                                           int ks, int c0, int g8, int t4,
+                                           uint32_t need) {
+#pragma unroll
+  for (int jh = 0; jh < 8; jh += 4) {
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = c0 + (jh + jj) * 8 + g8;
+      if (SELF) {
+        const float* b = A + col * kTLdA + ks + t4;
+        split_u(b[0], bh[jj][0], bl[jj][0]);
+        split_u(b[4], bh[jj][1], bl[jj][1]);
+      } else {
+        const float2* b = B + col * kTLdB + ks + t4;
+        const float2 b0 = b[0], b1 = b[4];
+        bh[jj][0] = __float_as_uint(b0.x);
+        bl[jj][0] = __float_as_uint(b0.y);
+        bh[jj][1] = __float_as_uint(b1.x);
+        bl[jj][1] = __float_as_uint(b1.y);
+      }
+    }
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (MASKED && !((need >> (8 * i + jh + jj)) & 1u)) continue;
+          mma_tf32(acc[i][jh + jj], pass == 0 ? al[i] : ah[i],
+                   pass == 1 ? bl[jj][0] : bh[jj][0],
+                   pass == 1 ? bl[jj][1] : bh[jj][1]);
+        }
+  }
+}
+
+template <bool DX>
+__global__ void __launch_bounds__(kTThreads, 2) bwd_image_kernel_tiled(
+    const float* __restrict__ img, const float* __restrict__ Zp,
+    const float* __restrict__ scal, const float* __restrict__ u,
+    const float* __restrict__ wkd, const float* __restrict__ dkzx,
+    const float* __restrict__ dkd, float* __restrict__ Tg,
+    float* __restrict__ sc, float* __restrict__ dup, float* __restrict__ dwp,
+    float* __restrict__ rx, float* __restrict__ rsum, TGeo geo, int M,
+    int Mpad, int Lpad, int Lx, int with_kdiag) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Araw = smem;                        // [kTStages][kTR][kTLdA]
+  float* Braw = Araw + kTArawFloats;         // [kTStages][kTC][kTKC]
+  float2* Bs = reinterpret_cast<float2*>(Braw + kTBrawFloats);  // [2][kTC][kTLdB]
+  float* E = smem;                           // [kTR][kTLdE], after the ring
+  float* Xraw = E + kTR * kTLdE;             // [kXK][kXL]
+  float2* Xs = reinterpret_cast<float2*>(Xraw + kXK * kXL);  // [kXK][kXLd]
+  float* bn = smem + kTPipeFloats;           // [kTC]: column-row norms
+  float* rsm = bn + kTC;                     // [2 kinds][2 wc][kTR]
+  float* csm = rsm + 4 * kTR;                // [2 kinds][4 wr][kTC]
+  int* roff = reinterpret_cast<int*>(csm + 8 * kTC);  // [2][kTR]: tile a's
+                                             //   and tile b's rows' offsets
+  float* red = reinterpret_cast<float*>(roff + 2 * kTR);  // [2][8]
+
+  const int tid = threadIdx.x;
+  const int w = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;   // fragment row, column
+  const int wr = w >> 1, wc = w & 1;         // 32-row, 64-column warp tile
+  const int sr = tid >> 2, sq = tid & 3;     // Z: rows sr, sr + 64
+  const int hr = tid >> 4, hk = tid & 15;    // patches: rows hr + 16 i
+  const int P = geo.P, L = geo.L;
+  const int n = blockIdx.y;
+  const int unit = blockIdx.x;
+  const int nrt = (P + kTR - 1) / kTR;
+  const int nmt = Mpad / kTC;
+  const int nslot = nmt + (with_kdiag ? nrt : 0);
+  const bool gram = unit >= nrt * nmt;
+  int ta, tb, mt = 0;                        // row tile, gram column tile
+  if (!gram) {
+    ta = tb = unit / nmt;
+    mt = unit - ta * nmt;
+  } else {
+    int t = unit - nrt * nmt;
+    ta = 0;
+    while (t >= nrt - ta) {
+      t -= nrt - ta;
+      ++ta;
+    }
+    tb = ta + t;
+  }
+  const bool self = gram && ta == tb;        // the columns are the rows
+  const int m0 = mt * kTC;
+  const int rows = min(kTR, P - ta * kTR);
+  const int cols = gram ? min(kTC, P - tb * kTC) : min(kTC, M - m0);
+  const float var = scal[0], gamma = scal[1];
+  const int nk = (L + kTKC - 1) / kTKC;
+  const float inv_p2 = 1.0f / (static_cast<float>(P) * static_cast<float>(P));
+  const float* x = img + static_cast<size_t>(n) * geo.HWC;
+
+  for (int r = tid; r < 2 * kTR; r += kTThreads) {
+    const int p = (r < kTR ? ta : tb) * kTR + (r & (kTR - 1));
+    int off = -1;
+    if (p < P) {
+      const int oy = p / geo.Wout, ox = p - oy * geo.Wout;
+      off = (oy * geo.stride * geo.W + ox * geo.stride) * geo.C;
+    }
+    roff[r] = off;
+  }
+  if (gram && !self)
+    for (int r = tid; r < kTC; r += kTThreads) bn[r] = 0.0f;
+  __syncthreads();
+  const uint32_t need = tile_mask(rows, cols, wr * 32, wc * 64);
+
+  // Issue k-chunk c into ring slot c % kTStages, as one group (K4's).
+  auto stage = [&](int c) {
+    const int slot = c % kTStages;
+    float* As = Araw + slot * kTR * kTLdA;
+    float* Br = Braw + slot * kTC * kTKC;
+    const int k = c * kTKC + hk;
+    const bool kv = k < L;
+    const int lo = kv ? element_offset(geo, k) : 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = hr + 16 * i;
+      const int ra = roff[r];
+      const bool va = kv && ra >= 0;
+      cp_async4z(As + r * kTLdA + hk, va ? x + ra + lo : x, va);
+      if (gram && !self) {
+        const int rb = roff[kTR + r];
+        const bool vb = kv && rb >= 0;
+        cp_async4z(Br + r * kTKC + hk, vb ? x + rb + lo : x, vb);
+      }
+    }
+    if (!gram) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = sr + 64 * i;
+        cp_async16(Br + r * kTKC + 4 * sq,
+                   Zp + static_cast<size_t>(m0 + r) * Lpad + c * kTKC + 4 * sq);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Split this thread's own staged columns of chunk c into Bs[c & 1] and
+  // add up their squared norms (K4's).
+  float bnacc[2] = {0.0f, 0.0f};
+  auto convert = [&](int c) {
+    const float* Br = Braw + (c % kTStages) * kTC * kTKC;
+    float2* Bd = Bs + (c & 1) * kTC * kTLdB;
+    if (self) return;
+    if (gram) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = hr + 16 * i;
+        const float v = Br[r * kTKC + hk];
+        Bd[r * kTLdB + hk] = split_tf32(v);
+        float q = v * v;
+        q += __shfl_xor_sync(0xffffffffu, q, 1);
+        q += __shfl_xor_sync(0xffffffffu, q, 2);
+        q += __shfl_xor_sync(0xffffffffu, q, 4);
+        q += __shfl_xor_sync(0xffffffffu, q, 8);
+        if (hk == 0) bn[r] += q;
+      }
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = sr + 64 * i;
+      const float4 v = *reinterpret_cast<const float4*>(Br + r * kTKC + 4 * sq);
+      bnacc[i] += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+      split_store4(Bd + r * kTLdB + 4 * sq, v);
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  float pnacc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+
+  // The ring (K4's): chunk c + 2 is issued before chunk c is computed, and
+  // chunk c + 1 is awaited and split after it; one barrier a chunk.
+  stage(0);
+  if (nk > 1) {
+    stage(1);
+  } else {
+    cp_async_commit();
+  }
+  cp_async_wait<1>();
+  convert(0);
+  __syncthreads();
+  for (int c = 0; c < nk; ++c) {
+    if (c + 2 < nk) {
+      stage(c + 2);
+    } else {
+      cp_async_commit();
+    }
+    const float* A = Araw + (c % kTStages) * kTR * kTLdA;
+    const float2* B = Bs + (c & 1) * kTC * kTLdB;
+#pragma unroll
+    for (int ks = 0; ks < kTKC; ks += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = A + (wr * 32 + i * 16 + g8) * kTLdA + ks + t4;
+        const float x0 = a[0], x1 = a[8 * kTLdA], x2 = a[4],
+                    x3 = a[8 * kTLdA + 4];
+        pnacc[i][0] += x0 * x0 + x2 * x2;
+        pnacc[i][1] += x1 * x1 + x3 * x3;
+        split_u(x0, ah[i][0], al[i][0]);
+        split_u(x1, ah[i][1], al[i][1]);
+        split_u(x2, ah[i][2], al[i][2]);
+        split_u(x3, ah[i][3], al[i][3]);
+      }
+      const int c0 = wc * 64;
+      if (self) {
+        if (need == 0xFFFFu)
+          tile_kstep<false, true>(acc, ah, al, A, B, ks, c0, g8, t4, need);
+        else
+          tile_kstep<true, true>(acc, ah, al, A, B, ks, c0, g8, t4, need);
+      } else if (need == 0xFFFFu) {
+        tile_kstep<false, false>(acc, ah, al, A, B, ks, c0, g8, t4, need);
+      } else {
+        tile_kstep<true, false>(acc, ah, al, A, B, ks, c0, g8, t4, need);
+      }
+    }
+    cp_async_wait<1>();        // this thread's copies of chunk c + 1
+    if (c + 1 < nk) convert(c + 1);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  // Norms: a row's four stagers, a fragment row's four lanes; a diagonal
+  // gram pair takes its column norms from its rows'.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float v = bnacc[i];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (!gram && sq == 0) bn[sr + 64 * i] = v;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pnacc[i][h] += __shfl_xor_sync(0xffffffffu, pnacc[i][h], 1);
+      pnacc[i][h] += __shfl_xor_sync(0xffffffffu, pnacc[i][h], 2);
+      if (self && wc == 0 && t4 == 0)
+        bn[wr * 32 + i * 16 + g8 + 8 * h] = pnacc[i][h];
+    }
+  }
+  __syncthreads();             // bn written; every copy has landed: E may
+                               //   take the ring's space
+
+  float dvar_acc = 0.0f, dgam_acc = 0.0f;
+  if (!gram) {
+    // T = gamma u_p dKzx K [D > 0] on the unit's 128 x 128 cross terms; the
+    // row sums of dKzx K (du) and of T (for dpatches).
+    float a[8][2], zc[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wc * 64 + j * 8 + 2 * t4 + e;
+        const int m = m0 + col;
+        a[j][e] = m < M ? __ldg(dkzx + static_cast<size_t>(n) * M + m) : 0.0f;
+        zc[j][e] = bn[col];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * 32 + i * 16 + g8 + 8 * h;
+        const int p = ta * kTR + r;
+        const bool valid = r < rows;
+        const float up = valid ? __ldg(u + p) : 0.0f;
+        float du = 0.0f, rt = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float tv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float d2 = pnacc[i][h] + zc[j][e] - 2.0f * acc[i][j][2 * h + e];
+            const float dh = fmaxf(d2, 0.0f);
+            const float ak = a[j][e] * (var * expf(gamma * dh));
+            const float auk = up * ak;
+            dvar_acc += auk;
+            dgam_acc += auk * dh;
+            const float t = d2 > 0.0f ? auk * gamma : 0.0f;
+            du += ak;
+            rt += t;
+            tv[e] = t;
+          }
+          const int col = wc * 64 + j * 8 + 2 * t4;
+          if (valid)
+            *reinterpret_cast<float2*>(
+                Tg + (static_cast<size_t>(n) * P + p) * Mpad + m0 + col) =
+                make_float2(tv[0], tv[1]);
+          if (DX)
+            *reinterpret_cast<float2*>(E + r * kTLdE + col) =
+                make_float2(tv[0], tv[1]);
+        }
+        if (!valid) du = 0.0f;
+        du += __shfl_xor_sync(0xffffffffu, du, 1);
+        du += __shfl_xor_sync(0xffffffffu, du, 2);
+        rt += __shfl_xor_sync(0xffffffffu, rt, 1);
+        rt += __shfl_xor_sync(0xffffffffu, rt, 2);
+        if (t4 == 0) {
+          rsm[wc * kTR + r] = du;
+          rsm[(2 + wc) * kTR + r] = rt;
+        }
+      }
+  } else {
+    // The gram pair's terms: base = dKdiag w_p w_q Kd / P^2, S = gamma base
+    // [E > 0]; an off-diagonal pair counts each of its entries twice, as
+    // (p, q) and (q, p).  Row sums of w_q Kd (dwkd of tile a) and of S;
+    // column sums of w_p Kd (dwkd of tile b) and of S.
+    const float dd = dkd[n];
+    const float mult = self ? 1.0f : 2.0f;
+    float wq[8][2], cw[8][2], cs[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = wc * 64 + j * 8 + 2 * t4 + e;
+        wq[j][e] = c < cols ? __ldg(wkd + tb * kTC + c) : 0.0f;
+        cw[j][e] = cs[j][e] = 0.0f;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * 32 + i * 16 + g8 + 8 * h;
+        const bool valid = r < rows;
+        const float wp = valid ? __ldg(wkd + ta * kTR + r) : 0.0f;
+        float rw = 0.0f, rs = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float sv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = wc * 64 + j * 8 + 2 * t4 + e;
+            const bool ok = valid && c < cols;
+            const float e2 = pnacc[i][h] + bn[c] - 2.0f * acc[i][j][2 * h + e];
+            const float eh = fmaxf(e2, 0.0f);
+            const float kd = ok ? var * expf(gamma * eh) : 0.0f;
+            const float base = dd * (wp * wq[j][e]) * inv_p2 * kd;
+            dvar_acc += mult * base;
+            dgam_acc += mult * base * eh;
+            const float s = e2 > 0.0f ? base * gamma : 0.0f;
+            rw += wq[j][e] * kd;
+            cw[j][e] += wp * kd;
+            rs += s;
+            cs[j][e] += s;
+            sv[e] = s;
+          }
+          if (DX)
+            *reinterpret_cast<float2*>(E + r * kTLdE + wc * 64 + j * 8 + 2 * t4) =
+                make_float2(sv[0], sv[1]);
+        }
+        rw += __shfl_xor_sync(0xffffffffu, rw, 1);
+        rw += __shfl_xor_sync(0xffffffffu, rw, 2);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        if (t4 == 0) {
+          rsm[wc * kTR + r] = rw;
+          rsm[(2 + wc) * kTR + r] = rs;
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v0 = cw[j][e], v1 = cs[j][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+          v1 += __shfl_xor_sync(0xffffffffu, v1, o);
+        }
+        if (g8 == 0) {
+          const int c = wc * 64 + j * 8 + 2 * t4 + e;
+          csm[wr * kTC + c] = v0;
+          csm[(4 + wr) * kTC + c] = v1;
+        }
+      }
+  }
+
+  // The unit's partials, each into a slot of its own.
+  dvar_acc = warp_sum(dvar_acc);
+  dgam_acc = warp_sum(dgam_acc);
+  if (lane == 0) {
+    red[w] = dvar_acc;
+    red[8 + w] = dgam_acc;
+  }
+  __syncthreads();             // red, rsm, csm and E are complete
+  if (tid == 0) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int i = 0; i < 8; ++i) {
+      s1 += red[i];
+      s2 += red[8 + i];
+    }
+    const size_t o = (static_cast<size_t>(n) * gridDim.x + unit) * 2;
+    sc[o] = s1;
+    sc[o + 1] = s2;
+  }
+  const float fw = gram ? 2.0f * dkd[n] * inv_p2 : 0.0f;
+  const size_t rowslot =
+      (static_cast<size_t>(n) * nrt + ta) * nslot + (gram ? nmt + tb : mt);
+  if (tid < kTR) {
+    const int r = tid;
+    const bool valid = r < rows;
+    const float v0 = rsm[r] + rsm[kTR + r];
+    if (!gram)
+      dup[((static_cast<size_t>(n) * nrt + ta) * nmt + mt) * kTR + r] =
+          valid ? v0 : 0.0f;
+    else
+      dwp[((static_cast<size_t>(n) * nrt + ta) * nrt + tb) * kTR + r] =
+          valid ? fw * v0 : 0.0f;
+    if (DX) {
+      float v1 = rsm[2 * kTR + r] + rsm[3 * kTR + r];
+      if (self)                // row sums of S + S^T
+        v1 += csm[4 * kTC + r] + csm[5 * kTC + r] + csm[6 * kTC + r] +
+              csm[7 * kTC + r];
+      else if (gram)
+        v1 *= 2.0f;
+      rsum[rowslot * kTR + r] = valid ? v1 : 0.0f;
+    }
+  } else if (gram && !self) {
+    const int c = tid - kTR;
+    const bool valid = c < cols;
+    const float v0 = csm[c] + csm[kTC + c] + csm[2 * kTC + c] + csm[3 * kTC + c];
+    dwp[((static_cast<size_t>(n) * nrt + tb) * nrt + ta) * kTR + c] =
+        valid ? fw * v0 : 0.0f;
+    if (DX) {
+      const float v1 = csm[4 * kTC + c] + csm[5 * kTC + c] + csm[6 * kTC + c] +
+                       csm[7 * kTC + c];
+      rsum[((static_cast<size_t>(n) * nrt + tb) * nslot + nmt + ta) * kTR + c] =
+          valid ? 2.0f * v1 : 0.0f;
+    }
+  }
+  if (!DX) return;
+
+  // dpatches: the tile's share, out[r][l] = scale sum_k A[r][k] B[k][l]
+  // with A = E (or E^T) and B's rows Z's m0 + k (or the patch rows of the
+  // table at rbase), in split TF32, 32 patch elements at a time.
+  if (self) {                  // S + S^T in place
+    for (int i = tid; i < kTR * kTR; i += kTThreads) {
+      const int r = i / kTR, c = i - r * kTR;
+      if (r < c) {
+        const float s = E[r * kTLdE + c] + E[c * kTLdE + r];
+        E[r * kTLdE + c] = s;
+        E[c * kTLdE + r] = s;
+      } else if (r == c) {
+        E[r * kTLdE + r] *= 2.0f;
+      }
+    }
+    __syncthreads();
+  }
+  auto product = [&](bool trans, int rbase, float scale, float* out) {
+    for (int l0 = 0; l0 < Lx; l0 += kXL) {
+      float oc[2][2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) oc[i][j][e] = 0.0f;
+      for (int k0 = 0; k0 < kTC; k0 += kXK) {
+        for (int e = tid; e < kXK * kXL; e += kTThreads) {
+          const int kr = e / kXL, l = l0 + e - kr * kXL;
+          if (!gram) {
+            cp_async4z(Xraw + e,
+                       Zp + static_cast<size_t>(m0 + k0 + kr) * Lpad + l, true);
+          } else {
+            const int ro = roff[rbase + k0 + kr];
+            const bool v = ro >= 0 && l < L;
+            cp_async4z(Xraw + e, v ? x + ro + element_offset(geo, l) : x, v);
+          }
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int e = tid; e < kXK * kXL; e += kTThreads) {
+          const int kr = e / kXL;
+          Xs[kr * kXLd + e - kr * kXL] = split_tf32(Xraw[e]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < kXK; ks += 8) {
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = wr * 32 + i * 16 + g8, k = k0 + ks + t4;
+            const float v[4] = {
+                trans ? E[k * kTLdE + r] : E[r * kTLdE + k],
+                trans ? E[k * kTLdE + r + 8] : E[(r + 8) * kTLdE + k],
+                trans ? E[(k + 4) * kTLdE + r] : E[r * kTLdE + k + 4],
+                trans ? E[(k + 4) * kTLdE + r + 8] : E[(r + 8) * kTLdE + k + 4]};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_u(v[q], ah[i][q], al[i][q]);
+          }
+          uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float2* b = Xs + (ks + t4) * kXLd + wc * 16 + j * 8 + g8;
+            const float2 b0 = b[0], b1 = b[4 * kXLd];
+            bh[j][0] = __float_as_uint(b0.x);
+            bl[j][0] = __float_as_uint(b0.y);
+            bh[j][1] = __float_as_uint(b1.x);
+            bl[j][1] = __float_as_uint(b1.y);
+          }
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                mma_tf32(oc[i][j], pass == 0 ? al[i] : ah[i],
+                         pass == 1 ? bl[j][0] : bh[j][0],
+                         pass == 1 ? bl[j][1] : bh[j][1]);
+        }
+        __syncthreads();       // Xraw and Xs are refilled next
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int r = wr * 32 + i * 16 + g8 + 8 * h;
+            const int l = l0 + wc * 16 + j * 8 + 2 * t4;
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * Lx + l) =
+                make_float2(scale * oc[i][j][2 * h],
+                            scale * oc[i][j][2 * h + 1]);
+          }
+    }
+  };
+  const size_t tile = static_cast<size_t>(kTR) * Lx;
+  // Tile a's rows: T Z, (S + S^T) patches_a, or 2 S patches_b.
+  product(false, self ? 0 : kTR, gram && !self ? 2.0f : 1.0f,
+          rx + rowslot * tile);
+  if (gram && !self)           // tile b's rows: 2 S^T patches_a
+    product(true, 0, 2.0f,
+            rx + ((static_cast<size_t>(n) * nrt + tb) * nslot + nmt + ta) *
+                     tile);
+}
+
+// d images of the row-tiled image side: each pixel gathers the patch
+// elements that read it, each the sum of its slots of rx in slot order
+// (times -2) plus 2 x its row sums: the same order every run.
+__global__ void __launch_bounds__(256) bwd_image_kernel_col2im(
+    const float* __restrict__ img, const float* __restrict__ rx,
+    const float* __restrict__ rsum, float* __restrict__ dimg, TGeo geo,
+    int N, int nrt, int nslot, int Lx) {
+  const size_t total = static_cast<size_t>(N) * geo.HWC;
+  for (size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < total; t += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int n = static_cast<int>(t / geo.HWC);
+    const int rem = static_cast<int>(t - static_cast<size_t>(n) * geo.HWC);
+    const int pix = rem / geo.C, c = rem - pix * geo.C;
+    const int yy = pix / geo.W, xx = pix - yy * geo.W;
+    const float xv = img[t];
+    float s = 0.0f;
+    for (int fy = 0; fy < geo.f; ++fy) {
+      const int ry = yy - fy * geo.dilation;
+      if (ry < 0) break;
+      if (ry % geo.stride) continue;
+      const int oy = ry / geo.stride;
+      if (oy >= geo.Hout) continue;
+      for (int fx = 0; fx < geo.f; ++fx) {
+        const int rxx = xx - fx * geo.dilation;
+        if (rxx < 0) break;
+        if (rxx % geo.stride) continue;
+        const int ox = rxx / geo.stride;
+        if (ox >= geo.Wout) continue;
+        const int p = oy * geo.Wout + ox;
+        const int l = (fy * geo.f + fx) * geo.C + c;
+        const size_t base =
+            (static_cast<size_t>(n) * nrt + p / kTR) * nslot * kTR + p % kTR;
+        float v = 0.0f, rs = 0.0f;
+        for (int q = 0; q < nslot; ++q) {
+          v += rx[(base + static_cast<size_t>(q) * kTR) * Lx + l];
+          rs += rsum[base + static_cast<size_t>(q) * kTR];
+        }
+        s += -2.0f * v + 2.0f * xv * rs;
+      }
+    }
+    dimg[t] = s;
+  }
+}
+
+TGeo tiled_geo(int H, int W, int C, int f, int stride, int dilation) {
+  TGeo g;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.f = f;
+  g.stride = stride;
+  g.dilation = dilation;
+  const int eff = (f - 1) * dilation + 1;
+  g.Hout = (H - eff) / stride + 1;
+  g.Wout = (W - eff) / stride + 1;
+  g.P = g.Hout * g.Wout;
+  g.L = f * f * C;
+  g.HWC = H * W * C;
+  return g;
+}
+
+
 // Opt in to more dynamic shared memory than a launch gets by default, once
 // per device, kernel and size: the attribute keeps the largest size set.
 template <typename Kernel>
@@ -1119,5 +1845,78 @@ extern "C" int conv_rbf_cross_bwd_z(const float* img, const float* Z,
   err = cudaLaunchKernelEx(&cfg, bwd_z_kernel, img, Z, Tg, dZ, N, H, W, C, f,
                            stride, dilation, Hout, Wout, M, Mpad);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one block of the row-tiled image side (the same
+// at every geometry).
+extern "C" size_t conv_rbf_cross_bwd_tiled_smem_bytes() {
+  return kTSmemFloats * sizeof(float);
+}
+
+// Row-tiled image side, P > 64 (the caller refuses L > 512).  img
+// [N, H, W, C]; Zp [Mpad, Lpad] = Z zero-padded (Mpad a multiple of 128,
+// Lpad of 128); scal [2] = (variance, gamma); u, wkd [P] in TF patch
+// order; dkzx [N, M]; dkd [N] (read only when with_kdiag).  Writes T into
+// Tg [N, P, Mpad] and the units' partials: sc [N, units, 2] (sum of the
+// terms of dvar times var, dgamma), dup [N, R, Mpad / 128, 128] (du),
+// dwp [N, R, R, 128] (dwkd, with_kdiag only), with R = ceil(P / 128) row
+// tiles and units = R Mpad / 128 (+ R (R + 1) / 2 with Kdiag); with
+// with_dimg also rx [N, R, slots, 128, Lx] and rsum [N, R, slots, 128]
+// (slots = Mpad / 128 (+ R with Kdiag), Lx a multiple of 32 >= L, <=
+// Lpad), which conv_rbf_cross_bwd_image_tiled_col2im turns into d images.
+// Launches on `stream`, allocates nothing, returns the first CUDA error.
+extern "C" int conv_rbf_cross_bwd_image_tiled(
+    const float* img, const float* Zp, const float* scal, const float* u,
+    const float* wkd, const float* dkzx, const float* dkd, float* Tg,
+    float* sc, float* dup, float* dwp, float* rx, float* rsum, int N, int H,
+    int W, int C, int f, int stride, int dilation, int M, int Mpad, int Lpad,
+    int Lx, int with_kdiag, int with_dimg, void* stream) {
+  const TGeo g = tiled_geo(H, W, C, f, stride, dilation);
+  if (N < 1 || N > 65535 || g.Hout < 1 || g.Wout < 1 || g.P <= 64 ||
+      g.L > 4 * kTC || Mpad % kTC || Mpad < M || Lpad % kTC || Lpad < g.L ||
+      (with_dimg && (Lx % kXL || Lx < g.L || Lx > Lpad)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = conv_rbf_cross_bwd_tiled_smem_bytes();
+  const int nrt = (g.P + kTR - 1) / kTR;
+  const int units = nrt * (Mpad / kTC) + (with_kdiag ? nrt * (nrt + 1) / 2 : 0);
+  const dim3 grid(units, N);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (with_dimg) {
+    static size_t opted[kMaxDevices] = {};
+    err = opt_in(bwd_image_kernel_tiled<true>, smem, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bwd_image_kernel_tiled<true><<<grid, kTThreads, smem, s>>>(
+        img, Zp, scal, u, wkd, dkzx, dkd, Tg, sc, dup, dwp, rx, rsum, g, M,
+        Mpad, Lpad, Lx, with_kdiag);
+  } else {
+    static size_t opted[kMaxDevices] = {};
+    err = opt_in(bwd_image_kernel_tiled<false>, smem, opted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bwd_image_kernel_tiled<false><<<grid, kTThreads, smem, s>>>(
+        img, Zp, scal, u, wkd, dkzx, dkd, Tg, sc, dup, dwp, rx, rsum, g, M,
+        Mpad, Lpad, Lx, with_kdiag);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d images [N, H, W, C] of the row-tiled image side from its rx and rsum
+// (the layout above): one thread a pixel and channel, a gather.
+extern "C" int conv_rbf_cross_bwd_image_tiled_col2im(
+    const float* img, const float* rx, const float* rsum, float* dimg, int N,
+    int H, int W, int C, int f, int stride, int dilation, int Mpad,
+    int with_kdiag, int Lx, void* stream) {
+  const TGeo g = tiled_geo(H, W, C, f, stride, dilation);
+  if (N < 1 || g.Hout < 1 || g.Wout < 1 || Mpad % kTC || Lx % kXL ||
+      Lx < g.L)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nrt = (g.P + kTR - 1) / kTR;
+  const int nslot = Mpad / kTC + (with_kdiag ? nrt : 0);
+  const size_t total = static_cast<size_t>(N) * g.HWC;
+  const int blocks = static_cast<int>(
+      (total + 255) / 256 < 65535 ? (total + 255) / 256 : 65535);
+  bwd_image_kernel_col2im<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      img, rx, rsum, dimg, g, N, nrt, nslot, Lx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ from deepcgp_tpu_torch.config import JITTER
 from deepcgp_tpu_torch.models.base_kernels import RBF, frozen_parameter
 from deepcgp_tpu_torch.ops import cuda_cross, cuda_patches
 from deepcgp_tpu_torch.ops.linalg import add_jitter
+from deepcgp_tpu_torch.utils import profiling
 
 
 class MultiOutputConvKernel:
@@ -125,9 +126,13 @@ class AdditivePatchKernel(nn.Module):
     def Kzx_NM_and_Kdiag(self, Z: torch.Tensor, ND_X: torch.Tensor):
         """(Kzx [N, M], Kdiag [N]): fused where the geometry fits (K4
         forward, K5 backward), else off one extraction (K6, and K7 in the
-        backward) that Kdiag shares where it reads patches."""
+        backward) that Kdiag shares where it reads patches.  Each call
+        counts its route in ``profiling.COUNTERS['cross route fused']`` or
+        ``['cross route unfused']``."""
         if cuda_cross.fused_fits(self):
+            profiling.COUNTERS['cross route fused'] += 1
             return cuda_cross.kzx_and_kdiag(self, Z, ND_X)
+        profiling.COUNTERS['cross route unfused'] += 1
         patches = self._patches(ND_X)
         return self._cross(Z, patches), self.Kdiag(ND_X, patches)
 

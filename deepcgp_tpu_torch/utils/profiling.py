@@ -15,7 +15,7 @@
   span's count, total and self ms, the device's idle time by span;
 * ``COUNTERS`` -- process-wide counts of the program's events
   (``'graph captures'``, ``'fused adam steps'``, ``'natgrad updates'``,
-  ``'natgrad route <route>'``);
+  ``'natgrad route <route>'``, ``'cross route fused'`` / ``'unfused'``);
 * ``launch(name, reads, writes)`` -- the region of one hand-kernel launch
   (the kernels are loaded by ``ctypes``, so without it no operator owns
   their launches in a trace), which also tells the observers of
@@ -81,9 +81,10 @@ def trace(log_dir: str, **options):
 # updates': the ``train_step`` calls that took the natural-gradient step;
 # 'natgrad route upper' / 'panels' / 'library': the ``optim.
 # natgrad_update`` calls by the route of their solve
-# (``optim.natgrad_route``).  A counter counts Python calls, eager steps
-# and captures: it does not run inside a replay, which repeats its
-# capture's step without a call.
+# (``optim.natgrad_route``); 'cross route fused' / 'unfused': the patch
+# kernels' ``Kzx_NM_and_Kdiag`` calls by route (``cuda_cross.fused_fits``).
+# A counter counts Python calls, eager steps and captures: it does not run
+# inside a replay, which repeats its capture's step without a call.
 COUNTERS: collections.Counter = collections.Counter()
 
 # What annotate returns while nothing traces or records.

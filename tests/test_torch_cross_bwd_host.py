@@ -108,26 +108,34 @@ def _old_bwd_smem_bytes(P, L):
 @pytest.mark.parametrize('P,L,fits', [
     (36, 250, True),      # flagship last layer, fused
     (36, 800, False),     # CIFAR fm32 (L = 800), unfused
-    (576, 25, False),     # MNIST single-layer ConvKernel (P = 576), unfused
+    (576, 25, True),      # MNIST single-layer ConvKernel (P = 576): tiled
     (42, 90, True),       # chip_smoke.py's stride-2 geometry
     (36, 9, True), (20, 27, True), (64, 18, True),   # the parity tests'
-    (100, 250, False),    # 14 x 14 input: P = 100
+    (100, 250, True),     # 14 x 14 input: P = 100, tiled
     (64, 512, False), (64, 256, True), (8, 512, True), (36, 513, False)])
 def test_bwd_fits_answers_as_before(P, L, fits):
-    """The redesign changed the image side's shared memory, but the gate
-    answers as before on the geometries the tests and paths use."""
+    """The redesign changed the cluster image side's shared memory, but
+    for P <= 64 the gate answers as before on the geometries the tests and
+    paths use; P > 64 within L <= 512 now takes the row-tiled image
+    side."""
     old = (0 < P <= 64 and L <= 512
            and _old_bwd_smem_bytes(P, L) <= cuda_cross.SMEM_LIMIT)
-    assert cuda_cross.bwd_fits(P, L) == old == fits
+    assert cuda_cross.bwd_fits(P, L) == fits
+    if P <= 64:
+        assert fits == old
+        assert cuda_cross.bwd_route(P, L) == ('cluster' if fits else None)
+    else:
+        assert cuda_cross.bwd_route(P, L) == 'tiled'
 
 
 def test_bwd_fits_keeps_every_fused_geometry():
-    """Every geometry the old image side took, the new one takes too: no
-    model that trained fused before falls back to the unfused route."""
+    """Every geometry the old image side took, the new one takes too, and
+    on the cluster kernel it always had: no model that trained fused
+    before falls back to the unfused route or moves to the row tiles."""
     for P in range(1, 65):
         for L in range(1, 513):
             if _old_bwd_smem_bytes(P, L) <= cuda_cross.SMEM_LIMIT:
-                assert cuda_cross.bwd_fits(P, L), (P, L)
+                assert cuda_cross.bwd_route(P, L) == 'cluster', (P, L)
 
 
 def test_padded_row_norms_of_z():

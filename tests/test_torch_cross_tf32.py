@@ -217,7 +217,9 @@ def test_fwd_group_fills_128_rows_with_whole_images(P, group):
     (640, 36, 384, True, (214, 4)),      # flagship serving: 3 Kzx tiles + gram
     (320, 36, 384, True, (107, 4)),      # flagship training
     (256, 42, 200, False, (86, 2)),      # stride 2, AdditivePatchKernel
-    (3, 576, 1024, True, (3, 9)),        # P > 128: one image a block
+    (3, 576, 1024, True, (3, 23)),       # P > 128: one image a block, the
+                                         #   gram's 15 row-tile pairs apart
+    (3, 576, 1024, False, (3, 8)),
 ])
 def test_fwd_grid(N, P, M, with_kdiag, grid):
     assert cuda_cross.fwd_grid(N, P, M, with_kdiag) == grid

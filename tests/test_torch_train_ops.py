@@ -142,15 +142,18 @@ def test_k5_plain_backward_masks_strictly():
 
 
 def test_k5_gate():
-    """The backward kernel takes one warp per 8 patch rows (P <= 64) and at
-    most 4 column tiles (L <= 512) within one block's shared memory: the
-    flagship's last layer fits; a 28 x 28 MNIST layer (P = 576) does not,
-    so it trains on the unfused route (K6/K7, cuda_cross.fused_fits), and
-    a direct CUDA call of K5 outside the gate raises, never falls back."""
+    """The backward's cluster image side takes one warp per 8 patch rows
+    (P <= 64) and at most 4 column tiles (L <= 512) within one block's
+    shared memory: the flagship's last layer fits; a 28 x 28 MNIST layer
+    (P = 576) takes the row-tiled image side (L <= 512 there too), so it
+    trains on the fused route as well; what neither takes trains unfused
+    (K6/K7, cuda_cross.fused_fits), and a direct CUDA call of K5 outside
+    the gate raises, never falls back."""
     assert cuda_cross.bwd_fits(36, 250)
     assert cuda_cross.bwd_fits(64, 256) and cuda_cross.bwd_fits(8, 512)
     assert not cuda_cross.bwd_fits(64, 512)   # shared memory
-    assert not cuda_cross.bwd_fits(576, 25)
+    assert cuda_cross.bwd_route(576, 25) == 'tiled'
+    assert not cuda_cross.bwd_fits(576, 513)
     assert not cuda_cross.bwd_fits(36, 513)
     assert cuda_cross.bwd_smem_bytes(36, 250) < cuda_cross.SMEM_LIMIT
 

@@ -1,12 +1,14 @@
 """The port's unfused last-layer route against the JAX package on the CPU:
-the geometries the fused cross-covariance (K4/K5) does not take -- an
-MNIST-shaped single-layer ConvKernel (P > 64), a last layer with L > 512,
-a 2-layer model with P > 64, and an ARD-lengthscale last layer -- through
-the transposed-order extraction (K6) and its col2im (K7).  The whole-model
-ELBO and every gradient in float64 and in float32 (the JAX package's Pallas
-kernels in interpret mode, the port's plain versions), Adam and NatGrad
-steps against ``trainer.train_step``, the route each geometry takes, and
-the train -> snapshot -> Predictor round trip.  Both sides get the same
+the geometries the fused cross-covariance (K4/K5) does not take -- a last
+layer with L > 512 and an ARD-lengthscale last layer -- through the
+transposed-order extraction (K6) and its col2im (K7), and the two with
+P > 64 that the row-tiled image side brought onto the fused route -- an
+MNIST-shaped single-layer ConvKernel and a 2-layer model -- on both
+routes, the fused one as the gate chooses and the unfused one forced.  The
+whole-model ELBO and every gradient in float64 and in float32 (the JAX
+package's Pallas kernels in interpret mode, the port's plain versions),
+Adam and NatGrad steps against ``trainer.train_step``, the route each
+geometry takes, and the train -> snapshot -> Predictor round trip.  Both sides get the same
 parameters (random, non-uniform patch weights), minibatches and
 Monte-Carlo noise."""
 
@@ -34,7 +36,7 @@ from deepcgp_tpu_torch.models.views import FullView
 from deepcgp_tpu_torch.ops import cuda_cross, cuda_patches
 from deepcgp_tpu_torch.serving import Predictor
 from deepcgp_tpu_torch.training import trainer
-from deepcgp_tpu_torch.utils import checkpoint
+from deepcgp_tpu_torch.utils import checkpoint, profiling
 
 # name: (flags, image, last-layer lengthscale) -- (P, L) of the last layer.
 GEOMETRIES = {
@@ -56,6 +58,20 @@ GEOMETRIES = {
             (12, 12, 3), 'ard'),
 }
 NUM_IMAGES = 48
+# The geometries the gate sends fused (P > 64 on the row-tiled image
+# side); each also runs unfused, forced, as '<name>-unfused'.
+FUSED = ('mnist', 'strided')
+ROUTED = sorted(GEOMETRIES) + [f'{name}-unfused' for name in FUSED]
+
+
+def routed(name, monkeypatch):
+    """(geometry, whether the last layer takes the fused route): a
+    '-unfused' name forces the unfused route, ``fused_fits`` answering
+    False inside the test."""
+    name, _, forced = name.partition('-')
+    if forced:
+        monkeypatch.setattr(cuda_cross, 'fused_fits', lambda kernel: False)
+    return name, name in FUSED and not forced
 
 
 def jax_draws(model, key, N):
@@ -138,15 +154,16 @@ def _elbo_and_grads(name, dtype):
     return elbo_j, grads_j, elbo, dict(zip(params, grads)), port
 
 
-@pytest.mark.parametrize('name', sorted(GEOMETRIES))
+@pytest.mark.parametrize('name', ROUTED)
 def test_elbo_and_gradients_f64_match_jax(name, monkeypatch):
     """float64, the JAX package on its transposed-order Pallas extraction
-    (interpret mode) and its unfused route: the ELBO and every gradient to
-    1e-9, with an absolute floor of 1e-9 times the leaf's largest
-    magnitude."""
+    (interpret mode) and its unfused route, the port on the route its gate
+    chooses (or forced unfused): the ELBO and every gradient to 1e-9, with
+    an absolute floor of 1e-9 times the leaf's largest magnitude."""
     monkeypatch.setenv('DEEPCGP_PALLAS_EXTRACT', '1')
+    name, fused = routed(name, monkeypatch)
     elbo_j, grads_j, elbo, grads, port = _elbo_and_grads(name, np.float64)
-    assert not cuda_cross.fused_fits(port.layers[-1].kernel)
+    assert cuda_cross.fused_fits(port.layers[-1].kernel) == fused
     np.testing.assert_allclose(float(elbo.detach()), float(elbo_j), rtol=1e-9)
     assert len(grads) == 5 * len(port.layers) + 1
     for key, g in grads.items():
@@ -156,19 +173,22 @@ def test_elbo_and_gradients_f64_match_jax(name, monkeypatch):
                                    atol=1e-9 * np.abs(ref).max(), err_msg=key)
 
 
-@pytest.mark.parametrize('name', sorted(GEOMETRIES))
+@pytest.mark.parametrize('name', ROUTED)
 def test_elbo_and_gradients_f32_through_kernel_paths(name, monkeypatch):
     """float32 with the JAX package forced through its Pallas kernels
     (interpret mode), its unfused route's extraction and col2im among
     them, and the port through their plain versions; the tolerances of
     tests/test_torch_training.py's float32 test: the ELBO to 1e-4
     relative, each gradient to 5e-3 of its leaf's largest magnitude.  Per
-    ELBO the port extracts once (K6), calls K7 once where the image is a
-    hidden layer's samples and not at all where it is data, and never
-    takes the fused kernels."""
+    ELBO the port's unfused route extracts once (K6), calls K7 once where
+    the image is a hidden layer's samples and not at all where it is data,
+    and never takes the fused kernels; its fused route takes K4 and K5
+    once each and neither K6 nor K7 (K5's plain version forms d images
+    itself)."""
     monkeypatch.setenv('DEEPCGP_PALLAS_FORCE', '1')
     monkeypatch.setenv('DEEPCGP_PALLAS_EXTRACT', '1')
     monkeypatch.setenv('DEEPCGP_PALLAS_CROSS', '0')
+    name, fused = routed(name, monkeypatch)
     calls = {'k4': 0, 'k5': 0, 'k6': 0, 'k7': 0}
 
     def count(key, fn):
@@ -190,12 +210,16 @@ def test_elbo_and_gradients_f32_through_kernel_paths(name, monkeypatch):
         err = np.abs(g.numpy() - ref).max() / np.abs(ref).max()
         assert err <= 5e-3, (key, err)
     hidden = len(port.layers) > 1
-    assert calls == {'k4': 0, 'k5': 0, 'k6': 1, 'k7': int(hidden)}
+    if fused:
+        assert calls == {'k4': 1, 'k5': 1, 'k6': 0, 'k7': 0}
+    else:
+        assert calls == {'k4': 0, 'k5': 0, 'k6': 1, 'k7': int(hidden)}
 
 
 def test_routes():
-    """fused_fits: the flagship's last layer is fused; MNIST 28 x 28, the
-    fm32 last layer (L = 800), CIFAR with strides 2,1 (P = 100) and ARD
+    """fused_fits: the flagship's last layer is fused on the cluster image
+    side; MNIST 28 x 28 (P = 576) and CIFAR with strides 2,1 (P = 100) are
+    fused on the row-tiled one; the fm32 last layer (L = 800) and ARD
     lengthscales are unfused, on the CPU as on the card."""
     iso = RBF.create(5.0, 5.0, dtype=torch.float64)
 
@@ -205,9 +229,12 @@ def test_routes():
 
     assert cuda_cross.fused_fits(kernel(10, 10, 5))
     assert cuda_cross.fused_fits(kernel(10, 10, 5, cls=AdditivePatchKernel))
-    assert not cuda_cross.fused_fits(kernel(28, 1, 5))
+    assert cuda_cross.bwd_route(36, 250) == 'cluster'
+    assert cuda_cross.fused_fits(kernel(28, 1, 5))
+    assert cuda_cross.bwd_route(576, 25) == 'tiled'
     assert not cuda_cross.fused_fits(kernel(10, 32, 5))
-    assert not cuda_cross.fused_fits(kernel(14, 10, 5))
+    assert cuda_cross.fused_fits(kernel(14, 10, 5))
+    assert cuda_cross.bwd_route(100, 250) == 'tiled'
     ard = RBF.create(5.0, 5.0, ard_dim=250, dtype=torch.float64)
     assert not cuda_cross.fused_fits(kernel(10, 10, 5, base=ard))
 
@@ -329,10 +356,7 @@ def _write_run(root, flags, model, step):
     return run
 
 
-def test_mnist_train_save_serve_round_trip(tmp_path):
-    """A fresh MNIST-shaped ConvKernel model trains on the unfused route,
-    saves as a reference snapshot, and ``Predictor.from_run_dir`` serves
-    it: the same parameters, finite probabilities that sum to 1."""
+def _round_trip(tmp_path, fused):
     flags, image, _ = GEOMETRIES['mnist']
     rng = np.random.RandomState(11)
     X = rng.randn(64, *image)
@@ -340,12 +364,18 @@ def test_mnist_train_save_serve_round_trip(tmp_path):
     model = build_model(flags, image, images=X,
                         generator=torch.Generator().manual_seed(0),
                         dtype=torch.float64, device='cpu')
-    assert not cuda_cross.fused_fits(model.layers[-1].kernel)
+    assert cuda_cross.fused_fits(model.layers[-1].kernel) == fused
     config = trainer.TrainConfig(batch_size=8)
     state = trainer.init_state(model, config, seed=5)
     Xd = torch.as_tensor(X.reshape(64, -1))
+    before = {r: profiling.COUNTERS[f'cross route {r}']
+              for r in ('fused', 'unfused')}
     trace = trainer.run_chunk(state, config, Xd, torch.as_tensor(Y), 3)
     assert torch.isfinite(trace).all()
+    routes = {r: profiling.COUNTERS[f'cross route {r}'] - n
+              for r, n in before.items()}
+    taken, other = ('fused', 'unfused') if fused else ('unfused', 'fused')
+    assert routes[taken] >= 3 and routes[other] == 0, routes
     run = _write_run(str(tmp_path), flags, model, int(state.step))
     pred = Predictor.from_run_dir(run, image, batch_size=8, num_samples=3,
                                   dtype=torch.float64, device='cpu')
@@ -355,6 +385,71 @@ def test_mnist_train_save_serve_round_trip(tmp_path):
     probs = pred.predict_proba(X[:13])
     assert probs.shape == (13, 10) and np.isfinite(probs).all()
     np.testing.assert_allclose(probs.sum(1), 1.0, atol=5e-3)
+
+
+def test_mnist_train_save_serve_round_trip(tmp_path):
+    """A fresh MNIST-shaped ConvKernel model (P = 100) trains on the fused
+    route (the row-tiled image side), saves as a reference snapshot, and
+    ``Predictor.from_run_dir`` serves it: the same parameters, finite
+    probabilities that sum to 1."""
+    _round_trip(tmp_path, True)
+
+
+def test_mnist_train_save_serve_round_trip_unfused(tmp_path, monkeypatch):
+    """The same round trip on the unfused route, forced."""
+    monkeypatch.setattr(cuda_cross, 'fused_fits', lambda kernel: False)
+    _round_trip(tmp_path, False)
+
+
+@pytest.mark.parametrize('cls', ['conv', 'add'])
+def test_unfused_route_matches_fused_at_mnist_geometry(cls):
+    """At the MNIST ConvKernel's geometry (28 x 28, f = 5: P = 576, L =
+    25), the unfused pair (``_cross`` and ``Kdiag`` off one extraction)
+    equals the fused plain route's, values and every gradient (float64,
+    1e-10), and each call counts its route once in
+    ``profiling.COUNTERS``."""
+    tcls = {'conv': ConvKernel, 'add': AdditivePatchKernel}[cls]
+    rng = np.random.RandomState(12)
+    view = FullView(input_size=(28, 28), filter_size=5, feature_maps=1)
+    assert (view.patch_count, view.patch_length) == (576, 25)
+    X = torch.tensor(0.5 * rng.randn(3, 28 * 28))
+    Z = torch.tensor(0.5 * rng.randn(40, 25))
+    cz, cd = torch.tensor(rng.randn(3, 40)), torch.tensor(rng.randn(3))
+    outs = []
+    for fused in (True, False):
+        k = tcls(RBF.create(1.3, 4.0, dtype=torch.float64),
+                 torch.tensor(rng.rand(576) + 0.5), view)
+        for i, p in enumerate(k.parameters()):
+            if outs:
+                p.data.copy_(outs[0][2][i])
+            p.requires_grad_(True)
+        Zi, Xi = Z.clone().requires_grad_(True), X.clone().requires_grad_(True)
+        before = dict(profiling.COUNTERS)
+        if fused:
+            kzx, kd = k.Kzx_NM_and_Kdiag(Zi, Xi)
+        else:
+            patches = k._patches(Xi)
+            kzx, kd = k._cross(Zi, patches), k.Kdiag(Xi, patches)
+        counted = {r: profiling.COUNTERS[f'cross route {r}']
+                   - before.get(f'cross route {r}', 0)
+                   for r in ('fused', 'unfused')}
+        assert counted == {'fused': int(fused), 'unfused': 0}
+        params = list(k.parameters())
+        grads = torch.autograd.grad((kzx * cz).sum() + (kd * cd).sum(),
+                                    [Zi, Xi] + params)
+        outs.append(([kzx, kd], grads, [p.detach() for p in k.parameters()]))
+    for a, b in zip(outs[0][0] + list(outs[0][1]),
+                    outs[1][0] + list(outs[1][1])):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-10,
+                                   atol=1e-10 * float(b.detach().abs().max()))
+    k = tcls(RBF.create(1.3, 4.0, dtype=torch.float64),
+             torch.tensor(rng.rand(36) + 0.5),
+             FullView(input_size=(10, 10), filter_size=5, feature_maps=32))
+    before = profiling.COUNTERS['cross route unfused']
+    k.Kzx_NM_and_Kdiag(torch.tensor(rng.randn(5, 800)),
+                       torch.tensor(rng.randn(2, 3200)))
+    assert profiling.COUNTERS['cross route unfused'] == before + 1
 
 
 def test_ard_patch_last_layer_snapshot_both_ways(tmp_path):
